@@ -3,9 +3,10 @@
 The package mirrors ``scan2cap_tpu``'s module layout so each port module
 has an obvious counterpart.  It imports torch and numpy only — never JAX,
 Flax or anything of ``scan2cap_tpu``; what it needs from there it keeps as
-its own copy.  The two TPU kernels of the serving path (furthest-point
-sampling and the exact ball query) are hand-written CUDA under ``csrc/``,
-built with ``nvcc`` at first use (``kernels/_build.py``).
+its own copy.  The TPU kernels of the JAX repository (furthest-point
+sampling, the exact ball query, the row gather of ``group_points`` and the
+two pack-tile probes) are hand-written CUDA under ``csrc/``, built with
+``nvcc`` at first use (``kernels/_build.py``).
 
 Entry points run on the card: they take an explicit ``device`` that
 defaults to ``"cuda"`` and raise when CUDA is missing unless the caller

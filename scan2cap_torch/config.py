@@ -1,6 +1,6 @@
 """Static model configuration (copy of ``scan2cap_tpu/config.py:45-163``).
 
-Only what the serving path reads: ``ModelConfig`` and the ScanNet
+Only what the ported paths read: ``ModelConfig`` and the ScanNet
 mean-size table.  Field names and defaults are the JAX package's, so a
 config written for one package reads the same in the other.  The
 TPU-only knobs (``compute_dtype``, ``storage_dtype``, ``bf16_components``,

@@ -1,10 +1,12 @@
-"""Synthetic ScanRefer-style scenes (numpy-only copy of the eval part of
+"""Synthetic ScanRefer-style scenes (numpy-only copy of
 ``scan2cap_tpu/data/synthetic.py:20-170``).
 
 ``make_vocab`` and ``make_scene_batch`` draw the same numbers from the same
-seed as the JAX package's functions, so both packages see one batch.  Only
-the keys the eval forward reads are produced: the point cloud, the caption
-embedding (whose first row is the sos embedding) and the embedding table.
+seed as the JAX package's functions, so both packages see one batch, with
+the keys and shapes of the reference dataset output (lib/dataset.py:503-540):
+the point cloud, vote labels (tiled x3), box labels padded to
+``max_num_obj``, GT corner boxes, the reference box, and a random-token
+caption with its embedding (whose first row is the sos embedding).
 """
 
 from __future__ import annotations
@@ -34,49 +36,142 @@ def make_vocab(num_vocabs: int = 64, emb_size: int = 300,
     }
 
 
-def make_scene_batch(cfg: ModelConfig, batch_size: int = 2,
-                     num_objects: int = 4, vocab: Optional[Dict] = None,
-                     seed: int = 0) -> Dict[str, np.ndarray]:
-    """Random rooms with a few axis-aligned boxes; the eval keys of
-    ``scan2cap_tpu.data.synthetic.make_scene_batch`` with equal values."""
+def make_scene_batch(
+    cfg: ModelConfig,
+    batch_size: int = 2,
+    num_objects: int = 4,
+    vocab: Optional[Dict] = None,
+    seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    """Random rooms with a few axis-aligned boxes: every key of
+    ``scan2cap_tpu.data.synthetic.make_scene_batch`` with equal values for
+    equal seeds (point cloud, votes, padded box labels, GT corners, the
+    reference box, a random-token caption and the embedding table)."""
     rs = np.random.RandomState(seed)
     if vocab is None:
         vocab = make_vocab(emb_size=cfg.emb_size)
     V = len(vocab["word2idx"])
     N = cfg.num_points
+    M = cfg.max_num_obj
     T = cfg.max_des_len + 2
-    pc = np.zeros((batch_size, N, 3 + cfg.input_feature_dim), np.float32)
+    in_dim = cfg.input_feature_dim
+
+    pc = np.zeros((batch_size, N, 3 + in_dim), np.float32)
+    vote_label = np.zeros((batch_size, N, 9), np.float32)
+    vote_label_mask = np.zeros((batch_size, N), np.int32)
+    center_label = np.zeros((batch_size, M, 3), np.float32)
+    box_label_mask = np.zeros((batch_size, M), np.float32)
+    heading_class_label = np.zeros((batch_size, M), np.int32)
+    heading_residual_label = np.zeros((batch_size, M), np.float32)
+    size_class_label = np.zeros((batch_size, M), np.int32)
+    size_residual_label = np.zeros((batch_size, M, 3), np.float32)
+    sem_cls_label = np.zeros((batch_size, M), np.int32)
+    gt_box_corner_label = np.zeros((batch_size, M, 8, 3), np.float32)
+    gt_box_masks = np.zeros((batch_size, M), np.int32)
+    gt_box_object_ids = np.zeros((batch_size, M), np.int32)
+    scene_object_ids = np.zeros((batch_size, M), np.int32)
+    rotations = np.zeros((batch_size, M, 3, 3), np.float32)
+    rotation_masks = np.zeros((batch_size, M), np.int32)
+    ref_box_corner_label = np.zeros((batch_size, 8, 3), np.float32)
+    ref_center_label = np.zeros((batch_size, 3), np.float32)
+    ref_size_class_label = np.zeros((batch_size,), np.int32)
+    ref_size_residual_label = np.zeros((batch_size, 3), np.float32)
     lang_feat = np.zeros((batch_size, T, cfg.emb_size), np.float32)
+    lang_ids = np.zeros((batch_size, T), np.int32)
+    lang_len = np.zeros((batch_size,), np.int32)
+    object_ids = np.zeros((batch_size,), np.int32)
+
     table = vocab["emb_table"]
     sos_id = vocab["word2idx"]["sos"]
     eos_id = vocab["word2idx"]["eos"]
 
     for b in range(batch_size):
+        # room-scale background points
         pc[b, :, 0:2] = rs.uniform(-4, 4, (N, 2))
         pc[b, :, 2] = rs.uniform(0, 0.05, N)
+
         pts_per_obj = N // (2 * num_objects)
         cursor = 0
-        for _ in range(num_objects):
+        for o in range(num_objects):
             cls = rs.randint(0, cfg.num_class)
             size = SCANNET_MEAN_SIZE_ARR[cls] * rs.uniform(0.8, 1.2, 3)
             center = np.array([
                 rs.uniform(-3, 3), rs.uniform(-3, 3), size[2] / 2 + 0.05])
             lo, hi = center - size / 2, center + size / 2
-            pc[b, cursor:cursor + pts_per_obj, :3] = rs.uniform(
-                lo, hi, (pts_per_obj, 3)).astype(np.float32)
+            pts = rs.uniform(lo, hi, (pts_per_obj, 3)).astype(np.float32)
+            pc[b, cursor:cursor + pts_per_obj, :3] = pts
+            # votes: every in-box point votes to the box center of its points
+            pcenter = 0.5 * (pts.min(0) + pts.max(0))
+            vote = (pcenter - pts).astype(np.float32)
+            vote_label[b, cursor:cursor + pts_per_obj] = np.tile(vote, (1, 3))
+            vote_label_mask[b, cursor:cursor + pts_per_obj] = 1
             cursor += pts_per_obj
-            rs.uniform(0, np.pi)               # box rotation (train labels)
-        rs.randint(0, num_objects)             # reference object (train labels)
+
+            center_label[b, o] = center
+            box_label_mask[b, o] = 1
+            size_class_label[b, o] = cls
+            size_residual_label[b, o] = size - SCANNET_MEAN_SIZE_ARR[cls]
+            sem_cls_label[b, o] = cls
+            gt_box_masks[b, o] = 1
+            gt_box_object_ids[b, o] = o
+            scene_object_ids[b, o] = o
+            # corner order matches get_3d_box (heading 0)
+            sx = np.array([1, 1, -1, -1, 1, 1, -1, -1]) * size[0] / 2
+            sy = np.array([1, -1, -1, 1, 1, -1, -1, 1]) * size[1] / 2
+            sz = np.array([1, 1, 1, 1, -1, -1, -1, -1]) * size[2] / 2
+            gt_box_corner_label[b, o] = np.stack([sx, sy, sz], 1) + center
+            theta = rs.uniform(0, np.pi)
+            c, s = np.cos(theta), np.sin(theta)
+            rotations[b, o] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+            rotation_masks[b, o] = 1
+
+        # reference target = object 0
+        ref = rs.randint(0, num_objects)
+        object_ids[b] = ref
+        ref_box_corner_label[b] = gt_box_corner_label[b, ref]
+        ref_center_label[b] = center_label[b, ref]
+        ref_size_class_label[b] = size_class_label[b, ref]
+        ref_size_residual_label[b] = size_residual_label[b, ref]
+
+        # caption: sos w1..wk eos pad...
         k = rs.randint(3, cfg.max_des_len)
         ids = [sos_id] + list(rs.randint(4, V, k)) + [eos_id]
+        lang_ids[b, :len(ids)] = ids
+        lang_len[b] = len(ids)
         lang_feat[b, :len(ids)] = table[ids]
+
         if cfg.use_height:
             floor = np.percentile(pc[b, :, 2], 0.99)
             pc[b, :, 3 + 3 * cfg.use_color + 3 * cfg.use_normal
                + 128 * cfg.use_multiview] = pc[b, :, 2] - floor
 
-    return {"point_clouds": pc, "lang_feat": lang_feat,
-            "glove_emb_table": table}
+    return {
+        "point_clouds": pc,
+        "lang_feat": lang_feat,
+        "lang_len": lang_len,
+        "lang_ids": lang_ids,
+        "center_label": center_label,
+        "heading_class_label": heading_class_label,
+        "heading_residual_label": heading_residual_label,
+        "size_class_label": size_class_label,
+        "size_residual_label": size_residual_label,
+        "sem_cls_label": sem_cls_label,
+        "box_label_mask": box_label_mask,
+        "vote_label": vote_label,
+        "vote_label_mask": vote_label_mask,
+        "scene_object_ids": scene_object_ids,
+        "scene_object_rotations": rotations,
+        "scene_object_rotation_masks": rotation_masks,
+        "gt_box_corner_label": gt_box_corner_label,
+        "gt_box_masks": gt_box_masks,
+        "gt_box_object_ids": gt_box_object_ids,
+        "ref_box_corner_label": ref_box_corner_label,
+        "ref_center_label": ref_center_label,
+        "ref_size_class_label": ref_size_class_label,
+        "ref_size_residual_label": ref_size_residual_label,
+        "object_id": object_ids,
+        "glove_emb_table": table,
+    }
 
 
 def to_device(batch: Dict[str, np.ndarray],

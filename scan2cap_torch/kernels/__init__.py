@@ -9,8 +9,11 @@ tensors here and CPU tensors to their plain PyTorch versions.
 
 from scan2cap_torch.kernels.ballquery import ball_query_cuda, ball_query_pack_cuda
 from scan2cap_torch.kernels.fps import furthest_point_sample_cuda
+from scan2cap_torch.kernels.gather import group_points_cuda
+from scan2cap_torch.kernels.pack_probe import pack_probe_cuda, shift_probe_cuda
 
-WRAPPERS = (furthest_point_sample_cuda, ball_query_cuda, ball_query_pack_cuda)
+WRAPPERS = (furthest_point_sample_cuda, ball_query_cuda, ball_query_pack_cuda,
+            group_points_cuda, pack_probe_cuda, shift_probe_cuda)
 
 
 def reset_launch_counts() -> None:
@@ -19,4 +22,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["ball_query_cuda", "ball_query_pack_cuda",
-           "furthest_point_sample_cuda", "reset_launch_counts", "WRAPPERS"]
+           "furthest_point_sample_cuda", "group_points_cuda",
+           "pack_probe_cuda", "shift_probe_cuda", "reset_launch_counts",
+           "WRAPPERS"]

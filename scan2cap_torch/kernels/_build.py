@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("fps", "ballquery")
+SOURCES = ("fps", "ballquery", "gather", "pack_probe")
 
 # -Xptxas -v reports registers/spills per kernel into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

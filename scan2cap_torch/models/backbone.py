@@ -24,6 +24,43 @@ from scan2cap_torch.ops import (ball_query, furthest_point_sample,
                                 gather_points, group_points,
                                 interpolation_weights, query_and_group,
                                 three_interpolate, three_nn)
+from scan2cap_torch.ops.grouping import group_points_forward
+
+
+class _LeafGatheredProjection(torch.autograd.Function):
+    """group_points(cat @ w0, idx) - (ct_in @ w0)[:, :, None, :] with a
+    scatter-free backward (``scan2cap_tpu/models/backbone.py:46-76``).
+
+    The gradient of the neighbour gather is a scatter-add into the (B, N, D)
+    projection.  When ``cat`` and ``ct_in`` need no gradient (sa1: they come
+    straight from the input cloud), the only consumer is w0, and
+    dL/dw0 = gather(cat, idx)^T g - ct_in^T sum_s g: a forward-style gather
+    and two small products.  ONLY valid when the point features are leaves
+    (``PointnetSAModuleVotes.leaf_inputs``): no gradient is returned for
+    ``cat``, ``ct_in`` or ``idx``.  ``w0`` is (in, out)."""
+
+    @staticmethod
+    def forward(ctx, cat, ct_in, w0, idx):
+        ctx.save_for_backward(cat, ct_in, idx)
+        proj = cat @ w0
+        ct = ct_in @ w0
+        return group_points_forward(proj, idx) - ct[:, :, None, :]
+
+    @staticmethod
+    def backward(ctx, g):
+        cat, ct_in, idx = ctx.saved_tensors
+        gath = group_points_forward(cat, idx)              # (B, M, S, Cin)
+        dW = (torch.einsum("bmsc,bmsd->cd", gath, g)
+              - torch.einsum("bmc,bmd->cd", ct_in, g.sum(dim=2)))
+        return None, None, dW, None
+
+
+def leaf_gathered_projection(cat: torch.Tensor, ct_in: torch.Tensor,
+                             w0: torch.Tensor, idx: torch.Tensor
+                             ) -> torch.Tensor:
+    """cat (B, N, Cin), ct_in (B, M, Cin), w0 (Cin, D), idx (B, M, S) ->
+    (B, M, S, D); differentiable in ``w0`` only."""
+    return _LeafGatheredProjection.apply(cat, ct_in, w0, idx)
 
 
 class PointnetSAModuleVotes(nn.Module):
@@ -33,7 +70,7 @@ class PointnetSAModuleVotes(nn.Module):
 
     def __init__(self, npoint: int, radius: float, nsample: int,
                  in_features: int, mlp: Sequence[int], use_xyz: bool = True,
-                 normalize_xyz: bool = True):
+                 normalize_xyz: bool = True, leaf_inputs: bool = False):
         super().__init__()
         self.npoint = npoint
         self.radius = radius
@@ -47,6 +84,11 @@ class PointnetSAModuleVotes(nn.Module):
         # bias-free layer 0 once and gather the narrow projection instead
         # of the wide raw features (scan2cap_tpu/models/backbone.py:131-181)
         self.gather_lean = use_xyz and in_width > mlp[0]
+        # the input xyz/features are autograd leaves (raw data, not
+        # activations): enables the scatter-free backward of the gather-lean
+        # projection.  Do NOT set on a layer fed by earlier layers: their
+        # feature gradients would be dropped.
+        self.leaf_inputs = leaf_inputs
 
     def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor],
                 inds: Optional[torch.Tensor] = None, train: bool = False,
@@ -68,9 +110,13 @@ class PointnetSAModuleVotes(nn.Module):
                 ct_in = torch.cat(
                     [ct_in, ct_in.new_zeros(ct_in.shape[:-1]
                                             + (features.shape[-1],))], -1)
-            proj = self.mlp.project_first(cat)              # (B, N, w0)
-            ct = self.mlp.project_first(ct_in)              # (B, npoint, w0)
-            g = group_points(proj, idx) - ct[:, :, None, :]
+            if self.leaf_inputs:
+                g = leaf_gathered_projection(
+                    cat, ct_in, self.mlp.dense_0.weight.t(), idx)
+            else:
+                proj = self.mlp.project_first(cat)          # (B, N, w0)
+                ct = self.mlp.project_first(ct_in)          # (B, npoint, w0)
+                g = group_points(proj, idx) - ct[:, :, None, :]
             out = self.mlp.from_first(g, train, bn_momentum)
         else:
             grouped = query_and_group(xyz, new_xyz, features, self.radius,
@@ -109,8 +155,9 @@ class Pointnet2Backbone(nn.Module):
                  sa_npoints: Tuple[int, int, int, int] = (2048, 1024, 512, 256)):
         super().__init__()
         np1, np2, np3, np4 = sa_npoints
+        # sa1's xyz/features come straight from the input cloud
         self.sa1 = PointnetSAModuleVotes(np1, 0.2, 64, input_feature_dim,
-                                         (64, 64, 128))
+                                         (64, 64, 128), leaf_inputs=True)
         self.sa2 = PointnetSAModuleVotes(np2, 0.4, 32, 128, (128, 128, 256))
         self.sa3 = PointnetSAModuleVotes(np3, 0.8, 16, 256, (128, 128, 256))
         self.sa4 = PointnetSAModuleVotes(np4, 1.2, 16, 256, (128, 128, 256))

@@ -55,9 +55,10 @@ class CapNet(nn.Module):
                 num_vocabs, emb_size=cfg.emb_size, feat_size=128,
                 hidden_size=cfg.hidden_size, num_locals=cfg.num_locals,
                 query_mode=cfg.query_mode, use_relation=cfg.use_relation,
-                max_des_len=cfg.max_des_len,
+                max_des_len=cfg.max_des_len, min_iou=cfg.min_iou,
                 num_vocabs_padded=num_vocabs_padded)
         self._init_weights(seed)
+        self.device = dev           # the device the caller asked for
         self.to(dev)
         self.eval()
 

@@ -27,7 +27,7 @@ def bbox_centers(corners: torch.Tensor) -> torch.Tensor:
     return (corners.amin(dim=-2) + corners.amax(dim=-2)) / 2.0
 
 
-def _norm3(diff: torch.Tensor) -> torch.Tensor:
+def norm3(diff: torch.Tensor) -> torch.Tensor:
     """sqrt(jnp.sum(diff**2, -1) + 1e-8) with the JAX op's rounding."""
     return torch.sqrt(sq_dist_reduce(diff[..., 0], diff[..., 1],
                                      diff[..., 2]) + 1e-8)
@@ -60,11 +60,12 @@ def query_locals_dense(corners: torch.Tensor, object_masks: torch.Tensor,
     Returns local_masks (B, K, K) float 0/1 and nbr_idx (B, K, L) int32,
     each row's neighbours in ascending proposal order."""
     B, K = object_masks.shape
+    corners = corners.detach()          # only indices and 0/1 masks come out
     centers = bbox_centers(corners)                                  # (B,K,3)
     if query_mode == "center":
-        dist = _norm3(centers[:, :, None, :] - centers[:, None, :, :])
+        dist = norm3(centers[:, :, None, :] - centers[:, None, :, :])
     elif query_mode == "corner":
-        dist = _norm3(corners[:, :, :, None, :]
+        dist = norm3(corners[:, :, :, None, :]
                       - centers[:, None, None, :, :]).amin(dim=2)
     else:
         raise ValueError(f"invalid query_mode {query_mode}")

@@ -1,5 +1,5 @@
 """Axis-aligned 3D box geometry
-(counterpart of ``scan2cap_tpu/ops/boxes.py:31,81``)."""
+(counterpart of ``scan2cap_tpu/ops/boxes.py:31,66,81``)."""
 
 from __future__ import annotations
 
@@ -41,6 +41,20 @@ def get_3d_box_batch(box_size: torch.Tensor, heading_angle: torch.Tensor,
 def box_min_max(corners: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., 8, 3) -> min (..., 3), max (..., 3)."""
     return corners.amin(dim=-2), corners.amax(dim=-2)
+
+
+def box3d_iou_batch(corners1: torch.Tensor,
+                    corners2: torch.Tensor) -> torch.Tensor:
+    """Elementwise AABB IoU over broadcast leading dims (box_util.py:156-209):
+    (..., 8, 3) x (..., 8, 3) -> (...,)."""
+    min1, max1 = box_min_max(corners1)
+    min2, max2 = box_min_max(corners2)
+    lo = torch.maximum(min1, min2)
+    hi = torch.minimum(max1, max2)
+    inter = torch.prod(torch.clamp(hi - lo, min=0.0), dim=-1)
+    vol1 = torch.prod(max1 - min1, dim=-1)
+    vol2 = torch.prod(max2 - min2, dim=-1)
+    return inter / (vol1 + vol2 - inter + 1e-8)
 
 
 def box3d_iou_matrix(corners1: torch.Tensor,

@@ -9,8 +9,13 @@ op's FMA rounding (``ops/distance.py``), and radius^2 is the host's double
 ``radius ** 2`` rounded once to f32 — the value the JAX op compares
 against.
 
-A CUDA tensor goes to the hand-written kernel (``kernels/ballquery.py``),
-a CPU tensor to the plain version below.
+``group_points`` is the row gather ``out[b, m, s] = features[b, idx[b, m, s]]``
+with its gradient, a scatter-add into the table (``index_add_``; on CUDA
+that sums with atomics in no fixed order, so the gradient is not
+bit-stable between runs).
+
+A CUDA tensor goes to the hand-written kernels (``kernels/ballquery.py``,
+``kernels/gather.py``), a CPU tensor to the plain versions below.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from scan2cap_torch.kernels.ballquery import ball_query_cuda
+from scan2cap_torch.kernels.gather import group_points_cuda
 from scan2cap_torch.ops.distance import sq_dist_elementwise
 
 # queries per hit-test slab in the plain versions: a (512, N) bool slab
@@ -107,13 +113,52 @@ def ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
     return ball_query_plain(xyz, new_xyz, radius, nsample)
 
 
-def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """features (B, N, C), idx (B, M, S) -> (B, M, S, C)."""
+def group_points_plain(features: torch.Tensor, idx: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain PyTorch row gather: features (B, N, C), idx (B, M, S) ->
+    (B, M, S, C).  The CPU path of ``group_points`` and the yardstick the
+    kernel is held against on the card."""
     B, N, C = features.shape
     _, M, S = idx.shape
     flat = idx.reshape(B, M * S).long()
     out = torch.gather(features, 1, flat[..., None].expand(-1, -1, C))
     return out.reshape(B, M, S, C)
+
+
+def group_points_forward(features: torch.Tensor, idx: torch.Tensor
+                         ) -> torch.Tensor:
+    """The gather without a gradient: the kernel on a CUDA tensor (or an
+    error), the plain version on a CPU tensor."""
+    if features.is_cuda:
+        return group_points_cuda(features.detach().contiguous(),
+                                 idx.to(torch.int32).contiguous())
+    if features.device.type != "cpu":
+        raise ValueError(f"unsupported device {features.device}")
+    return group_points_plain(features.detach(), idx)
+
+
+class _GroupPoints(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = features.shape
+        return group_points_forward(features, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        B, N, C = ctx.table_shape
+        rows = idx.reshape(B, -1).long() + N * torch.arange(
+            B, device=idx.device)[:, None]
+        table = grad.new_zeros((B * N, C))
+        table.index_add_(0, rows.reshape(-1), grad.reshape(-1, C))
+        return table.reshape(B, N, C), None
+
+
+def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """features (B, N, C), idx (B, M, S) -> (B, M, S, C), differentiable in
+    ``features``.  Indices must lie in [0, N)."""
+    return _GroupPoints.apply(features, idx)
 
 
 def query_and_group(xyz: torch.Tensor, new_xyz: torch.Tensor,

@@ -1,18 +1,29 @@
-"""Serving step (counterpart of ``scan2cap_tpu/train/step.py:115-144``).
+"""Train and serving steps (counterpart of ``scan2cap_tpu/train/step.py``).
+
+``make_train_step`` returns the function that takes one optimisation step:
+forward (backbone -> voting -> proposal -> graph -> teacher-forced caption),
+loss, backward, Adam update, BN running-statistics update.  The optimizer
+is ``torch.optim.Adam(weight_decay=wd)``: L2 weight decay coupled into the
+gradient before the moments (scripts/train.py:135), which is what the JAX
+package builds from ``add_decayed_weights`` + ``scale_by_adam``; never
+``AdamW``.  The learning rate and the BN momentum are call arguments, so
+the detection-only schedules (``train/schedules.py``) need no rebuild.
 
 ``make_eval_step`` returns the function that answers a batch of scenes
 with boxes and a caption per box: one eval forward of CapNet (free-running
-decode, BN running statistics) reduced to the keys the JAX eval step
-keeps.  The train step and the detection loss come with the training slice.
+decode, BN running statistics) and, by default, the detection loss's
+proposal-to-GT assignment, reduced to the keys the JAX eval step keeps.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import dataclasses
+from typing import Callable, Dict, Optional
 
 import torch
 
 from scan2cap_torch.config import ModelConfig
+from scan2cap_torch.losses import get_scene_cap_loss
 from scan2cap_torch.models.capnet import CapNet
 
 KEEP_KEYS = (
@@ -23,28 +34,117 @@ KEEP_KEYS = (
     "valid_masks",
 )
 ATTN_KEYS = ("topdown_attn", "topdown_attn_slots")
+REPORT_KEYS = (
+    "loss", "vote_loss", "objectness_loss", "box_loss", "center_loss",
+    "heading_cls_loss", "heading_reg_loss", "size_cls_loss",
+    "size_reg_loss", "sem_cls_loss", "cap_loss", "ori_loss", "dist_loss",
+    "cap_acc", "ori_acc", "obj_acc", "pred_ious", "pos_ratio", "neg_ratio",
+)
+DEFAULT_WD = 1e-5                                  # scripts/train.py:135
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (parameters and BN statistics), its optimizer, and the
+    number of steps taken."""
+    model: CapNet
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def _check_device(model: CapNet) -> None:
+    """The model must still lie on the device it was built for: CUDA unless
+    the caller built it with ``device="cpu"``."""
+    where = next(model.parameters()).device
+    if where.type != model.device.type:
+        raise RuntimeError(
+            f"the model was built for {model.device} but lies on {where}; "
+            f"build it with device='cpu' to run on the CPU")
+
+
+def make_optimizer(params, wd: float = DEFAULT_WD) -> torch.optim.Adam:
+    """torch Adam with coupled L2 weight decay; the learning rate is set at
+    every step from the call's argument."""
+    return torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=wd)
+
+
+def create_train_state(cfg: ModelConfig, model: CapNet,
+                       wd: Optional[float] = None) -> TrainState:
+    if cfg != model.cfg:
+        raise ValueError("cfg differs from the config the model was built with")
+    _check_device(model)
+    return TrainState(model=model, optimizer=make_optimizer(
+        model.parameters(), DEFAULT_WD if wd is None else wd))
+
+
+def make_train_step(cfg: ModelConfig, state: TrainState,
+                    detection: bool = True, caption: bool = True,
+                    orientation: bool = False, distance: bool = False,
+                    use_tf: bool = True
+                    ) -> Callable[[Dict, float, float], Dict]:
+    """Returns ``train_step(batch, lr, bn_momentum) -> metrics`` over the
+    model's device; it updates ``state`` in place.
+
+    ``batch`` maps the data-dict keys to tensors on the model's device
+    (``data.synthetic.to_device``).  ``metrics`` holds the ``REPORT_KEYS``
+    as 0-d tensors on that device (no host synchronisation)."""
+    model, optimizer = state.model, state.optimizer
+    if cfg != model.cfg:
+        raise ValueError("cfg differs from the config the model was built with")
+    _check_device(model)
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def train_step(batch: Dict, lr: float, bn_momentum: float) -> Dict:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        out = model(batch, use_tf=use_tf, is_eval=False, train=True,
+                    bn_momentum=bn_momentum)
+        out = get_scene_cap_loss(
+            out, detection=detection, caption=caption and not cfg.no_caption,
+            orientation=orientation, distance=distance, num_bins=cfg.num_bins,
+            num_heading_bin=cfg.num_heading_bin,
+            num_size_cluster=cfg.num_size_cluster)
+        out["loss"].backward()
+        for p in params:
+            # a parameter the loss does not reach still decays, as it does
+            # under the JAX step, whose gradient tree holds zeros for it
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        for group in optimizer.param_groups:
+            group["lr"] = float(lr)
+        optimizer.step()
+        state.step += 1
+        return {k: out[k].detach() for k in REPORT_KEYS if k in out}
+
+    return train_step
 
 
 def make_eval_step(cfg: ModelConfig, model: CapNet,
-                   detection_loss: bool = False,
+                   detection_loss: bool = True,
                    keep_attn: bool = False) -> Callable[[Dict], Dict]:
     """Returns ``eval_step(batch) -> dict`` over the model's device.
 
     ``batch`` maps the data-dict keys to tensors on the model's device
-    (``data.synthetic.to_device``).  ``keep_attn`` also keeps the per-step
-    attention over the local slots, as the JAX step does."""
-    if detection_loss:
-        raise NotImplementedError(
-            "the detection loss (object_assignment, objectness labels) "
-            "comes with the training slice")
+    (``data.synthetic.to_device``).  With ``detection_loss`` the batch must
+    carry the detection labels, and the result also holds
+    ``object_assignment``, ``objectness_label`` and ``objectness_mask``, as
+    the reference's eval path does (lib/eval_helper.py:170).  ``keep_attn``
+    also keeps the per-step attention over the local slots."""
     if cfg != model.cfg:
         raise ValueError("cfg differs from the config the model was built with")
+    _check_device(model)
     keep = KEEP_KEYS + (ATTN_KEYS if keep_attn else ())
 
     def eval_step(batch: Dict) -> Dict:
         model.eval()
         with torch.inference_mode():
             out = model(batch, use_tf=False, is_eval=True, train=False)
+            if detection_loss:
+                out = get_scene_cap_loss(
+                    out, detection=True, caption=False,
+                    num_heading_bin=cfg.num_heading_bin,
+                    num_size_cluster=cfg.num_size_cluster)
         return {k: out[k] for k in keep if k in out}
 
     return eval_step

@@ -34,7 +34,12 @@ from scan2cap_torch.config import ModelConfig
 from scan2cap_torch.convert import state_dict_from_flax
 from scan2cap_torch.data import synthetic
 from scan2cap_torch.models import CapNet
-from scan2cap_torch.train.step import make_eval_step
+from scan2cap_torch.probes import gather as gather_probe
+from scan2cap_torch.probes import pack as pack_probe
+from scan2cap_torch.probes import shift as shift_probe
+from scan2cap_torch.train.step import (TrainState, create_train_state,
+                                       make_eval_step, make_optimizer,
+                                       make_train_step)
 
 V = 40
 CFG = dict(num_points=2048, sa_npoints=(256, 128, 64, 32), num_proposals=32,
@@ -86,7 +91,8 @@ def runs():
     tbatch = synthetic.to_device(batch, "cpu")
     with torch.inference_mode():
         tfull = model(tbatch)
-    teval = make_eval_step(cfg, model, keep_attn=True)(tbatch)
+    teval = make_eval_step(cfg, model, detection_loss=False,
+                           keep_attn=True)(tbatch)
     as_np = lambda d: {k: np.asarray(v) for k, v in d.items()}
     return dict(load=load, batch=batch, vocab=vocab, jcfg=jcfg, jbatch=jbatch,
                 params=state.params, batch_stats=state.batch_stats,
@@ -179,22 +185,27 @@ def test_padded_vocab_classifier_matches_jax(runs):
     assert tout["lang_cap"].max() < V
 
 
-def test_eval_step_detection_loss_not_ported():
-    cfg = ModelConfig(**CFG)
-    model = CapNet(cfg, num_vocabs=V, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_eval_step(cfg, model, detection_loss=True)
-
-
 def test_package_imports_nothing_of_jax():
     code = (
         "import sys\n"
         "import scan2cap_torch, scan2cap_torch.config, scan2cap_torch.convert\n"
         "import scan2cap_torch.ops, scan2cap_torch.kernels\n"
+        "import scan2cap_torch.ops.nn_distance\n"
+        "import scan2cap_torch.kernels.gather, scan2cap_torch.kernels.pack_probe\n"
         "import scan2cap_torch.models, scan2cap_torch.train.step\n"
+        "import scan2cap_torch.train.schedules, scan2cap_torch.losses\n"
+        "import scan2cap_torch.losses.detection, scan2cap_torch.losses.caption\n"
+        "import scan2cap_torch.losses.total, scan2cap_torch.probes\n"
+        "import scan2cap_torch.probes.pack, scan2cap_torch.probes.shift\n"
+        "import scan2cap_torch.probes.gather\n"
         "import scan2cap_torch.data.synthetic\n"
+        "import pkgutil\n"
+        "for m in pkgutil.walk_packages(scan2cap_torch.__path__,\n"
+        "                               'scan2cap_torch.'):\n"
+        "    __import__(m.name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'flax', 'scan2cap_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "                                    'scan2cap_tpu'))\n"
         "assert not bad, bad\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
@@ -209,3 +220,37 @@ def test_entry_points_need_cuda_unless_told_cpu():
         CapNet(cfg, num_vocabs=V)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         synthetic.to_device({"x": np.zeros(3, np.float32)})
+    # a model that was built for the card but does not lie on it
+    model = CapNet(cfg, num_vocabs=V, device="cpu")
+    model.device = torch.device("cuda")
+    for entry in (lambda: create_train_state(cfg, model),
+                  lambda: make_eval_step(cfg, model),
+                  lambda: make_train_step(
+                      cfg, TrainState(model, make_optimizer(model.parameters())))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
+    # the probes' entry points default to the card too
+    for run in (pack_probe.run, shift_probe.run, gather_probe.run):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run()
+
+
+def test_chip_smoke_fails_without_cuda_and_imports_nothing_of_jax():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the smoke run would start")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['chip_smoke.py']\n"
+        "try:\n"
+        "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'scan2cap_tpu'))\n"
+        "assert not bad, bad\n"
+        "sys.exit(rc)\n")
+    run = subprocess.run([sys.executable, "-c", code], cwd=root, timeout=120,
+                         capture_output=True, text=True)
+    assert run.returncode not in (0, None)
+    assert '"ok"' not in run.stdout

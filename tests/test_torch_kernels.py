@@ -110,3 +110,95 @@ def test_wrappers_check_their_inputs(card):
             torch.zeros((1, 3, 64), device=card).transpose(1, 2), 4)
     with pytest.raises(ValueError):
         kernels.ball_query_cuda(x, x[..., :2].contiguous(), 0.1, 4)
+
+
+def _gather_case(name):
+    rs = np.random.RandomState(13)
+    if name == "sa1_width":
+        B, N, C, M, S = 2, 5000, 64, 256, 64
+    elif name == "backward_width":            # C = 138: not a multiple of 4
+        B, N, C, M, S = 2, 3000, 138, 128, 64
+    elif name == "xyz":
+        B, N, C, M, S = 2, 3000, 3, 128, 16
+    elif name == "batch10":
+        B, N, C, M, S = 10, 700, 256, 64, 16
+    elif name == "one_row":
+        B, N, C, M, S = 1, 1, 5, 3, 4
+    else:
+        raise KeyError(name)
+    feats = rs.randn(B, N, C).astype(np.float32)
+    idx = rs.randint(0, N, (B, M, S)).astype(np.int32)
+    idx[:, :, S // 2:] = idx[:, :, :1]        # repeated indices
+    idx[:, 0, 0], idx[:, 0, 1 % S] = 0, N - 1
+    return feats, idx
+
+
+@pytest.mark.parametrize("case", ["sa1_width", "backward_width", "xyz",
+                                  "batch10", "one_row"])
+def test_gather_kernel_matches_plain(card, case):
+    feats, idx = _gather_case(case)
+    ft, it = torch.from_numpy(feats).to(card), torch.from_numpy(idx).to(card)
+    before = kernels.group_points_cuda.launches
+    got = grouping.group_points(ft, it)
+    assert kernels.group_points_cuda.launches == before + 1
+    assert torch.equal(got, grouping.group_points_plain(ft, it))
+
+
+def test_gather_gradient_on_the_card(card):
+    # the backward is an atomic scatter-add: close, not bit-equal
+    feats, idx = _gather_case("sa1_width")
+    ft = torch.from_numpy(feats).to(card).requires_grad_(True)
+    it = torch.from_numpy(idx).to(card)
+    g = torch.randn((2, 256, 64, 64), device=card)
+    (grouping.group_points(ft, it) * g).sum().backward()
+    f2 = torch.from_numpy(feats).to(card).requires_grad_(True)
+    (grouping.group_points_plain(f2, it) * g).sum().backward()
+    assert torch.allclose(ft.grad, f2.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_leaf_projection_uses_the_kernel_twice(card):
+    from scan2cap_torch.models.backbone import leaf_gathered_projection
+    feats, idx = _gather_case("sa1_width")
+    cat = torch.from_numpy(feats).to(card)
+    ct_in = torch.randn((2, 256, 64), device=card)
+    w0 = torch.randn((64, 32), device=card, requires_grad=True)
+    before = kernels.group_points_cuda.launches
+    out = leaf_gathered_projection(cat, ct_in, w0,
+                                   torch.from_numpy(idx).to(card))
+    out.sum().backward()
+    assert kernels.group_points_cuda.launches == before + 2
+    assert w0.grad is not None and torch.isfinite(w0.grad).all()
+
+
+def test_probe_kernels_match_plain(card):
+    from scan2cap_torch.probes import pack, shift
+    rs = np.random.RandomState(5)
+    for hit in (pack.crafted_hits(),
+                (rs.rand(1, 256, 512) < 0.3).astype(np.float32),
+                np.ones((1, 256, 512), np.float32)):
+        ht = torch.from_numpy(hit).to(card)
+        ints = torch.from_numpy(rs.randint(0, 65536, (1, 256, 128)).astype(
+            np.int32)).to(card)
+        before = (kernels.pack_probe_cuda.launches,
+                  kernels.shift_probe_cuda.launches)
+        raw, word = pack.pack_probe(ht)
+        outs = shift.shift_probe(ht, ints)
+        assert (kernels.pack_probe_cuda.launches,
+                kernels.shift_probe_cuda.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+        praw, pword = pack.pack_probe_plain(ht)
+        assert torch.equal(raw, praw) and torch.equal(word, pword)
+        for got, want in zip(outs, shift.shift_probe_plain(ht, ints)):
+            assert torch.equal(got, want)
+    assert pack.run(card)[1] == 0 and shift.run(card)[1] == 0
+
+
+def test_new_wrappers_check_their_inputs(card):
+    x = torch.zeros((1, 64, 4), device=card)
+    idx = torch.zeros((1, 2, 3), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        kernels.group_points_cuda(x, idx.long())
+    with pytest.raises(ValueError):
+        kernels.group_points_cuda(x.transpose(1, 2), idx)
+    with pytest.raises(ValueError):
+        kernels.pack_probe_cuda(torch.zeros((1, 256, 256), device=card))

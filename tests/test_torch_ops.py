@@ -5,6 +5,8 @@ port's plain PyTorch version.  Indices must be equal; floats within 1e-6
 (gathers and weighted sums of the same float32 values).
 """
 
+import importlib
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,10 @@ from scan2cap_tpu.ops.sampling import gather_points as jgather_points
 
 from scan2cap_torch import kernels
 from scan2cap_torch.ops import boxes, distance, grouping, interpolate, sampling
+
+# both packages export a function named like its module
+jnn = importlib.import_module("scan2cap_tpu.ops.nn_distance")
+nn_distance = importlib.import_module("scan2cap_torch.ops.nn_distance")
 
 T = torch.from_numpy
 
@@ -219,11 +225,113 @@ def test_cpu_tensors_take_the_plain_version():
     kernels.reset_launch_counts()
     x = T(np.random.RandomState(0).randn(1, 100, 3).astype(np.float32))
     sampling.furthest_point_sample(x, 8)
-    grouping.ball_query(x, x[:, :4], 0.5, 4)
+    idx = grouping.ball_query(x, x[:, :4], 0.5, 4)
+    grouping.group_points(x, idx)
     assert all(w.launches == 0 for w in kernels.WRAPPERS)
+    with pytest.raises(ValueError):
+        kernels.group_points_cuda(x, idx)
     with pytest.raises(ValueError):
         kernels.furthest_point_sample_cuda(x, 8)
     with pytest.raises(ValueError):
         kernels.ball_query_cuda(x, x, 0.25, 4)
     with pytest.raises(ValueError):
         kernels.ball_query_pack_cuda(x, x, 0.25)
+
+
+@pytest.mark.parametrize("C", [3, 8, 138])
+def test_group_points_gradient_matches_jax(C):
+    # forward exact; gradient (a scatter-add with repeated indices) 1e-6
+    rs = np.random.RandomState(8)
+    feats = rs.randn(2, 60, C).astype(np.float32)
+    idx = rs.randint(0, 60, (2, 9, 7)).astype(np.int32)
+    idx[:, :, 4:] = idx[:, :, :1]              # padded slots repeat a row
+    idx[0, 0, 0], idx[0, 0, 1] = 0, 59         # first and last row
+    g = rs.randn(2, 9, 7, C).astype(np.float32)
+    jfn = lambda f: jgrouping.group_points(f, jnp.asarray(idx))
+    want = np.asarray(jax.jit(jfn)(jnp.asarray(feats)))
+    jgrad = jax.jit(jax.grad(lambda f: jnp.sum(jfn(f) * g)))(jnp.asarray(feats))
+    t = T(feats).requires_grad_(True)
+    out = grouping.group_points(t, T(idx))
+    np.testing.assert_array_equal(out.detach().numpy(), want)
+    np.testing.assert_array_equal(
+        grouping.group_points_plain(T(feats), T(idx)).numpy(), want)
+    (out * T(g)).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(jgrad), rtol=0,
+                               atol=1e-6)
+    # and the same gradient as autograd through the plain gather
+    t2 = T(feats).requires_grad_(True)
+    (grouping.group_points_plain(t2, T(idx)) * T(g)).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), t2.grad.numpy(), rtol=0,
+                               atol=1e-6)
+
+
+def test_group_points_keeps_the_graph_under_no_grad_and_inference():
+    feats = T(np.random.RandomState(9).randn(1, 10, 4).astype(np.float32))
+    idx = T(np.array([[[0, 9, 3]]], np.int32))
+    with torch.inference_mode():
+        out = grouping.group_points(feats, idx)
+    assert out.shape == (1, 1, 3, 4) and not out.requires_grad
+    assert grouping.group_points(feats.requires_grad_(True), idx).requires_grad
+
+
+@pytest.mark.parametrize("mode", ["l2", "l1", "l1smooth"])
+def test_nn_distance_matches_jax(mode):
+    # indices exact (lowest index among equal minima), floats 1e-5
+    rs = np.random.RandomState(10)
+    a = rs.uniform(-2, 2, (2, 40, 3)).astype(np.float32)
+    b = rs.uniform(-2, 2, (2, 16, 3)).astype(np.float32)
+    b[:, 8:] = 0.0                             # padded rows: exact ties
+    a[0, 5] = b[0, 3]                          # a zero distance
+    kw = dict(l1=mode == "l1", l1smooth=mode == "l1smooth")
+    want = jax.jit(lambda x, y: jnn.nn_distance(x, y, **kw))(
+        jnp.asarray(a), jnp.asarray(b))
+    got = nn_distance.nn_distance(T(a), T(b), **kw)
+    for g, w, exact in zip(got, want, (False, True, False, True)):
+        if exact:
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_nn_distance_gradient_matches_jax():
+    rs = np.random.RandomState(11)
+    a = rs.uniform(-2, 2, (2, 20, 3)).astype(np.float32)
+    b = rs.uniform(-2, 2, (2, 12, 3)).astype(np.float32)
+    b[:, 6:] = 0.0                             # ties among the padded rows
+
+    def jloss(x):
+        d1, _, d2, _ = jnn.nn_distance(x, jnp.asarray(b))
+        return jnp.sum(d1) + 2.0 * jnp.sum(d2)
+
+    want = np.asarray(jax.jit(jax.grad(jloss))(jnp.asarray(a)))
+    t = T(a).requires_grad_(True)
+    d1, _, d2, _ = nn_distance.nn_distance(t, T(b))
+    (d1.sum() + 2.0 * d2.sum()).backward()
+    np.testing.assert_allclose(t.grad.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_huber_loss_matches_jax():
+    x = np.linspace(-3, 3, 61).astype(np.float32)
+    for delta in (1.0, 0.5):
+        np.testing.assert_allclose(
+            nn_distance.huber_loss(T(x), delta).numpy(),
+            np.asarray(jnn.huber_loss(jnp.asarray(x), delta)), rtol=1e-6,
+            atol=1e-7)
+
+
+def test_box3d_iou_batch_matches_jax():
+    rs = np.random.RandomState(12)
+    size = rs.uniform(0.2, 2.0, (2, 30, 3)).astype(np.float32)
+    center = rs.uniform(-1, 1, (2, 30, 3)).astype(np.float32)
+    c = boxes.get_3d_box_batch(T(size), T(np.zeros((2, 30), np.float32)),
+                               T(center))
+    ref = c[:, 4]                                            # (2, 8, 3)
+    got = boxes.box3d_iou_batch(c, ref[:, None])
+    want = jboxes.box3d_iou_batch(jnp.asarray(c.numpy()),
+                                  jnp.asarray(ref.numpy())[:, None])
+    assert got.shape == (2, 30)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-7)
+    assert got[:, 4].min() > 0.999                           # a box with itself
