@@ -7,17 +7,23 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
   1. card name and power limit (nvidia-smi); no CUDA -> exit 1;
   2. build the CUDA kernels (one nvcc per source, in parallel);
   3. each kernel against its plain PyTorch version on the card, at the
-     main-path shapes (B=2) plus edge cases: FPS, ball query (fused and
-     pack), the row gather at its six sites, and the two pack-tile probes;
-     indices, words, counts and gathered rows must be equal; kernel, plain
-     and library-call times and the bound at those shapes;
+     main-path shapes (B=2) plus edge cases: FPS (every boundary between
+     its variants, scenes smaller than a cluster, ties and padding across
+     the blocks of a cluster, ten clusters in flight, the largest scene),
+     ball query (fused and pack), the row gather at its six sites (odd and
+     even widths, views off a 16-byte boundary, a ragged row count), and
+     the two pack-tile probes; indices, words, counts and gathered rows
+     must be equal; kernel, plain and library-call times and the bound at
+     those shapes, for FPS and the gather also the kernels' own time on the
+     device from a profiler trace beside the event time;
   4. serve the flagship CapNet (135 input channels over 40,000 points, 256
      proposals, hidden 512, vocabulary 3,433) with seeded random weights
      through ``make_eval_step`` (detection loss on): launch counts per
-     forward, ms per batch (median of three timed spans of 30 requests,
-     with the spread), and the same weights and batch through the port on
-     the CPU as the reference (indices exact, corners within 1e-3, tokens
-     >= 99% equal);
+     forward (the wrappers' counts, and as many FPS kernels in a profiler
+     trace of one request), ms per batch (median of three timed spans of 30
+     requests, with the spread), and the same weights and batch through the
+     port on the CPU as the reference (indices exact, corners within 1e-3,
+     tokens >= 99% equal);
   5. train the same model through ``make_train_step`` on a repeated batch:
      launch counts per step, ms per step (median of three timed spans),
      stage times, and step 1's loss and per-tensor gradient norms against
@@ -86,17 +92,19 @@ def bound_ms(nbytes, ops):
 
 
 def cuda_ms(torch, fn, iters, warmup=1):
-    """Mean device time of fn() over iters launches (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean time of fn() over iters back-to-back launches (CUDA events): the
+    larger of the host's cost per call and the device's time."""
+    from scan2cap_torch.probes.timing import event_ms
+    return event_ms(fn, iters, warmup)
+
+
+def device_only_ms(fn, iters):
+    """The kernels' own time per call of fn(), from a profiler trace."""
+    from scan2cap_torch.probes.timing import device_ms
+    r = device_ms(fn, iters)
+    require(r["complete"], f"the profiler's trace holds {r['launches']} "
+            f"kernels per call after {r['attempts']} passes")
+    return r["ms"]
 
 
 def scene_xyz(np, B, N, seed):
@@ -115,9 +123,38 @@ def scene_xyz(np, B, N, seed):
 
 
 # --------------------------------------------------------------------- phase 3
+def check_fps_edges(torch):
+    """Every FPS edge case: the kernel's indices equal the plain version's,
+    or the run fails; a scene above the limit is refused."""
+    from scan2cap_torch.kernels import furthest_point_sample_cuda
+    from scan2cap_torch.kernels.fps import fps_max_points
+    from scan2cap_torch.ops.sampling import furthest_point_sample_plain
+    from scan2cap_torch.probes.cases import FPS_EDGE_CASES, fps_edge_case
+
+    dev = torch.device("cuda")
+    for name in FPS_EDGE_CASES:
+        x, npoint, variant = fps_edge_case(name)
+        xt = torch.from_numpy(x).to(dev)
+        got = furthest_point_sample_cuda(xt, npoint, variant=variant)
+        want = furthest_point_sample_plain(xt, npoint)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"fps edge case {name}: kernel != plain")
+        if name.startswith("all_invalid"):
+            require(bool((got[1] == 0).all()), "all-invalid scene must give 0s")
+    most = fps_max_points()
+    try:
+        furthest_point_sample_cuda(torch.zeros((1, most + 1, 3), device=dev), 4)
+    except ValueError:
+        pass
+    else:
+        raise PhaseError(f"fps took N={most + 1}, above its limit {most}")
+    return len(FPS_EDGE_CASES)
+
+
 def check_kernels(torch, np):
     from scan2cap_torch.kernels import (ball_query_cuda, ball_query_pack_cuda,
                                         furthest_point_sample_cuda)
+    from scan2cap_torch.kernels.fps import VARIANTS, fps_variant
     from scan2cap_torch.ops.grouping import (ball_query_pack_plain,
                                              ball_query_plain, radius_squared)
     from scan2cap_torch.ops.sampling import furthest_point_sample_plain
@@ -125,32 +162,9 @@ def check_kernels(torch, np):
     dev = torch.device("cuda")
     B = 2
 
-    def fps_pair(xyz, npoint):
-        got = furthest_point_sample_cuda(xyz, npoint)
-        want = furthest_point_sample_plain(xyz, npoint)
-        torch.cuda.synchronize()
-        return got, want
+    print(f"fps edge cases: {check_fps_edges(torch)} exact", flush=True)
 
-    # -- edge cases first: exact or fail
     rs = np.random.RandomState(3)
-    cases = []
-    x = rs.randn(2, 1300, 3).astype(np.float32) + 3.0
-    x[:, 700:] = 0.0                                   # zero padding
-    cases.append(("padding", x, 64))
-    x = rs.randn(2, 400, 3).astype(np.float32) + 2.0
-    x[1] = 0.0                                         # all-invalid scene
-    cases.append(("all_invalid", x, 16))
-    x = np.round(rs.randn(3, 700, 3) * 2.0).astype(np.float32) / 2.0
-    x[:, 350:] = x[:, :350]                            # duplicates: exact ties
-    cases.append(("ties", x, 48))
-    cases.append(("batch10", rs.randn(10, 1100, 3).astype(np.float32), 48))
-    cases.append(("n1", rs.randn(2, 1, 3).astype(np.float32) + 1.0, 4))
-    for name, x, npoint in cases:
-        got, want = fps_pair(torch.from_numpy(x).to(dev), npoint)
-        require(torch.equal(got, want), f"fps edge case {name}: kernel != plain")
-        if name == "all_invalid":
-            require(bool((got[1] == 0).all()), "all-invalid scene must give 0s")
-
     lattice = (np.round(rs.uniform(-1, 1, (2, 1000, 3)) * 10) / 10
                ).astype(np.float32)                    # points on the radius
     bq_cases = [("on_radius", lattice, lattice[:, :100], 0.3, 64),
@@ -195,15 +209,23 @@ def check_kernels(torch, np):
     for name, N, npoint in FPS_SITES:
         x = fps_in[name]
         require(x.shape[1] == N, f"fps site {name}: N={x.shape[1]} != {N}")
-        got, want = fps_pair(x, npoint)
+        got = furthest_point_sample_cuda(x, npoint)
+        want = furthest_point_sample_plain(x, npoint)
+        torch.cuda.synchronize()
         require(torch.equal(got, want), f"fps site {name}: kernel != plain")
+        iters = 5 if N > 10000 else 20
         ms = cuda_ms(torch, lambda: furthest_point_sample_cuda(x, npoint),
-                     iters=5 if N > 10000 else 20)
+                     iters=iters)
+        dms = device_only_ms(lambda: furthest_point_sample_cuda(x, npoint),
+                             iters)
         pms = cuda_ms(torch, lambda: furthest_point_sample_plain(x, npoint),
                       iters=1)
         b_ms, by = bound_ms(B * N * 12 + B * npoint * 4,
                             B * (npoint - 1) * N * FPS_OPS_PER_POINT)
         fps_sites.append(dict(site=name, shape=[B, N, npoint], ms=ms,
+                              device_ms=dms,
+                              us_per_step=ms * 1e3 / (npoint - 1),
+                              variant=list(VARIANTS[fps_variant(N)]),
                               plain_ms=pms, bound_ms=b_ms, bound_by=by,
                               max_abs_err=int((got - want).abs().max())))
 
@@ -241,33 +263,33 @@ def check_kernels(torch, np):
         pack_sites.append(dict(site=name, shape=[B, N, M, W], ms=ms,
                                plain_ms=pms, bound_ms=b_ms, bound_by=by,
                                max_abs_err=int((ck - cp).abs().max())))
-    gather_sites = check_gather(torch, np, bq_idx)
+    gather_sites = check_gather(torch, bq_idx)
     probe_sites = check_probes(torch, np)
     return fps_sites, bq_sites, pack_sites, gather_sites, probe_sites
 
 
-def check_gather(torch, np, bq_idx):
+def check_gather(torch, bq_idx):
     """The row gather against its plain version: edge cases, then the six
     sites with the ball query's own indices.  Exact or fail."""
     from scan2cap_torch.kernels import group_points_cuda
+    from scan2cap_torch.kernels.gather import gather_vector_bytes
     from scan2cap_torch.ops.grouping import group_points_plain
+    from scan2cap_torch.probes.cases import (GATHER_EDGE_CASES,
+                                             gather_edge_case, gather_table)
 
     dev = torch.device("cuda")
-    rs = np.random.RandomState(13)
-    cases = []
-    for name, (B, N, C, M, S) in (("width_138", (2, 3000, 138, 128, 64)),
-                                  ("width_3", (2, 3000, 3, 128, 16)),
-                                  ("width_5_one_row", (1, 1, 5, 3, 4)),
-                                  ("batch10", (10, 700, 256, 64, 16))):
-        idx = rs.randint(0, N, (B, M, S)).astype(np.int32)
-        idx[:, :, S // 2:] = idx[:, :, :1]              # repeated indices
-        idx[:, 0, 0], idx[:, 0, 1] = 0, N - 1           # first and last row
-        cases.append((name, rs.randn(B, N, C).astype(np.float32), idx))
-    for name, feats, idx in cases:
-        f, i = torch.from_numpy(feats).to(dev), torch.from_numpy(idx).to(dev)
+    for name, shape in GATHER_EDGE_CASES.items():
+        flat, idx, offset = gather_edge_case(name)
+        f = gather_table(torch.from_numpy(flat).to(dev), shape[:3], offset)
+        require(f.is_contiguous() and f.data_ptr() % 16 == 4 * offset,
+                f"gather edge case {name}: the view lies at {f.data_ptr() % 16}")
+        i = torch.from_numpy(idx).to(dev)
         got, want = group_points_cuda(f, i), group_points_plain(f, i)
         torch.cuda.synchronize()
         require(torch.equal(got, want), f"gather edge case {name}")
+        vec = gather_vector_bytes(shape[2], f.data_ptr(), got.data_ptr())
+        require(f.data_ptr() % vec == 0 and (4 * shape[2]) % vec == 0,
+                f"gather edge case {name}: {vec}-byte vectors do not fit")
 
     B = 2
     g = torch.Generator().manual_seed(7)
@@ -283,8 +305,11 @@ def check_gather(torch, np, bq_idx):
         ms = cuda_ms(torch, lambda: group_points_cuda(feats, idx), iters=20)
         pms = cuda_ms(torch, lambda: group_points_plain(feats, idx), iters=20)
         lms = cuda_ms(torch, lambda: torch.gather(feats, 1, expand), iters=20)
+        dms = device_only_ms(lambda: group_points_cuda(feats, idx), 20)
+        dlms = device_only_ms(lambda: torch.gather(feats, 1, expand), 20)
         b_ms, by = bound_ms(B * N * C * 4 + B * M * S * 4 + B * M * S * C * 4, 0)
         sites.append(dict(site=name, shape=[B, N, C, M, S], ms=ms,
+                          device_ms=dms, library_device_ms=dlms,
                           plain_ms=pms, library_ms=lms, bound_ms=b_ms,
                           bound_by=by,
                           max_abs_err=float((got - want).abs().max())))
@@ -368,26 +393,35 @@ def kernel_entry(name, source, replaces, sites, launches):
                 launches_by_path=launches,
                 max_abs_err=max(s["max_abs_err"] for s in sites),
                 ms=sum(s["ms"] for s in sites),
+                device_ms=(sum(s["device_ms"] for s in sites)
+                           if all("device_ms" in s for s in sites) else None),
                 plain_ms=sum(s["plain_ms"] for s in sites),
                 bound_ms=b, bound_by="operations" if by_ops >= b / 2 else "bytes",
                 library_ms=sum(lib) if len(lib) == len(sites) else None,
                 sites=sites)
 
 
-def profile_kernels(prof, keep=10):
-    """The `keep` largest kernels of a profiler trace by device time, and
-    the summed device time of all kernels (ms)."""
-    top, device_ms = [], 0.0
-    for e in prof.key_averages():
-        if "CUDA" not in str(e.device_type):     # kernels, not the CPU ops
-            continue
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            device_ms += dev_us / 1e3
-            top.append((dev_us / 1e3, e.key[:60], e.count))
-    top.sort(reverse=True)
-    return [dict(ms=t, name=n, count=c) for t, n, c in top[:keep]], device_ms
+def profile_step(fn, what, keep=10):
+    """One call of fn() under a fresh profiler, started on an idle card:
+    the `keep` largest kernels by device time, the summed device time of
+    all kernels (ms), the call's wall time (ms), the launches of the FPS
+    kernel in the trace and the profiler passes it took.  The trace must hold as
+    many FPS kernels as the wrapper launches per call (5)."""
+    from scan2cap_torch.probes.timing import profile_calls
+
+    def fps_launches(rows):
+        return sum(c for _, n, c in rows if "fps_kernel" in n)
+
+    r = profile_calls(fn, cpu=True, complete=lambda rows: fps_launches(rows) == 5)
+    fps = fps_launches(r["rows"])
+    require(r["complete"], f"the {what} trace holds {fps} FPS kernels after "
+            f"{r['attempts']} passes, the wrapper counted 5 per call")
+    rows = sorted(r["rows"], reverse=True)
+    top = [dict(ms=t, name=n[:60], count=c) for t, n, c in rows[:keep]]
+    return dict(top=top, kernel_ms=sum(t for t, _, _ in rows),
+                profiled_wall_ms=r["wall_ms"], fps_kernels_in_trace=fps,
+                kernels_in_trace=sum(c for _, _, c in rows),
+                passes=r["attempts"])
 
 
 # --------------------------------------------------------------------- phase 4
@@ -479,17 +513,11 @@ def serve_flagship(torch, np, requests=30, windows=3):
             stages[name] = ev[i].elapsed_time(ev[i + 1])
 
     # device busy share of one step: summed kernel time from a profiler
-    # trace over the step's wall time
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(batch)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    top, device_ms = profile_kernels(prof)
-    profile_report = dict(profiled_wall_ms=prof_wall_ms, kernel_ms=device_ms,
-                          busy_share_profiled=device_ms / prof_wall_ms,
-                          top=top)
+    # trace over the step's wall time; the trace must hold every FPS launch
+    profile_report = profile_step(lambda: step(batch), "serving")
+    device_ms = profile_report["kernel_ms"]
+    profile_report["busy_share_profiled"] = (
+        device_ms / profile_report["profiled_wall_ms"])
 
     # the same weights and batch on the CPU (plain versions) as reference
     with torch.inference_mode():
@@ -661,14 +689,12 @@ def train_flagship(torch, np, warmup=3, steps=10, windows=3, lr=1e-3,
     torch.cuda.synchronize()
     stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
-    # device busy share: summed kernel time of one profiled step
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(batch, lr, bn_momentum)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    top, device_ms = profile_kernels(prof)
+    # device busy share: summed kernel time of one profiled step; the
+    # trace must hold every FPS launch
+    profile_report = profile_step(lambda: step(batch, lr, bn_momentum),
+                                  "training")
+    profile_report["busy_share_of_steady_step"] = (
+        profile_report["kernel_ms"] / ms)
     return dict(batch=B, num_points=cfg.num_points, num_proposals=cfg.num_proposals,
                 hidden_size=cfg.hidden_size, vocab=NUM_VOCABS,
                 losses_on=TRAIN_LOSSES, min_iou=cfg.min_iou, lr=lr,
@@ -684,9 +710,7 @@ def train_flagship(torch, np, warmup=3, steps=10, windows=3, lr=1e-3,
                                    worst_grad_norm_rel_err=worst_rel,
                                    worst_grad_norm_tensor=worst_name,
                                    tensors=len(cpu_norms)),
-                profile=dict(profiled_wall_ms=prof_wall_ms, kernel_ms=device_ms,
-                             busy_share_of_steady_step=device_ms / ms,
-                             top=top),
+                profile=profile_report,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -742,10 +766,18 @@ def main(argv=None) -> int:
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    resources = {name: _build.kernel_resources(log)
+                 for name, log in logs.items()}
+    for name, kernels_built in resources.items():
+        for k in kernels_built:
+            print(f"  {name}: {k['name'][-44:]}: {k.get('registers')} registers, "
+                  f"{k.get('spill_stores')} + {k.get('spill_loads')} bytes "
+                  f"spilled, {k.get('smem')} bytes static shared", flush=True)
+    # the FPS kernel's state lives in registers: a spill would put memory
+    # traffic back into its loop
+    spilled = [k["name"] for k in resources["fps"]
+               if k.get("spill_stores") or k.get("spill_loads")]
+    require(not spilled, f"FPS kernel variants spill registers: {spilled}")
 
     t0 = time.perf_counter()
     (fps_sites, bq_sites, pack_sites, gather_sites,
@@ -805,7 +837,8 @@ def main(argv=None) -> int:
         for k in kernels:
             require(k["launches"] > 0,
                     f"kernel {k['name']} was launched by no path")
-    print(json.dumps({"kernels": kernels, "card": card, "build_s": build_s}))
+    print(json.dumps({"kernels": kernels, "card": card, "build_s": build_s,
+                      "build": resources}))
     if serve is not None:
         print(json.dumps({"serve": serve, "card": card}))
     if probes is not None:

@@ -13,65 +13,115 @@
 // (B*M*S*C*4 bytes, 67 MB at sa1 with B=2) and the table is read from
 // device memory once; there is no arithmetic.
 //
-// Design: one thread per 16-byte piece of an output row (float4 when C is
-// a multiple of 4, else one thread per float), pieces numbered row-major
-// so that neighbouring threads write neighbouring addresses and read
-// neighbouring addresses of one table row; a grid-stride loop covers any
-// size.  Every thread of a row loads the row's index itself (one cached
-// 4-byte read).  Indices must lie in [0, N): that is the caller's
-// contract, as in the JAX op.
+// Design: a warp per 32 consecutive output rows of one scene.  Lane l
+// reads the index of row l (one coalesced load for 32 rows).  The 32 rows
+// are one contiguous stretch of the output, 32 * w vectors long; the warp
+// walks it 32 vectors at a time, so every store instruction is one full,
+// contiguous, coalesced write whatever the row width, and no lane idles on
+// a ragged width (138 floats are 69 8-byte vectors).  A lane keeps the
+// (row, column) of its vector by adding 32 % w columns and 32 / w rows per
+// step, gets the row's index from the lane that loaded it by shuffle, and
+// has eight loads in flight before its first store.  The copy uses the
+// widest vector that the row width and both base pointers allow: 16 bytes,
+// 8 bytes (every even width, the 138-wide backward gather among them) or 4
+// bytes; the caller (kernels/gather.py) makes that choice and passes it
+// in.  The scene is blockIdx.y and all offsets inside a scene are 32-bit:
+// no division is on the path (two per thread before the loop), and the only
+// 64-bit arithmetic is one widening multiply-add per load.  The stores are
+// streaming (__stcs) so that the output, which is never read here, does not
+// push the table out of L2.  Indices must lie in [0, N): that is the
+// caller's contract, as in the JAX op.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kInFlight = 8;     // loads of a lane before its first store
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocks = 132 * 16;
+constexpr unsigned kFull = 0xffffffffu;
 
-// T is float4 or float; `w` is the row width in units of T.
-template <typename T>
-__global__ void gather_rows_kernel(const T* __restrict__ feat,
-                                   const int* __restrict__ idx,
-                                   long long n_rows, long long rows_per_batch,
-                                   long long n_points, int w,
-                                   T* __restrict__ out) {
-  const long long total = n_rows * w;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const long long row = t / w;
-    const int col = (int)(t - row * w);
-    const long long b = row / rows_per_batch;
-    const long long src = b * n_points + __ldg(idx + row);
-    out[t] = __ldg(feat + src * w + col);
+// V is float4, float2 or float; `w` is the row width in units of V.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_kernel(const V* __restrict__ feat, const int* __restrict__ idx,
+                   int n_batch, int n_points, unsigned n_rows, unsigned w,
+                   V* __restrict__ out) {
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned rows_on = 32 / w, cols_on = 32 % w;   // 32 vectors further
+  const unsigned row0 = lane / w, col0 = lane % w;
+  const unsigned warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const unsigned step = gridDim.x * kWarps * 32;
+  for (int b = blockIdx.y; b < n_batch; b += gridDim.y) {
+    const V* table = feat + static_cast<size_t>(b) * n_points * w;
+    const int* rows = idx + static_cast<size_t>(b) * n_rows;
+    V* dst = out + static_cast<size_t>(b) * n_rows * w;
+    // every trip count below is the same for all lanes of a warp (the
+    // shuffle needs them all)
+    for (unsigned base = warp * 32; base < n_rows; base += step) {
+      const unsigned here = n_rows - base < 32 ? n_rows - base : 32;
+      const int mine = lane < here ? __ldg(rows + base + lane) : 0;
+      const unsigned count = here * w;           // vectors of this stretch
+      V* to = dst + static_cast<size_t>(base) * w;
+      unsigned row = row0, col = col0;
+      for (unsigned e0 = lane; e0 < count + lane; e0 += 32 * kInFlight) {
+        V v[kInFlight];
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u) {
+          const int src = __shfl_sync(kFull, mine, row & 31);
+          if (e0 + 32 * u < count)
+            v[u] = __ldg(table + static_cast<size_t>(src) * w + col);
+          row += rows_on;
+          col += cols_on;
+          if (col >= w) {
+            col -= w;
+            ++row;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kInFlight; ++u)
+          if (e0 + 32 * u < count) __stcs(to + e0 + 32 * u, v[u]);
+      }
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* feat, const int* idx, long long n_rows,
-                   long long rows_per_batch, long long n_points, int w,
-                   void* out, cudaStream_t stream) {
-  const long long total = n_rows * w;
-  if (total == 0) return cudaSuccess;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  gather_rows_kernel<T><<<(int)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(feat), idx, n_rows, rows_per_batch, n_points, w,
-      static_cast<T*>(out));
+template <typename V>
+cudaError_t launch(const void* feat, const int* idx, int B, int N, int R,
+                   int w, void* out, cudaStream_t stream) {
+  const int by = B < 65535 ? B : 65535;
+  int bx = (R + kWarps * 32 - 1) / (kWarps * 32);
+  const int most = kMaxBlocks / by > 0 ? kMaxBlocks / by : 1;
+  if (bx > most) bx = most;
+  gather_rows_kernel<V><<<dim3(bx, by), kThreads, 0, stream>>>(
+      static_cast<const V*>(feat), idx, B, N, static_cast<unsigned>(R),
+      static_cast<unsigned>(w), static_cast<V*>(out));
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // feat (B, N, C) float32, idx (B, R) int32, out (B, R, C) float32, all
-// contiguous.  Returns the launch's cudaError_t (0 on success).
+// contiguous.  `vec_bytes` is 16, 8 or 4 and must divide the row's bytes
+// and both base addresses.  Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int gather_rows_launch(const void* feat, const void* idx, int B,
-                                  int N, int R, int C, void* out,
-                                  void* stream) {
+                                  int N, int R, int C, int vec_bytes,
+                                  void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n_rows = (long long)B * R;
   const int* ix = static_cast<const int*>(idx);
-  if (C % 4 == 0)
-    return (int)launch<float4>(feat, ix, n_rows, R, N, C / 4, out, s);
-  return (int)launch<float>(feat, ix, n_rows, R, N, C, out, s);
+  if (vec_bytes != 4 && vec_bytes != 8 && vec_bytes != 16)
+    return cudaErrorInvalidValue;
+  const int per = vec_bytes / 4;
+  if (C % per != 0 || reinterpret_cast<size_t>(feat) % vec_bytes != 0 ||
+      reinterpret_cast<size_t>(out) % vec_bytes != 0)
+    return cudaErrorInvalidValue;
+  if (B == 0 || R == 0 || C == 0) return 0;
+  const int w = C / per;
+  if (vec_bytes == 16)
+    return (int)launch<float4>(feat, ix, B, N, R, w, out, s);
+  if (vec_bytes == 8)
+    return (int)launch<float2>(feat, ix, B, N, R, w, out, s);
+  return (int)launch<float>(feat, ix, B, N, R, w, out, s);
 }

@@ -5,6 +5,10 @@ interface, ``_build/<name>-<hash>.so``, where the hash covers the source
 and the nvcc flags — so a changed source rebuilds, and a checkout builds
 everything it needs on first use.  ``build_all`` starts one nvcc per source
 at once and waits for all of them.  Nothing here runs at import time.
+
+``bind`` and ``launch`` are the launch path every wrapper shares: the typed
+C function is resolved once per process, and a call costs the argument
+conversions, one read of the current stream's raw handle, and the call.
 """
 
 from __future__ import annotations
@@ -12,11 +16,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Sequence
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -96,6 +103,36 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SPILL = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def kernel_resources(log: str) -> List[Dict]:
+    """What ``ptxas -v`` reports per kernel in a build log: the mangled
+    name, registers per thread, static shared memory and spill bytes."""
+    kernels: List[Dict] = []
+    for line in log.splitlines():
+        entry = _ENTRY.search(line)
+        if entry:
+            kernels.append(dict(name=entry.group(1)))
+            continue
+        if not kernels:
+            continue
+        spill, used = _SPILL.search(line), _USED.search(line)
+        if spill:
+            kernels[-1].update(stack=int(spill.group(1)),
+                               spill_stores=int(spill.group(2)),
+                               spill_loads=int(spill.group(3)))
+        if used:
+            smem = _SMEM.search(line)
+            kernels[-1].update(registers=int(used.group(1)),
+                               smem=int(smem.group(1)) if smem else 0)
+    return kernels
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     with _lock:
@@ -107,7 +144,35 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a launch returned a CUDA error code (cudaGetLastError)."""
+def bind(name: str, function: str, argtypes: Sequence,
+         restype=ctypes.c_int):
+    """The C function ``function`` of ``csrc/<name>.cu`` with its argument
+    and result types set.  Wrappers keep the result in a module variable, so
+    the library is looked up once."""
+    fn = getattr(load(name), function)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+def _stream_handle(index: int) -> int:
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# The handle of PyTorch's current stream on a device; PyTorch's own reading
+# of it, where it has one, builds no Stream object.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", _stream_handle)
+
+
+def launch(fn, device: torch.device, *args) -> None:
+    """Call the bound launch function ``fn(*args, stream)`` on ``device``'s
+    current stream, without synchronising; raise if it returns a CUDA error
+    (its ``cudaGetLastError()``)."""
+    index = device.index               # a tensor's device always has one
+    if index == torch.cuda.current_device():
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, _raw_stream(index))
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+        raise RuntimeError(f"{fn.__name__}: CUDA launch failed with error {err}")

@@ -15,27 +15,30 @@ import torch
 from scan2cap_torch.kernels import _build
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ballquery")
-    if not getattr(lib, "_typed", False):
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ball_query_pack_launch.argtypes = [p, p, i, i, i, f, p, p, p]
-        lib.ball_query_pack_launch.restype = i
-        lib.ball_query_launch.argtypes = [p, p, i, i, i, f, i, p, p]
-        lib.ball_query_launch.restype = i
-        lib._typed = True
-    return lib
+_pack_launch = None
+_launch = None
+
+
+def _bind():
+    global _pack_launch, _launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    _pack_launch = _build.bind("ballquery", "ball_query_pack_launch",
+                               [p, p, i, i, i, f, p, p, p])
+    _launch = _build.bind("ballquery", "ball_query_launch",
+                          [p, p, i, i, i, f, i, p, p])
 
 
 def _check_inputs(xyz: torch.Tensor, new_xyz: torch.Tensor, what: str):
-    for name, t in (("xyz", xyz), ("new_xyz", new_xyz)):
-        if not t.is_cuda:
-            raise ValueError(f"{what} takes CUDA tensors ({name})")
-        if t.dtype != torch.float32 or t.dim() != 3 or t.shape[-1] != 3:
-            raise ValueError(f"{name} must be float32 (B, *, 3), got "
-                             f"{tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not xyz.is_cuda or not new_xyz.is_cuda:
+        raise ValueError(f"{what} takes CUDA tensors")
+    if xyz.dtype != torch.float32 or xyz.dim() != 3 or xyz.shape[-1] != 3 \
+            or new_xyz.dtype != torch.float32 or new_xyz.dim() != 3 \
+            or new_xyz.shape[-1] != 3:
+        raise ValueError(f"xyz and new_xyz must be float32 (B, *, 3), got "
+                         f"{tuple(xyz.shape)} {xyz.dtype} and "
+                         f"{tuple(new_xyz.shape)} {new_xyz.dtype}")
+    if not xyz.is_contiguous() or not new_xyz.is_contiguous():
+        raise ValueError("xyz and new_xyz must be contiguous")
     if xyz.shape[0] != new_xyz.shape[0] or xyz.device != new_xyz.device:
         raise ValueError("xyz and new_xyz must share batch size and device")
 
@@ -51,12 +54,11 @@ def ball_query_pack_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor,
     W = -(-N // 32)
     words = torch.empty((B, M, W), dtype=torch.uint32, device=xyz.device)
     counts = torch.empty((B, M, W), dtype=torch.int32, device=xyz.device)
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().ball_query_pack_launch(
-            xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, r2,
-            words.data_ptr(), counts.data_ptr(), stream)
-    _build.check(err, "ball_query_pack_launch")
+    if _pack_launch is None:
+        _bind()
+    _build.launch(_pack_launch, xyz.device, xyz.data_ptr(),
+                  new_xyz.data_ptr(), B, N, M, r2, words.data_ptr(),
+                  counts.data_ptr())
     ball_query_pack_cuda.launches += 1
     return words, counts
 
@@ -71,12 +73,10 @@ def ball_query_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor, r2: float,
     B, N, _ = xyz.shape
     M = new_xyz.shape[1]
     idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz.device)
-    with torch.cuda.device(xyz.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().ball_query_launch(
-            xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, r2, nsample,
-            idx.data_ptr(), stream)
-    _build.check(err, "ball_query_launch")
+    if _launch is None:
+        _bind()
+    _build.launch(_launch, xyz.device, xyz.data_ptr(), new_xyz.data_ptr(),
+                  B, N, M, r2, nsample, idx.data_ptr())
     ball_query_cuda.launches += 1
     return idx
 

@@ -15,27 +15,40 @@ import torch
 from scan2cap_torch.kernels import _build
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("gather")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gather_rows_launch.argtypes = [p, p, i, i, i, i, p, p]
-        lib.gather_rows_launch.restype = i
-        lib._typed = True
-    return lib
+def gather_vector_bytes(channels: int, features_ptr: int, out_ptr: int) -> int:
+    """Bytes per load and store of the gather: the widest of 16, 8 and 4
+    that divides a row's bytes and both base addresses, so that every row
+    of the table and of the output starts on that boundary."""
+    row_bytes = 4 * channels
+    for width in (16, 8):
+        if row_bytes % width == 0 and features_ptr % width == 0 \
+                and out_ptr % width == 0:
+            return width
+    return 4
+
+
+_launch = None
+
+
+def _bind():
+    global _launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    _launch = _build.bind("gather", "gather_rows_launch",
+                          [p, p, i, i, i, i, i, p, p])
+    return _launch
 
 
 def group_points_cuda(features: torch.Tensor, idx: torch.Tensor
                       ) -> torch.Tensor:
     """features (B, N, C) float32, idx (B, M, S) int32, both CUDA and
     contiguous -> (B, M, S, C).  Indices must lie in [0, N)."""
-    for name, t in (("features", features), ("idx", idx)):
-        if not t.is_cuda:
-            raise ValueError(f"group_points_cuda takes CUDA tensors ({name})")
-        if t.dim() != 3:
-            raise ValueError(f"{name} must be 3-D, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not features.is_cuda or not idx.is_cuda:
+        raise ValueError("group_points_cuda takes CUDA tensors")
+    if features.dim() != 3 or idx.dim() != 3:
+        raise ValueError(f"features and idx must be 3-D, got "
+                         f"{tuple(features.shape)} and {tuple(idx.shape)}")
+    if not features.is_contiguous() or not idx.is_contiguous():
+        raise ValueError("features and idx must be contiguous")
     if features.dtype != torch.float32 or idx.dtype != torch.int32:
         raise ValueError(f"features must be float32 and idx int32, got "
                          f"{features.dtype} and {idx.dtype}")
@@ -47,11 +60,9 @@ def group_points_cuda(features: torch.Tensor, idx: torch.Tensor
         raise ValueError(f"unsupported table shape {tuple(features.shape)}")
     out = torch.empty((B, M, S, C), dtype=torch.float32,
                       device=features.device)
-    with torch.cuda.device(features.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().gather_rows_launch(features.data_ptr(), idx.data_ptr(),
-                                        B, N, M * S, C, out.data_ptr(), stream)
-    _build.check(err, "gather_rows_launch")
+    src, dst = features.data_ptr(), out.data_ptr()
+    _build.launch(_launch or _bind(), features.device, src, idx.data_ptr(),
+                  B, N, M * S, C, gather_vector_bytes(C, src, dst), dst)
     group_points_cuda.launches += 1
     return out
 

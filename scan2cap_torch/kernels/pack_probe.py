@@ -19,21 +19,21 @@ NC = 512     # points per pack step (16 uint32 words)
 OUT = 128    # lane-padded output width
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("pack_probe")
-    if not getattr(lib, "_typed", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pack_probe_launch.argtypes = [p, p, p, p]
-        lib.pack_probe_launch.restype = i
-        lib.shift_probe_launch.argtypes = [p, p, p, p, p]
-        lib.shift_probe_launch.restype = i
-        lib.pack_probe_rows.restype = i
-        lib.pack_probe_points.restype = i
-        if (lib.pack_probe_rows(), lib.pack_probe_points()) != (MQ, NC):
-            raise RuntimeError("csrc/pack_probe.cu and kernels/pack_probe.py "
-                               "disagree on the tile shape")
-        lib._typed = True
-    return lib
+_pack_launch = None
+_shift_launch = None
+
+
+def _bind():
+    global _pack_launch, _shift_launch
+    p = ctypes.c_void_p
+    rows = _build.bind("pack_probe", "pack_probe_rows", [])()
+    points = _build.bind("pack_probe", "pack_probe_points", [])()
+    if (rows, points) != (MQ, NC):
+        raise RuntimeError("csrc/pack_probe.cu and kernels/pack_probe.py "
+                           "disagree on the tile shape")
+    _pack_launch = _build.bind("pack_probe", "pack_probe_launch", [p, p, p, p])
+    _shift_launch = _build.bind("pack_probe", "shift_probe_launch",
+                                [p, p, p, p, p])
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype) -> None:
@@ -52,11 +52,10 @@ def pack_probe_cuda(hit: torch.Tensor):
     _check(hit, "hit", (1, MQ, NC), torch.float32)
     raw = torch.empty((1, MQ, OUT), dtype=torch.float32, device=hit.device)
     word = torch.empty((1, MQ, OUT), dtype=torch.int32, device=hit.device)
-    with torch.cuda.device(hit.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().pack_probe_launch(hit.data_ptr(), raw.data_ptr(),
-                                       word.data_ptr(), stream)
-    _build.check(err, "pack_probe_launch")
+    if _pack_launch is None:
+        _bind()
+    _build.launch(_pack_launch, hit.device, hit.data_ptr(), raw.data_ptr(),
+                  word.data_ptr())
     pack_probe_cuda.launches += 1
     return raw, word
 
@@ -70,12 +69,10 @@ def shift_probe_cuda(hit: torch.Tensor, ints: torch.Tensor):
         raise ValueError("hit and ints must share a device")
     out = torch.empty((6, 1, MQ, OUT), dtype=torch.int32, device=hit.device)
     count = torch.full((16,), 16, dtype=torch.int32, device=hit.device)
-    with torch.cuda.device(hit.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().shift_probe_launch(hit.data_ptr(), ints.data_ptr(),
-                                        count.data_ptr(), out.data_ptr(),
-                                        stream)
-    _build.check(err, "shift_probe_launch")
+    if _shift_launch is None:
+        _bind()
+    _build.launch(_shift_launch, hit.device, hit.data_ptr(), ints.data_ptr(),
+                  count.data_ptr(), out.data_ptr())
     shift_probe_cuda.launches += 1
     return tuple(out.unbind(0))
 

@@ -14,7 +14,10 @@ import pytest
 import torch
 
 from scan2cap_torch import kernels
+from scan2cap_torch.kernels import fps as fps_wrapper
+from scan2cap_torch.kernels.gather import gather_vector_bytes
 from scan2cap_torch.ops import grouping, sampling
+from scan2cap_torch.probes import cases
 
 pytestmark = pytest.mark.cuda
 
@@ -60,6 +63,45 @@ def test_fps_kernel_matches_plain(card, case):
     want = sampling.furthest_point_sample_plain(xt, npoint)
     assert got.dtype == torch.int32 and got.shape == want.shape
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", cases.FPS_EDGE_CASES)
+def test_fps_kernel_edge_cases_match_plain(card, case):
+    """Every boundary between the kernel's variants, scenes smaller than a
+    cluster, ties and padding across the blocks of a cluster, ten clusters
+    in flight, the largest scene: indices exact."""
+    x, npoint, variant = cases.fps_edge_case(case)
+    xt = torch.from_numpy(x).to(card)
+    before = kernels.furthest_point_sample_cuda.launches
+    got = kernels.furthest_point_sample_cuda(xt, npoint, variant=variant)
+    assert kernels.furthest_point_sample_cuda.launches == before + 1
+    want = sampling.furthest_point_sample_plain(xt, npoint)
+    assert torch.equal(got, want)
+    if case.startswith("all_invalid"):
+        assert (got[1] == 0).all()
+
+
+def test_fps_every_variant_gives_the_same_indices(card):
+    x, npoint, _ = cases.fps_edge_case("ties")
+    xt = torch.from_numpy(x).to(card)
+    want = sampling.furthest_point_sample_plain(xt, npoint)
+    for v in range(len(fps_wrapper.VARIANTS)):
+        if fps_wrapper.variant_points(v) >= x.shape[1]:
+            got = kernels.furthest_point_sample_cuda(xt, npoint, variant=v)
+            assert torch.equal(got, want), fps_wrapper.VARIANTS[v]
+
+
+def test_fps_refuses_a_scene_above_its_limit(card):
+    most = fps_wrapper.fps_max_points()
+    with pytest.raises(ValueError):
+        kernels.furthest_point_sample_cuda(
+            torch.zeros((1, most + 1, 3), device=card), 4)
+    with pytest.raises(ValueError):
+        kernels.furthest_point_sample_cuda(
+            torch.zeros((1, 0, 3), device=card), 4)
+    with pytest.raises(ValueError):
+        kernels.furthest_point_sample_cuda(
+            torch.zeros((1, 64, 3), device=card), 0)
 
 
 def _bq_case(name):
@@ -142,6 +184,21 @@ def test_gather_kernel_matches_plain(card, case):
     got = grouping.group_points(ft, it)
     assert kernels.group_points_cuda.launches == before + 1
     assert torch.equal(got, grouping.group_points_plain(ft, it))
+
+
+@pytest.mark.parametrize("case", sorted(cases.GATHER_EDGE_CASES))
+def test_gather_kernel_edge_cases_match_plain(card, case):
+    """Odd and even widths, table views 4 and 8 bytes off a 16-byte
+    boundary, a row count no block divides, ten scenes: exact copies."""
+    shape = cases.GATHER_EDGE_CASES[case]
+    flat, idx, offset = cases.gather_edge_case(case)
+    ft = cases.gather_table(torch.from_numpy(flat).to(card), shape[:3], offset)
+    it = torch.from_numpy(idx).to(card)
+    assert ft.is_contiguous() and ft.data_ptr() % 16 == (4 * offset) % 16
+    got = kernels.group_points_cuda(ft, it)
+    assert torch.equal(got, grouping.group_points_plain(ft, it))
+    vec = gather_vector_bytes(shape[2], ft.data_ptr(), got.data_ptr())
+    assert ft.data_ptr() % vec == 0 and (4 * shape[2]) % vec == 0
 
 
 def test_gather_gradient_on_the_card(card):
