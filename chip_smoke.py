@@ -10,12 +10,16 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      main-path shapes (B=2) plus edge cases: FPS (every boundary between
      its variants, scenes smaller than a cluster, ties and padding across
      the blocks of a cluster, ten clusters in flight, the largest scene),
-     ball query (fused and pack), the row gather at its six sites (odd and
+     ball query, fused and pack (every boundary between its variants, N no
+     multiple of a word, of 4 or of a chunk, hits that end and start a
+     range, padding from a later range, points on the radius at range and
+     chunk ends, the largest nsample, ten scenes of 40,000 points, views
+     off a 16-byte boundary), the row gather at its six sites (odd and
      even widths, views off a 16-byte boundary, a ragged row count), and
      the two pack-tile probes; indices, words, counts and gathered rows
      must be equal; kernel, plain and library-call times and the bound at
-     those shapes, for FPS and the gather also the kernels' own time on the
-     device from a profiler trace beside the event time;
+     those shapes, and the kernels' own time on the device from a profiler
+     trace beside the event time;
   4. serve the flagship CapNet (135 input channels over 40,000 points, 256
      proposals, hidden 512, vocabulary 3,433) with seeded random weights
      through ``make_eval_step`` (detection loss on): launch counts per
@@ -55,6 +59,11 @@ PEAK_BYTES = 3.35e12
 # running min (FPS) or the compare (ball query)
 FPS_OPS_PER_POINT = 9
 BQ_OPS_PER_PAIR = 9
+# what an exact all-pairs hit test issues per 32 pairs (3 sub, 1 mul, 2 fma,
+# the compare, the ballot), and the warp schedulers that issue one
+# instruction a clock each (132 SMs x 4)
+BQ_ISSUE_SLOTS_PER_WARP_STEP = 8
+WARP_SCHEDULERS = 132 * 4
 
 # (name, N, npoint) of the five FPS sites and (N, M, radius, nsample) of the
 # five ball-query sites of one flagship forward
@@ -91,6 +100,14 @@ def bound_ms(nbytes, ops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def issue_floor_ms(pairs_tested, sm_clock_mhz):
+    """The least time an exact all-pairs ball query of so many pairs can
+    take on the card: its instructions over what the schedulers issue at
+    the largest SM clock."""
+    return (pairs_tested / 32 * BQ_ISSUE_SLOTS_PER_WARP_STEP
+            / (WARP_SCHEDULERS * sm_clock_mhz * 1e6) * 1e3)
+
+
 def cuda_ms(torch, fn, iters, warmup=1):
     """Mean time of fn() over iters back-to-back launches (CUDA events): the
     larger of the host's cost per call and the device's time."""
@@ -105,21 +122,6 @@ def device_only_ms(fn, iters):
     require(r["complete"], f"the profiler's trace holds {r['launches']} "
             f"kernels per call after {r['attempts']} passes")
     return r["ms"]
-
-
-def scene_xyz(np, B, N, seed):
-    """Room-scale synthetic points: a floor layer plus box-shaped objects."""
-    rs = np.random.RandomState(seed)
-    xyz = np.zeros((B, N, 3), np.float32)
-    xyz[:, :, :2] = rs.uniform(-4, 4, (B, N, 2))
-    xyz[:, :, 2] = rs.uniform(0, 0.05, (B, N))
-    half = N // 2
-    centers = rs.uniform(-3, 3, (B, 8, 3))
-    centers[..., 2] = 0.6
-    obj = rs.randint(0, 8, (B, half))
-    xyz[:, :half] = (np.take_along_axis(centers, obj[..., None], 1)
-                     + rs.uniform(-0.5, 0.5, (B, half, 3)))
-    return xyz
 
 
 # --------------------------------------------------------------------- phase 3
@@ -151,40 +153,62 @@ def check_fps_edges(torch):
     return len(FPS_EDGE_CASES)
 
 
-def check_kernels(torch, np):
+def check_bq_edges(torch):
+    """Every ball-query edge case through both entry points: indices, words
+    and counts equal the plain versions', or the run fails; an nsample above
+    the wrapper's limit is refused."""
+    from scan2cap_torch.kernels import ball_query_cuda, ball_query_pack_cuda
+    from scan2cap_torch.kernels.ballquery import BQ_MAX_NSAMPLE
+    from scan2cap_torch.ops.grouping import (ball_query_pack_plain,
+                                             ball_query_plain, radius_squared)
+    from scan2cap_torch.probes.cases import (BQ_EDGE_CASES, bq_edge_case,
+                                             offset_view)
+
+    dev = torch.device("cuda")
+    for name in BQ_EDGE_CASES:
+        pts, q, r, s, variant, offset = bq_edge_case(name)
+        p_t = offset_view(pts, offset, dev)
+        q_t = torch.from_numpy(q).to(dev)
+        r2 = radius_squared(r)
+        got = ball_query_cuda(p_t, q_t, r2, s, variant=variant)
+        want = ball_query_plain(p_t, q_t, r, s)
+        wk, ck = ball_query_pack_cuda(p_t, q_t, r2, variant=variant)
+        wp, cp = ball_query_pack_plain(p_t, q_t, r2)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"ball_query edge case {name}")
+        require(torch.equal(wk.view(torch.int32), wp.view(torch.int32))
+                and torch.equal(ck, cp), f"ball_query_pack edge case {name}")
+    x = torch.zeros((1, 64, 3), device=dev)
+    try:
+        ball_query_cuda(x, x, 0.04, BQ_MAX_NSAMPLE + 1)
+    except ValueError:
+        pass
+    else:
+        raise PhaseError(f"ball query took nsample={BQ_MAX_NSAMPLE + 1}, "
+                         f"above its limit {BQ_MAX_NSAMPLE}")
+    return len(BQ_EDGE_CASES)
+
+
+def check_kernels(torch, np, sm_clock_mhz):
     from scan2cap_torch.kernels import (ball_query_cuda, ball_query_pack_cuda,
                                         furthest_point_sample_cuda)
+    from scan2cap_torch.kernels import ballquery
     from scan2cap_torch.kernels.fps import VARIANTS, fps_variant
     from scan2cap_torch.ops.grouping import (ball_query_pack_plain,
                                              ball_query_plain, radius_squared)
     from scan2cap_torch.ops.sampling import furthest_point_sample_plain
+    from scan2cap_torch.probes.bq_variants import room
 
     dev = torch.device("cuda")
     B = 2
 
     print(f"fps edge cases: {check_fps_edges(torch)} exact", flush=True)
 
-    rs = np.random.RandomState(3)
-    lattice = (np.round(rs.uniform(-1, 1, (2, 1000, 3)) * 10) / 10
-               ).astype(np.float32)                    # points on the radius
-    bq_cases = [("on_radius", lattice, lattice[:, :100], 0.3, 64),
-                ("no_hits", rs.randn(2, 999, 3).astype(np.float32),
-                 rs.randn(2, 64, 3).astype(np.float32) + 50.0, 0.2, 16),
-                ("many_hits", rs.rand(2, 4500, 3).astype(np.float32) * 0.1,
-                 rs.rand(2, 33, 3).astype(np.float32) * 0.1, 0.5, 32)]
-    for name, pts, q, r, s in bq_cases:
-        p_t, q_t = torch.from_numpy(pts).to(dev), torch.from_numpy(q).to(dev)
-        got = ball_query_cuda(p_t, q_t, radius_squared(r), s)
-        want = ball_query_plain(p_t, q_t, r, s)
-        wk, ck = ball_query_pack_cuda(p_t, q_t, radius_squared(r))
-        wp, cp = ball_query_pack_plain(p_t, q_t, radius_squared(r))
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), f"ball_query edge case {name}")
-        require(torch.equal(wk.view(torch.int32), wp.view(torch.int32))
-                and torch.equal(ck, cp), f"ball_query_pack edge case {name}")
+    print(f"ball query edge cases: {check_bq_edges(torch)} exact, both "
+          f"entry points", flush=True)
 
     # -- the five main-path sites, with inputs chained as the forward does
-    xyz0 = torch.from_numpy(scene_xyz(np, B, 40000, seed=1)).to(dev)
+    xyz0 = torch.from_numpy(room(np.random.RandomState(1), B, 40000)).to(dev)
     fps_in, bq_in = {}, {}
     cur = xyz0
     for name, N, npoint in FPS_SITES[:4]:
@@ -249,20 +273,33 @@ def check_kernels(torch, np):
                              torch.full_like(total, N).long())
         pairs = int(tested.sum())
         io = B * N * 12 + B * M * 12
+        variant = list(ballquery.VARIANTS[ballquery.bq_variant(N, M, s)])
+
         ms = cuda_ms(torch, lambda: ball_query_cuda(pts, q, r2, s), iters=20)
+        dms = device_only_ms(lambda: ball_query_cuda(pts, q, r2, s), 20)
         pms = cuda_ms(torch, lambda: ball_query_plain(pts, q, r, s), iters=2)
         b_ms, by = bound_ms(io + B * M * s * 4, pairs * BQ_OPS_PER_PAIR)
         bq_sites.append(dict(site=name, shape=[B, N, M, s], radius=r, ms=ms,
+                             device_ms=dms, variant=variant,
                              plain_ms=pms, bound_ms=b_ms, bound_by=by,
                              pairs_tested=pairs,
+                             issue_floor_ms=issue_floor_ms(pairs, sm_clock_mhz),
                              max_abs_err=int((got - want).abs().max())))
         W = wk.shape[-1]
         ms = cuda_ms(torch, lambda: ball_query_pack_cuda(pts, q, r2), iters=20)
+        dms = device_only_ms(lambda: ball_query_pack_cuda(pts, q, r2), 20)
         pms = cuda_ms(torch, lambda: ball_query_pack_plain(pts, q, r2), iters=2)
         b_ms, by = bound_ms(io + B * M * W * 8, B * M * N * BQ_OPS_PER_PAIR)
         pack_sites.append(dict(site=name, shape=[B, N, M, W], ms=ms,
+                               device_ms=dms, variant=variant,
                                plain_ms=pms, bound_ms=b_ms, bound_by=by,
-                               max_abs_err=int((ck - cp).abs().max())))
+                               pairs_tested=B * M * N,
+                               issue_floor_ms=issue_floor_ms(B * M * N,
+                                                             sm_clock_mhz),
+                               max_abs_err=max(
+                                   int((ck - cp).abs().max()),
+                                   int((wk.view(torch.int32)
+                                        != wp.view(torch.int32)).any()))))
     gather_sites = check_gather(torch, bq_idx)
     probe_sites = check_probes(torch, np)
     return fps_sites, bq_sites, pack_sites, gather_sites, probe_sites
@@ -373,6 +410,7 @@ def check_probes(torch, np):
         b_ms, by = bound_ms(nbytes, flops)
         sites[name] = [dict(site="tile", shape=[1, 256, 512],
                             ms=cuda_ms(torch, kern, iters=50),
+                            device_ms=device_only_ms(kern, 50),
                             plain_ms=cuda_ms(torch, plain, iters=50),
                             library_ms=cuda_ms(torch, lib, iters=50),
                             bound_ms=b_ms, bound_by=by,
@@ -761,6 +799,12 @@ def main(argv=None) -> int:
                          text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60,
+                           check=True)
+    sm_clock_mhz = float(clock.stdout.strip().splitlines()[0])
+    print(f"largest SM clock: {sm_clock_mhz:.0f} MHz", flush=True)
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -778,10 +822,26 @@ def main(argv=None) -> int:
     spilled = [k["name"] for k in resources["fps"]
                if k.get("spill_stores") or k.get("spill_loads")]
     require(not spilled, f"FPS kernel variants spill registers: {spilled}")
+    # the ball query's main-path variants must keep their queries in
+    # registers; another variant that spills is reported
+    from scan2cap_torch.kernels import ballquery
+    on_path = {ballquery.bq_variant(N, M, s) for _, N, M, _, s in BQ_SITES}
+    built = {ballquery.kernel_of_name(k["name"]): k
+             for k in resources["ballquery"]}
+    spilled = sorted(key for key, k in built.items()
+                     if k.get("spill_stores") or k.get("spill_loads"))
+    print("ball query (variant, pack) kernels that spill: "
+          f"{spilled or 'none'}", flush=True)
+    for v in on_path:
+        for pack in (False, True):
+            require((v, pack) in built, f"the build log holds no ball-query "
+                    f"kernel of variant {ballquery.VARIANTS[v]}")
+        require((v, False) not in spilled, f"the main-path ball query "
+                f"variant {ballquery.VARIANTS[v]} spills registers")
 
     t0 = time.perf_counter()
     (fps_sites, bq_sites, pack_sites, gather_sites,
-     probe_sites) = check_kernels(torch, np)
+     probe_sites) = check_kernels(torch, np, sm_clock_mhz)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # each path starts from launch counts of 0 and is read just after
@@ -837,7 +897,8 @@ def main(argv=None) -> int:
         for k in kernels:
             require(k["launches"] > 0,
                     f"kernel {k['name']} was launched by no path")
-    print(json.dumps({"kernels": kernels, "card": card, "build_s": build_s,
+    print(json.dumps({"kernels": kernels, "card": card,
+                      "sm_clock_mhz": sm_clock_mhz, "build_s": build_s,
                       "build": resources}))
     if serve is not None:
         print(json.dumps({"serve": serve, "card": card}))

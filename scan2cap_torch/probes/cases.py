@@ -1,5 +1,5 @@
-"""Edge cases the FPS and row-gather kernels are held to on the card, by
-name, made from a seed with numpy.  ``chip_smoke.py`` and
+"""Edge cases the FPS, ball-query and row-gather kernels are held to on the
+card, by name, made from a seed with numpy.  ``chip_smoke.py`` and
 ``tests/test_torch_kernels.py`` run every one of them against the plain
 versions; nothing here needs the card.
 """
@@ -10,7 +10,9 @@ import zlib
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
+from scan2cap_torch.kernels import ballquery
 from scan2cap_torch.kernels.fps import _BY_SIZE, fps_max_points, fps_variant
 
 # the cluster variant of the flagship's first layer, forced onto scenes far
@@ -120,3 +122,166 @@ def gather_table(flat, shape, offset):
     ``gather_edge_case`` describes."""
     B, N, C = shape
     return flat[offset:offset + B * N * C].reshape(B, N, C)
+
+
+# --- ball query --------------------------------------------------------------
+# the range-splitting variant of the large scenes, forced onto 4,096 points:
+# ranges of 1,024 points (32 words), chunks of 512
+_BQ_SPLIT = (8, 2, 4, 512)
+_BQ_SPLIT_N = 4096
+_BQ_BOUNDS = tuple(b for b, _ in ballquery._BY_SIZE if b is not None)
+
+BQ_EDGE_CASES = (
+    "on_radius", "no_hits", "many_hits",
+    "n1", "n31", "n33", "n999", "n39999",
+    "m1", "m_ragged", "m_ragged_split",
+    "nsample1", "nsample_above_n", "nsample_limit",
+    "exactly_nsample_hits", "exactly_nsample_hits_40000",
+    "hits_in_last_range", "hits_in_last_range_40000",
+    "nsample_th_hit_ends_a_range", "nsample_th_hit_ends_a_range_40000",
+    "nsample_th_hit_starts_a_range", "nsample_th_hit_starts_a_range_40000",
+    "first_hit_in_later_range", "first_hit_in_later_range_40000",
+    "on_radius_at_boundaries", "on_radius_at_boundaries_40000",
+    "dense_40000", "batch10_40000",
+    "view_off_4_bytes", "view_off_8_bytes", "view_off_12_bytes",
+) + tuple(f"boundary_n{n}" for bound in _BQ_BOUNDS
+          for n in (bound - 1, bound, bound + 1))
+
+BqCase = Tuple[np.ndarray, np.ndarray, float, int, Optional[int], int]
+
+
+def bq_range_points(n: int, variant: Optional[int]) -> int:
+    """Points of one range of an ``n``-point scene under ``variant`` (the
+    wrapper's choice when None)."""
+    v = ballquery.bq_variant(n) if variant is None else variant
+    return 32 * ballquery.range_words(n, ballquery.VARIANTS[v][2])[1]
+
+
+def bq_edge_case(name: str) -> BqCase:
+    """(xyz (B, N, 3), new_xyz (B, M, 3), radius, nsample, variant, offset)
+    of one ball-query case.  ``variant`` None leaves the choice to the
+    wrapper; ``offset`` is how many floats past a 16-byte boundary the
+    scene tensor must start (``offset_view`` makes such a tensor)."""
+    rs = _rs("bq_" + name)
+
+    def f32(a):
+        return np.ascontiguousarray(a, dtype=np.float32)
+
+    def lattice(B, N):                   # 0.1 apart: points on the radius
+        return f32(np.round(rs.uniform(-1, 1, (B, N, 3)) * 10) / 10)
+
+    def mixed(B, N):                     # a dense core in a sparse room
+        x = rs.uniform(-4, 4, (B, N, 3))
+        core = rs.rand(B, N) < 0.5
+        x[core] = rs.uniform(-1, 1, (int(core.sum()), 3))
+        return f32(x)
+
+    def sparse(B, N, M, hits_at):
+        """Every query hits exactly the points at ``hits_at``: those lie
+        within 0.07 of a centre, the queries within 0.02, all else is metres
+        away; radius 0.2."""
+        x = f32(rs.uniform(5, 9, (B, N, 3)))
+        centre = rs.uniform(-1, 1, (B, 1, 3))
+        at = np.asarray(sorted(hits_at))
+        x[:, at] = f32(centre + rs.uniform(-0.04, 0.04, (B, len(at), 3)))
+        q = f32(centre + rs.uniform(-0.01, 0.01, (B, M, 3)))
+        return x, q
+
+    big = name.endswith("_40000")
+    base = name[:-len("_40000")] if big else name
+    # the constructed cases: the split variant on 4,096 points, or the
+    # wrapper's own choice on 40,000
+    N = 40000 if big else _BQ_SPLIT_N
+    variant = None if big else ballquery.VARIANTS.index(_BQ_SPLIT)
+    L = bq_range_points(N, variant)
+    ranges = -(-N // L)
+    M = 19
+
+    if base == "on_radius":
+        p = lattice(2, 1000)
+        return p, p[:, :100].copy(), 0.3, 64, None, 0
+    if base == "no_hits":
+        return (f32(rs.randn(2, 999, 3)), f32(rs.randn(2, 64, 3) + 50.0),
+                0.2, 16, None, 0)
+    if base == "many_hits":
+        return (f32(rs.rand(2, 4500, 3) * 0.1), f32(rs.rand(2, 33, 3) * 0.1),
+                0.5, 32, None, 0)
+    if base in ("n1", "n31", "n33", "n999", "n39999"):
+        n = int(base[1:])
+        p = mixed(2, n)
+        return p, p[:, :min(n, 40)].copy(), 0.3, 16, None, 0
+    if base.startswith("boundary_n"):    # where the variant changes
+        n = int(base[len("boundary_n"):])
+        p = mixed(2, n)
+        return p, p[:, :40].copy(), 0.4, 32, None, 0
+    if base == "m1":
+        p = mixed(2, 3000)
+        return p, p[:, 7:8].copy(), 0.3, 16, None, 0
+    if base == "m_ragged":               # no multiple of any tile
+        p = mixed(3, 1500)
+        return p, p[:, :37].copy(), 0.3, 16, None, 0
+    if base == "m_ragged_split":
+        p = mixed(3, _BQ_SPLIT_N)
+        return p, p[:, :37].copy(), 0.3, 32, variant, 0
+    if base == "nsample1":
+        p = mixed(2, 1200)
+        return p, p[:, :50].copy(), 0.3, 1, None, 0
+    if base == "nsample_above_n":
+        p = f32(rs.rand(2, 20, 3) * 0.2)
+        return p, p[:, :9].copy(), 0.5, 32, None, 0
+    if base == "nsample_limit":          # every range holds more than 256
+        p = f32(rs.rand(2, _BQ_SPLIT_N, 3) * 0.3)
+        return (p, p[:, :21].copy(), 0.5, ballquery.BQ_MAX_NSAMPLE, variant,
+                0)
+    if base == "exactly_nsample_hits":
+        at = rs.choice(N, 16, replace=False)
+        return (*sparse(2, N, M, at), 0.2, 16, variant, 0)
+    if base == "hits_in_last_range":     # more than nsample, all at the end
+        at = (ranges - 1) * L + rs.choice(N - (ranges - 1) * L, 24,
+                                          replace=False)
+        return (*sparse(2, N, M, at), 0.2, 16, variant, 0)
+    if base == "nsample_th_hit_ends_a_range":
+        at = list(rs.choice(L - 1, 15, replace=False)) + [
+            L - 1, L, L + 1, 2 * L + 3]
+        return (*sparse(2, N, M, at), 0.2, 16, variant, 0)
+    if base == "nsample_th_hit_starts_a_range":
+        at = list(rs.choice(L, 15, replace=False)) + [L, L + 1, 3 * L - 1]
+        return (*sparse(2, N, M, at), 0.2, 16, variant, 0)
+    if base == "first_hit_in_later_range":   # the padding repeats it
+        at = [2 * L + 5, 2 * L + 40, 3 * L, 3 * L + 1, N - 1]
+        return (*sparse(2, N, M, at), 0.2, 16, variant, 0)
+    if base == "on_radius_at_boundaries":
+        # lattice neighbours of query 0 at distance exactly 0.3, on both
+        # sides of a chunk's and of a range's end
+        p = lattice(2, N)
+        q = p[:, :M].copy()
+        chunk = ballquery.VARIANTS[
+            ballquery.bq_variant(N) if variant is None else variant][3]
+        steps = f32([[0.3, 0, 0], [0, 0.3, 0], [0, 0, 0.3], [0.2, 0.2, 0.1],
+                     [-0.3, 0, 0], [0.1, -0.2, 0.2], [0, -0.3, 0],
+                     [-0.2, 0.1, 0.2]])
+        at = [chunk - 1, chunk, L - 1, L, L + chunk - 1, L + chunk, 2 * L - 1,
+              2 * L]
+        p[:, at] = q[:, :1] + steps[None]
+        return p, q, 0.3, 64, variant, 0
+    if name == "dense_40000":            # most queries fill their 64 slots
+        p = mixed(2, 40000)
+        return p, p[:, :133].copy(), 0.2, 64, None, 0
+    if name == "batch10_40000":
+        p = mixed(10, 40000)
+        return p, p[:, :64].copy(), 0.2, 64, None, 0
+    if base.startswith("view_off_"):     # N a multiple of 4: only the view
+        offset = int(base.split("_")[2]) // 4       # moves the scenes
+        p = mixed(2, 1000)
+        return p, p[:, :40].copy(), 0.3, 16, None, offset
+    raise KeyError(name)
+
+
+def offset_view(xyz: np.ndarray, offset: int, device="cpu") -> torch.Tensor:
+    """``xyz`` as a contiguous tensor on ``device`` whose first element lies
+    ``offset`` floats past a 16-byte boundary (a view into a flat buffer)."""
+    flat = torch.empty(offset + xyz.size, dtype=torch.float32, device=device)
+    view = flat[offset:].view(xyz.shape)
+    view.copy_(torch.from_numpy(xyz))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * offset
+    return view

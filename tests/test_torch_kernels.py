@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from scan2cap_torch import kernels
+from scan2cap_torch.kernels import ballquery as bq_wrapper
 from scan2cap_torch.kernels import fps as fps_wrapper
 from scan2cap_torch.kernels.gather import gather_vector_bytes
 from scan2cap_torch.ops import grouping, sampling
@@ -104,25 +105,18 @@ def test_fps_refuses_a_scene_above_its_limit(card):
             torch.zeros((1, 64, 3), device=card), 0)
 
 
-def _bq_case(name):
-    rs = np.random.RandomState(11)
-    if name == "on_radius":       # a 0.1 lattice: points exactly on the radius
-        p = (np.round(rs.uniform(-1, 1, (2, 1000, 3)) * 10) / 10
-             ).astype(np.float32)
-        return p, p[:, :100].copy(), 0.3, 64
-    if name == "no_hits":
-        return (rs.randn(2, 999, 3).astype(np.float32),
-                rs.randn(2, 64, 3).astype(np.float32) + 50.0, 0.2, 16)
-    if name == "many_hits":
-        return (rs.rand(2, 4500, 3).astype(np.float32) * 0.1,
-                rs.rand(2, 33, 3).astype(np.float32) * 0.1, 0.5, 32)
-    raise KeyError(name)
+def _bq_case(name, card):
+    """A named ball-query case on the card: (xyz, new_xyz, radius, nsample,
+    variant); the scene tensor lies where the case says it must."""
+    p, q, radius, nsample, variant, offset = cases.bq_edge_case(name)
+    pt = cases.offset_view(p, offset, card)
+    assert pt.data_ptr() % 16 == 4 * offset
+    return pt, torch.from_numpy(q).to(card), radius, nsample, variant
 
 
 @pytest.mark.parametrize("case", ["on_radius", "no_hits", "many_hits"])
 def test_ball_query_kernel_matches_plain(card, case):
-    p, q, radius, nsample = _bq_case(case)
-    pt, qt = torch.from_numpy(p).to(card), torch.from_numpy(q).to(card)
+    pt, qt, radius, nsample, _ = _bq_case(case, card)
     before = kernels.ball_query_cuda.launches
     got = grouping.ball_query(pt, qt, radius, nsample)
     assert kernels.ball_query_cuda.launches == before + 1
@@ -131,16 +125,73 @@ def test_ball_query_kernel_matches_plain(card, case):
 
 @pytest.mark.parametrize("case", ["on_radius", "no_hits", "many_hits"])
 def test_ball_query_pack_kernel_matches_plain(card, case):
-    p, q, radius, _ = _bq_case(case)
-    pt, qt = torch.from_numpy(p).to(card), torch.from_numpy(q).to(card)
+    pt, qt, radius, _, _ = _bq_case(case, card)
     r2 = grouping.radius_squared(radius)
     before = kernels.ball_query_pack_cuda.launches
     words, counts = kernels.ball_query_pack_cuda(pt, qt, r2)
     assert kernels.ball_query_pack_cuda.launches == before + 1
     pw, pc = grouping.ball_query_pack_plain(pt, qt, r2)
-    assert words.shape == (p.shape[0], q.shape[1], -(-p.shape[1] // 32))
+    assert words.shape == (pt.shape[0], qt.shape[1], -(-pt.shape[1] // 32))
     assert torch.equal(words.view(torch.int32), pw.view(torch.int32))
     assert torch.equal(counts, pc)
+
+
+@pytest.mark.parametrize("case", cases.BQ_EDGE_CASES)
+def test_ball_query_kernel_edge_cases_match_plain(card, case):
+    """Every boundary between the kernel's variants, scenes that are no
+    multiple of a word, of 4 points or of a chunk, the nsample-th hit at the
+    end of a range and at the start of the next, padding from a later
+    range, points on the radius at range and chunk ends, the largest
+    nsample, ten scenes of 40,000 points, views off a 16-byte boundary:
+    indices exact."""
+    pt, qt, radius, nsample, variant = _bq_case(case, card)
+    before = kernels.ball_query_cuda.launches
+    got = kernels.ball_query_cuda(pt, qt, grouping.radius_squared(radius),
+                                  nsample, variant=variant)
+    assert kernels.ball_query_cuda.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, grouping.ball_query_plain(pt, qt, radius, nsample))
+    if case == "no_hits":
+        assert (got == 0).all()
+
+
+@pytest.mark.parametrize("case", cases.BQ_EDGE_CASES)
+def test_ball_query_pack_kernel_edge_cases_match_plain(card, case):
+    pt, qt, radius, _, variant = _bq_case(case, card)
+    r2 = grouping.radius_squared(radius)
+    before = kernels.ball_query_pack_cuda.launches
+    words, counts = kernels.ball_query_pack_cuda(pt, qt, r2, variant=variant)
+    assert kernels.ball_query_pack_cuda.launches == before + 1
+    pw, pc = grouping.ball_query_pack_plain(pt, qt, r2)
+    assert torch.equal(words.view(torch.int32), pw.view(torch.int32))
+    assert torch.equal(counts, pc)
+
+
+@pytest.mark.parametrize("case", ["many_hits", "n39999", "m_ragged_split",
+                                  "nsample_th_hit_starts_a_range",
+                                  "view_off_8_bytes", "nsample_limit"])
+def test_ball_query_every_variant_gives_the_same_indices(card, case):
+    pt, qt, radius, nsample, _ = _bq_case(case, card)
+    r2 = grouping.radius_squared(radius)
+    want = grouping.ball_query_plain(pt, qt, radius, nsample)
+    pw, pc = grouping.ball_query_pack_plain(pt, qt, r2)
+    for v, shape in enumerate(bq_wrapper.VARIANTS):
+        got = kernels.ball_query_cuda(pt, qt, r2, nsample, variant=v)
+        assert torch.equal(got, want), shape
+        words, counts = kernels.ball_query_pack_cuda(pt, qt, r2, variant=v)
+        assert torch.equal(words.view(torch.int32), pw.view(torch.int32)), shape
+        assert torch.equal(counts, pc), shape
+
+
+def test_ball_query_refuses_an_nsample_above_its_limit(card):
+    x = torch.zeros((1, 64, 3), device=card)
+    with pytest.raises(ValueError):
+        kernels.ball_query_cuda(x, x, 0.04, bq_wrapper.BQ_MAX_NSAMPLE + 1)
+    with pytest.raises(ValueError):
+        kernels.ball_query_cuda(x, x, 0.04, 0)
+    got = kernels.ball_query_cuda(x, x, 0.04, bq_wrapper.BQ_MAX_NSAMPLE)
+    assert got.shape == (1, 64, bq_wrapper.BQ_MAX_NSAMPLE)
+    assert (got[0, :, :64] == torch.arange(64, device=card)).all()
 
 
 def test_wrappers_check_their_inputs(card):
