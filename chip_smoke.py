@@ -14,7 +14,7 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      multiple of a word, of 4 or of a chunk, hits that end and start a
      range, padding from a later range, points on the radius at range and
      chunk ends, the largest nsample, ten scenes of 40,000 points, views
-     off a 16-byte boundary), the row gather at its six sites (odd and
+     off a 16-byte boundary), the row gather at its eight sites (odd and
      even widths, views off a 16-byte boundary, a ragged row count), and
      the two pack-tile probes; indices, words, counts and gathered rows
      must be equal; kernel, plain and library-call times and the bound at
@@ -33,9 +33,23 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      stage times, and step 1's loss and per-tensor gradient norms against
      the port on the CPU (loss 1e-3, norms 1e-2 relative); the loss must be
      finite and fall;
-  6. the probes' entry points (``scan2cap_torch.probes``): every row right;
-  7. the JSON lines: kernels, serving, training, and last the device line.
-Launch counts are set to 0 just before each of the paths 4-6 and read just
+  6. evaluate as scripts/eval.py --eval_caption --eval_detection does:
+     the flagship (conditioned as in 5) over three synthetic batches
+     through ``eval_helper.eval_cap`` and the AP loop at 0.25 and 0.5, then
+     one batch each of the CLI's default caption heads at full width
+     (``SceneCaptionModule``; top-down with ``num_locals=-1``) against the
+     port on the CPU (tokens >= 99% equal, attention within 1e-3): launch
+     counts per forward, ms per batch of the host loop, post-processing
+     and NMS ms (and NMS's device operations per call); the same forward
+     outputs post-processed on the CPU (every gate's mask, detected ids,
+     candidates exact, AP within 1e-6); an oracle detector (each GT box and
+     three shrunk copies) whose duplicates NMS must remove, whose mAP must
+     read 1 and whose captions become one candidate per GT object, the same
+     on the card and the CPU; scoring seconds over those candidates;
+  7. the probes' entry points (``scan2cap_torch.probes``): every row right;
+  8. the JSON lines: kernels, serving, training, eval, and last the device
+     line.
+Launch counts are set to 0 just before each of the paths 4-7 and read just
 after.  ``--kernels-only`` stops after phase 3 (a short first check of a
 new kernel).  Imports nothing of JAX.
 """
@@ -72,14 +86,19 @@ FPS_SITES = (("sa1", 40000, 2048), ("sa2", 2048, 1024), ("sa3", 1024, 512),
 BQ_SITES = (("sa1", 40000, 2048, 0.2, 64), ("sa2", 2048, 1024, 0.4, 32),
             ("sa3", 1024, 512, 0.8, 16), ("sa4", 512, 256, 1.2, 16),
             ("vote_aggregation", 1024, 256, 0.3, 16))
-# (name, N, C, M, S) of the row gather: the five grouping sites of a
-# forward (the gather-lean layers gather their layer-0 projection) and the
-# sa1 backward's gather of the raw 3 + 135 channels
-GATHER_SITES = (("sa1", 40000, 64, 2048, 64),
-                ("sa1_backward", 40000, 138, 2048, 64),
-                ("sa2", 2048, 128, 1024, 32), ("sa3", 1024, 128, 512, 16),
-                ("sa4", 512, 128, 256, 16),
-                ("vote_aggregation", 1024, 128, 256, 16))
+# (name, ball-query site of its indices, N, C, M, S) of the row gather: the
+# five grouping sites of a flagship forward (the gather-lean layers gather
+# their layer-0 projection), the sa1 backward's gather of the raw 3 + 135
+# channels, and the two gathers of a height-only sa1 (the CLI-default
+# caption heads: 1 input channel, not gather-lean), xyz and height apart
+GATHER_SITES = (("sa1", "sa1", 40000, 64, 2048, 64),
+                ("sa1_backward", "sa1", 40000, 138, 2048, 64),
+                ("sa1_xyz", "sa1", 40000, 3, 2048, 64),
+                ("sa1_height", "sa1", 40000, 1, 2048, 64),
+                ("sa2", "sa2", 2048, 128, 1024, 32),
+                ("sa3", "sa3", 1024, 128, 512, 16),
+                ("sa4", "sa4", 512, 128, 256, 16),
+                ("vote_aggregation", "vote_aggregation", 1024, 128, 256, 16))
 NUM_VOCABS = 3433
 TRAIN_LOSSES = dict(detection=True, caption=True, orientation=True,
                     distance=False)
@@ -116,12 +135,13 @@ def cuda_ms(torch, fn, iters, warmup=1):
 
 
 def device_only_ms(fn, iters):
-    """The kernels' own time per call of fn(), from a profiler trace."""
+    """The device's own time (``ms``) and operations (kernels and copies,
+    ``ops_per_call``) per call of fn(), from a profiler trace."""
     from scan2cap_torch.probes.timing import device_ms
     r = device_ms(fn, iters)
     require(r["complete"], f"the profiler's trace holds {r['launches']} "
-            f"kernels per call after {r['attempts']} passes")
-    return r["ms"]
+            f"operations per call after {r['attempts']} passes")
+    return dict(ms=r["ms"], ops_per_call=r["launches"])
 
 
 # --------------------------------------------------------------------- phase 3
@@ -241,7 +261,7 @@ def check_kernels(torch, np, sm_clock_mhz):
         ms = cuda_ms(torch, lambda: furthest_point_sample_cuda(x, npoint),
                      iters=iters)
         dms = device_only_ms(lambda: furthest_point_sample_cuda(x, npoint),
-                             iters)
+                             iters)["ms"]
         pms = cuda_ms(torch, lambda: furthest_point_sample_plain(x, npoint),
                       iters=1)
         b_ms, by = bound_ms(B * N * 12 + B * npoint * 4,
@@ -276,7 +296,7 @@ def check_kernels(torch, np, sm_clock_mhz):
         variant = list(ballquery.VARIANTS[ballquery.bq_variant(N, M, s)])
 
         ms = cuda_ms(torch, lambda: ball_query_cuda(pts, q, r2, s), iters=20)
-        dms = device_only_ms(lambda: ball_query_cuda(pts, q, r2, s), 20)
+        dms = device_only_ms(lambda: ball_query_cuda(pts, q, r2, s), 20)["ms"]
         pms = cuda_ms(torch, lambda: ball_query_plain(pts, q, r, s), iters=2)
         b_ms, by = bound_ms(io + B * M * s * 4, pairs * BQ_OPS_PER_PAIR)
         bq_sites.append(dict(site=name, shape=[B, N, M, s], radius=r, ms=ms,
@@ -287,7 +307,8 @@ def check_kernels(torch, np, sm_clock_mhz):
                              max_abs_err=int((got - want).abs().max())))
         W = wk.shape[-1]
         ms = cuda_ms(torch, lambda: ball_query_pack_cuda(pts, q, r2), iters=20)
-        dms = device_only_ms(lambda: ball_query_pack_cuda(pts, q, r2), 20)
+        dms = device_only_ms(lambda: ball_query_pack_cuda(pts, q, r2),
+                             20)["ms"]
         pms = cuda_ms(torch, lambda: ball_query_pack_plain(pts, q, r2), iters=2)
         b_ms, by = bound_ms(io + B * M * W * 8, B * M * N * BQ_OPS_PER_PAIR)
         pack_sites.append(dict(site=name, shape=[B, N, M, W], ms=ms,
@@ -306,8 +327,8 @@ def check_kernels(torch, np, sm_clock_mhz):
 
 
 def check_gather(torch, bq_idx):
-    """The row gather against its plain version: edge cases, then the six
-    sites with the ball query's own indices.  Exact or fail."""
+    """The row gather against its plain version: edge cases, then the
+    eight sites with the ball query's own indices.  Exact or fail."""
     from scan2cap_torch.kernels import group_points_cuda
     from scan2cap_torch.kernels.gather import gather_vector_bytes
     from scan2cap_torch.ops.grouping import group_points_plain
@@ -331,8 +352,8 @@ def check_gather(torch, bq_idx):
     B = 2
     g = torch.Generator().manual_seed(7)
     sites = []
-    for name, N, C, M, S in GATHER_SITES:
-        idx = bq_idx[name.split("_backward")[0]]
+    for name, bq_site, N, C, M, S in GATHER_SITES:
+        idx = bq_idx[bq_site]
         require(tuple(idx.shape) == (B, M, S), f"gather site {name}: {idx.shape}")
         feats = torch.randn((B, N, C), generator=g).to(dev)
         got, want = group_points_cuda(feats, idx), group_points_plain(feats, idx)
@@ -342,8 +363,9 @@ def check_gather(torch, bq_idx):
         ms = cuda_ms(torch, lambda: group_points_cuda(feats, idx), iters=20)
         pms = cuda_ms(torch, lambda: group_points_plain(feats, idx), iters=20)
         lms = cuda_ms(torch, lambda: torch.gather(feats, 1, expand), iters=20)
-        dms = device_only_ms(lambda: group_points_cuda(feats, idx), 20)
-        dlms = device_only_ms(lambda: torch.gather(feats, 1, expand), 20)
+        dms = device_only_ms(lambda: group_points_cuda(feats, idx), 20)["ms"]
+        dlms = device_only_ms(lambda: torch.gather(feats, 1, expand),
+                              20)["ms"]
         b_ms, by = bound_ms(B * N * C * 4 + B * M * S * 4 + B * M * S * C * 4, 0)
         sites.append(dict(site=name, shape=[B, N, C, M, S], ms=ms,
                           device_ms=dms, library_device_ms=dlms,
@@ -410,7 +432,7 @@ def check_probes(torch, np):
         b_ms, by = bound_ms(nbytes, flops)
         sites[name] = [dict(site="tile", shape=[1, 256, 512],
                             ms=cuda_ms(torch, kern, iters=50),
-                            device_ms=device_only_ms(kern, 50),
+                            device_ms=device_only_ms(kern, 50)["ms"],
                             plain_ms=cuda_ms(torch, plain, iters=50),
                             library_ms=cuda_ms(torch, lib, iters=50),
                             bound_ms=b_ms, bound_by=by,
@@ -463,14 +485,15 @@ def profile_step(fn, what, keep=10):
 
 
 # --------------------------------------------------------------------- phase 4
-def flagship_batch(np, cfg, B):
-    """The synthetic flagship batch (host arrays) and its vocabulary size:
-    seeded normals and multiview features in place of the zeros."""
+def flagship_batch(np, cfg, B, vocab=None, seed=0):
+    """A synthetic flagship batch (host arrays): seeded normals and
+    multiview features in place of the zeros."""
     from scan2cap_torch.data.synthetic import make_scene_batch, make_vocab
-    vocab = make_vocab(num_vocabs=NUM_VOCABS, emb_size=cfg.emb_size)
+    if vocab is None:
+        vocab = make_vocab(num_vocabs=NUM_VOCABS, emb_size=cfg.emb_size)
     host = make_scene_batch(cfg, batch_size=B, num_objects=8, vocab=vocab,
-                            seed=0)
-    rs = np.random.RandomState(1)
+                            seed=seed)
+    rs = np.random.RandomState(1 + seed)
     pc = host["point_clouds"]
     pc[..., 3:3 + 131] = rs.randn(B, cfg.num_points, 131).astype(np.float32) * 0.1
     require(pc.shape == (B, cfg.num_points, 135), f"flagship input {pc.shape}")
@@ -753,6 +776,399 @@ def train_flagship(torch, np, warmup=3, steps=10, windows=3, lr=1e-3,
 
 
 # --------------------------------------------------------------------- phase 6
+class EvalDataset:
+    """What the eval loop reads of the reference dataset: the vocabulary,
+    its embedding table and a ScanRefer entry per dataset index."""
+
+    def __init__(self, vocab, scanrefer):
+        self.vocabulary = vocab
+        self.emb_table = vocab["emb_table"]
+        self.scanrefer = scanrefer
+
+
+def eval_data(np, cfg, vocab, n, B):
+    """n synthetic flagship batches with their dataset indices, a dataset
+    stub (one entry per scene), the organized dict (every object of a scene
+    by id, named by its class) and the GT corpus (one seeded description
+    per object)."""
+    from scan2cap_torch.config import SCANNET_CLASS2TYPE
+    from scan2cap_torch.eval.eval_helper import prepare_corpus
+
+    rs = np.random.RandomState(11)
+    words = [w for w in vocab["word2idx"] if w.startswith("word")][:40]
+    batches, scanrefer, entries, organized = [], [], [], {}
+    for s in range(n):
+        host = flagship_batch(np, cfg, B, vocab=vocab, seed=s)
+        host["dataset_idx"] = np.arange(s * B, (s + 1) * B, dtype=np.int32)
+        batches.append(host)
+        for b in range(B):
+            scene = f"scene{s * B + b:04d}_00"
+            scanrefer.append({"scene_id": scene})
+            for o in np.nonzero(host["box_label_mask"][b])[0]:
+                name = SCANNET_CLASS2TYPE[int(host["sem_cls_label"][b, o])]
+                organized.setdefault(scene, {})[str(o)] = {
+                    "0": {"object_name": name}}
+                entries.append({"scene_id": scene, "object_id": str(o),
+                                "object_name": name,
+                                "token": list(rs.choice(words, 8))})
+    return batches, EvalDataset(vocab, scanrefer), organized, \
+        prepare_corpus(entries)
+
+
+def replay_step(outs, dev):
+    """An eval step that answers the i-th call with the i-th recorded
+    output, moved to ``dev``: the card's forward outputs, post-processed
+    on the card or on the CPU."""
+    it = iter(outs)
+    return lambda batch: {k: v.to(dev) for k, v in next(it).items()}
+
+
+def ap_loop(torch, step, batches, emb_table, dev):
+    """The AP loop of scripts/eval.py:188-205: per batch the eval step,
+    ``parse_predictions_device`` and the host lists; returns the metrics
+    at 0.25 and 0.5, the parsed masks and the seconds that computing the
+    metrics took."""
+    from scan2cap_torch.data.synthetic import to_device
+    from scan2cap_torch.eval.ap_helper import (APCalculator,
+                                               assemble_pred_map_cls,
+                                               parse_groundtruths,
+                                               parse_predictions_device)
+    calcs = {t: APCalculator(t) for t in (0.25, 0.5)}
+    emb = torch.as_tensor(emb_table).to(dev)
+    masks = []
+    for batch in batches:
+        tb = to_device({k: v for k, v in batch.items()
+                        if k != "glove_emb_table"}, dev)
+        tb["glove_emb_table"] = emb
+        out = step(tb)
+        parsed = {k: v.cpu().numpy() for k, v in parse_predictions_device(
+            {**out, "point_clouds": tb["point_clouds"]}).items()}
+        preds = assemble_pred_map_cls(out["bbox_corner"].cpu().numpy(), parsed)
+        gts = parse_groundtruths(batch)
+        for c in calcs.values():
+            c.step(preds, gts)
+        masks.append(parsed)
+    t0 = time.perf_counter()
+    metrics = {t: c.compute_metrics() for t, c in calcs.items()}
+    return metrics, masks, time.perf_counter() - t0
+
+
+def oracle_outputs(torch, np, batch, out, dup=3):
+    """A perfect detector's output for one batch: each GT box fills
+    ``1 + dup`` slots (itself with the highest objectness, then copies
+    shrunk by 1 to 3 percent), with its class and its assignment; every
+    other slot is an empty box far from the scene.  ``lang_cap`` is the
+    model's own."""
+    corners = np.asarray(batch["gt_box_corner_label"], np.float32)
+    valid = np.asarray(batch["box_label_mask"]) > 0
+    B, K = out["objectness_scores"].shape[:2]
+    C = out["sem_cls_scores"].shape[-1]
+    far = 100.0 + np.float32([[x, y, z] for x in (0, 1) for y in (0, 1)
+                              for z in (0, 1)])
+    box = np.tile(far, (B, K, 1, 1))
+    obj = np.tile(np.float32([5.0, -5.0]), (B, K, 1))
+    sem = np.zeros((B, K, C), np.float32)
+    assign = np.zeros((B, K), np.int64)
+    slots = np.zeros((B, K), bool)
+    for b in range(B):
+        k = 0
+        for m in np.nonzero(valid[b])[0]:
+            center = corners[b, m].mean(0)
+            for d in range(1 + dup):
+                box[b, k] = center + (corners[b, m] - center) * (1 - 0.01 * d)
+                obj[b, k] = [-5.0, 6.0 - d]
+                sem[b, k, int(batch["sem_cls_label"][b, m])] = 10.0
+                assign[b, k] = m
+                slots[b, k] = d == 0
+                k += 1
+        require(k <= K, f"oracle: {k} slots for {K} proposals")
+    oracle = dict(out)
+    oracle.update(bbox_corner=torch.from_numpy(box),
+                  objectness_scores=torch.from_numpy(obj),
+                  sem_cls_scores=torch.from_numpy(sem),
+                  object_assignment=torch.from_numpy(assign))
+    return oracle, slots
+
+
+def stage_counts(post):
+    """Proposals left after each gate of ``postprocess_scene_cap``'s
+    result: nonempty, after NMS, after objectness, past the IoU gate."""
+    return {name: post[k].sum(-1).tolist() for name, k in (
+        ("nonempty", "nonempty"), ("after_nms", "nms_mask"),
+        ("after_objectness", "final_mask"), ("past_iou_gate", "keep"))}
+
+
+def host_ms(torch, fn, iters, dev):
+    """Mean wall time of fn() over iters calls, each ended by a sync."""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def serve_decoder(torch, np, kind, dev, sizes, num_vocabs, requests):
+    """One CLI-default caption head at full width (height only, no graph,
+    ``num_locals=-1``): first call, ``requests`` timed calls, and the same
+    weights and batch through the port on the CPU: tokens >= 99% equal,
+    and the attention of every target whose tokens agree within 1e-3."""
+    from scan2cap_torch.config import ModelConfig
+    from scan2cap_torch.data.synthetic import (make_scene_batch, make_vocab,
+                                               to_device)
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.train.step import make_eval_step
+
+    cfg = ModelConfig(num_locals=-1, use_topdown=kind == "topdown_full_k",
+                      **sizes)
+    vocab = make_vocab(num_vocabs=num_vocabs, emb_size=cfg.emb_size)
+    host = make_scene_batch(cfg, batch_size=2, num_objects=8, vocab=vocab,
+                            seed=3)
+    model = CapNet(cfg, num_vocabs=num_vocabs, device=dev, seed=0)
+    step = make_eval_step(cfg, model, keep_attn=True)
+    batch = to_device(host, dev)
+    first_ms = host_ms(torch, lambda: step(batch), 1, dev)
+    ms = host_ms(torch, lambda: step(batch), requests, dev)
+    out = step(batch)
+    profile = None
+    if dev.type == "cuda":
+        # the card's busy share: summed kernel time of one request's trace
+        from scan2cap_torch.probes.timing import profile_calls
+        rows = profile_calls(lambda: step(batch))["rows"]
+        profile = dict(kernel_ms=sum(t for t, _, _ in rows),
+                       kernels=sum(c for _, _, c in rows))
+        profile["busy_share"] = profile["kernel_ms"] / ms
+    ref = make_eval_step(cfg, CapNet(cfg, num_vocabs=num_vocabs, device="cpu",
+                                     seed=0), keep_attn=True)(
+        to_device(host, "cpu"))
+    K, T = cfg.num_proposals, cfg.max_des_len - 1
+    tok, tok_ref = out["lang_cap"].cpu(), ref["lang_cap"]
+    require(tuple(tok.shape) == (2, K, T), f"{kind}: lang_cap {tok.shape}")
+    for k, v in out.items():
+        if v.is_floating_point():
+            require(bool(torch.isfinite(v).all()), f"{kind}: {k} not finite")
+    agree = float((tok == tok_ref).float().mean())
+    require(agree >= 0.99, f"{kind}: token agreement {agree}")
+    # sa1 of a height-only model is not gather-lean (4 input channels,
+    # fewer than its first layer's 64): it gathers xyz and features apart
+    gathers = 5 + (not model.backbone_net.sa1.gather_lean)
+    report = dict(config=dict(num_points=cfg.num_points, num_proposals=K,
+                              hidden_size=cfg.hidden_size,
+                              use_topdown=cfg.use_topdown,
+                              num_locals=cfg.num_locals,
+                              in_channels=host["point_clouds"].shape[-1]),
+                  first_call_ms=first_ms, ms_per_batch=ms, requests=requests,
+                  lang_cap_agreement=agree, profile=profile,
+                  forwards=requests + 2 + (dev.type == "cuda"),
+                  gathers_per_forward=gathers)
+    if cfg.use_topdown:
+        attn, attn_ref = out["topdown_attn"].cpu(), ref["topdown_attn"]
+        require(tuple(attn.shape) == (2, K, T, K), f"attn {attn.shape}")
+        same = (tok == tok_ref).all(-1)                       # (B, K)
+        err = float((attn - attn_ref).abs()[same].max())
+        require(err <= 1e-3, f"{kind}: topdown_attn max abs err {err}")
+        report.update(attn_max_abs_err=err, targets_compared=int(same.sum()),
+                      attn_max_abs_err_all=float((attn - attn_ref).abs().max()))
+    return report
+
+
+def eval_flagship(torch, np, dev="cuda", sizes=None, num_vocabs=NUM_VOCABS,
+                  nb=3, requests=5):
+    """The evaluation of scripts/eval.py --eval_caption --eval_detection
+    through the port: the flagship's ``eval_cap`` and AP loop on ``dev``,
+    the two CLI-default caption heads served, the post-processing of the
+    same forward outputs on the card and on the CPU held equal, and an
+    oracle detector that must score mAP 1.0.  ``sizes`` shrinks the model
+    (a CPU rehearsal); the card runs it at full width."""
+    from scan2cap_torch.config import flagship_config
+    from scan2cap_torch.data.synthetic import make_vocab, to_device
+    from scan2cap_torch.eval.eval_helper import (eval_cap, feed_scene_cap,
+                                                 postprocess_scene_cap,
+                                                 score_captions)
+    from scan2cap_torch.kernels import WRAPPERS, reset_launch_counts
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.ops.nms import nms_3d
+    from scan2cap_torch.train.step import make_eval_step
+
+    dev = torch.device(dev)
+    sizes = sizes or {}
+    cfg = flagship_config(**sizes)
+    B = 2
+    vocab = make_vocab(num_vocabs=num_vocabs, emb_size=cfg.emb_size)
+    batches, dataset, organized, corpus = eval_data(np, cfg, vocab, nb, B)
+    model = CapNet(cfg, num_vocabs=num_vocabs, device=dev, seed=0)
+    condition_weights(torch, model)
+    step = make_eval_step(cfg, model)
+    feed_scene_cap(step, dataset, batches[:1], organized, device=dev)
+
+    # the main path: eval_cap, the AP loop, the two caption heads
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    scores = eval_cap(step, dataset, batches, organized, corpus=corpus,
+                      device=dev)
+    eval_cap_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ap, _, ap_metrics_s = ap_loop(torch, step, batches, vocab["emb_table"],
+                                  dev)
+    ap_ms = (time.perf_counter() - t0) * 1e3 / nb
+    flagship_launches = {w.__name__: w.launches for w in WRAPPERS}
+    decoders = {kind: serve_decoder(torch, np, kind, dev, sizes, num_vocabs,
+                                    requests)
+                for kind in ("scene_caption", "topdown_full_k")}
+    launches = {w.__name__: w.launches for w in WRAPPERS}
+    forwards = 2 * nb + sum(d["forwards"] for d in decoders.values())
+    want = dict(furthest_point_sample_cuda=(5 * 2 * nb, 5 * forwards),
+                ball_query_cuda=(5 * 2 * nb, 5 * forwards),
+                group_points_cuda=(5 * 2 * nb, 5 * 2 * nb + sum(
+                    d["gathers_per_forward"] * d["forwards"]
+                    for d in decoders.values())))
+    for w, (flag, total) in want.items():
+        require(dev.type != "cuda" or (flagship_launches[w], launches[w])
+                == (flag, total), f"{w}: {flagship_launches[w]} launches in "
+                f"{2 * nb} flagship forwards (want {flag}), {launches[w]} in "
+                f"all {forwards} forwards (want {total})")
+    names = ("BLEU-1", "BLEU-2", "BLEU-3", "BLEU-4")
+    metrics = dict(zip(names, scores[0][0]), CIDEr=scores[1][0],
+                   ROUGE=scores[2][0], METEOR=scores[3][0])
+    require(all(np.isfinite(v) for v in metrics.values()),
+            f"caption metrics not finite: {metrics}")
+
+    # the split: the host loop per batch, post-processing
+    t0 = time.perf_counter()
+    feed_scene_cap(step, dataset, batches, organized, device=dev)
+    feed_ms = (time.perf_counter() - t0) * 1e3 / nb
+    recorded = []
+
+    def record(batch):
+        out = step(batch)
+        recorded.append({k: v.cpu() for k, v in out.items()})
+        return out
+    card_cands = feed_scene_cap(record, dataset, batches, organized,
+                                device=dev)
+    emb = torch.as_tensor(vocab["emb_table"]).to(dev)
+    tb0 = to_device({k: v for k, v in batches[0].items()
+                     if k != "glove_emb_table"}, dev)
+    tb0["glove_emb_table"] = emb
+    out0 = {k: v.to(dev) for k, v in recorded[0].items()}
+    prob0 = torch.softmax(out0["objectness_scores"], dim=-1)[..., 1]
+    cls0 = torch.argmax(out0["sem_cls_scores"], dim=-1)
+    post_ms = host_ms(torch, lambda: postprocess_scene_cap(out0, tb0), 20, dev)
+    nms_ms = host_ms(torch, lambda: nms_3d(out0["bbox_corner"], prob0, cls0),
+                     20, dev)
+    nms_device = (device_only_ms(lambda: nms_3d(out0["bbox_corner"], prob0,
+                                                cls0), 10)
+                  if dev.type == "cuda" else None)
+    cpu = torch.device("cpu")
+
+    def post_card_vs_cpu(outs, what):
+        """Each batch's outputs post-processed on ``dev`` and on the CPU:
+        every mask and id equal; the gate counts and the worst IoU error."""
+        counts, worst_iou, keeps = [], 0.0, []
+        for batch, rec in zip(batches, outs):
+            tbs = {}
+            for d in (dev, cpu):
+                tb = to_device({k: v for k, v in batch.items()
+                                if k != "glove_emb_table"}, d)
+                tbs[d.type] = postprocess_scene_cap(
+                    {k: v.to(d) for k, v in rec.items()}, tb)
+            post, ref = tbs[dev.type], tbs["cpu"]
+            for k in ("keep", "detected_object_ids", "captions", "nonempty",
+                      "nms_mask", "final_mask"):
+                require(torch.equal(post[k].cpu(), ref[k]),
+                        f"{what} post-processing {k}: card != CPU")
+            worst_iou = max(worst_iou, float((post["ious"].cpu()
+                                              - ref["ious"]).abs().max()))
+            counts.append(stage_counts(post))
+            keeps.append(post["keep"].cpu().numpy())
+        return counts, worst_iou, keeps
+
+    # the same forward outputs post-processed on the CPU
+    counts, worst_iou, _ = post_card_vs_cpu(recorded, "flagship")
+    cpu_cands = feed_scene_cap(replay_step(recorded, cpu), dataset,
+                               batches, organized, device=cpu)
+    require(cpu_cands == card_cands, "candidates: card != CPU")
+    ap_card, masks_card, _ = ap_loop(torch, replay_step(recorded, dev),
+                                     batches, vocab["emb_table"], dev)
+    ap_cpu, masks_cpu, _ = ap_loop(torch, replay_step(recorded, cpu),
+                                   batches, vocab["emb_table"], cpu)
+    for a, b in zip(masks_card, masks_cpu):
+        for k in ("pred_mask", "pred_sem_cls"):
+            require(np.array_equal(a[k], b[k]), f"parse {k}: card != CPU")
+    ap_err = max(abs(ap_card[t][k] - ap_cpu[t][k])
+                 for t in ap_card for k in ap_card[t])
+    require(ap_err <= 1e-6, f"AP card vs CPU differ by {ap_err}")
+
+    # the oracle: NMS removes the duplicates, mAP@0.25 reads 1.0, and every
+    # GT object becomes a candidate, the same on the card and on the CPU
+    oracle, kept_slots = [], []
+    for batch, rec in zip(batches, recorded):
+        o, slots = oracle_outputs(torch, np, batch, rec)
+        oracle.append(o)
+        kept_slots.append(slots)
+    oracle_ap = {}
+    for d in (dev, cpu):
+        m, parsed, _ = ap_loop(torch, replay_step(oracle, d), batches,
+                               vocab["emb_table"], d)
+        for p, slots in zip(parsed, kept_slots):
+            require(np.array_equal(p["pred_mask"], slots),
+                    f"oracle on {d.type}: NMS kept {p['pred_mask'].sum()} "
+                    f"slots, want the {slots.sum()} exact GT boxes")
+        # AP and AR read npos / (npos + 1e-8), not 1, for a perfect
+        # detector (utils/eval_det.py's recall)
+        require(all(abs(m[t][k] - 1.0) < 1e-6 for t in m
+                    for k in ("mAP", "AR")),
+                f"oracle on {d.type}: mAP {m[0.25]['mAP']}, {m[0.5]['mAP']}")
+        oracle_ap[d.type] = m
+    oracle_counts, oracle_iou, oracle_keeps = post_card_vs_cpu(oracle,
+                                                                "oracle")
+    for keep, slots in zip(oracle_keeps, kept_slots):
+        require(np.array_equal(keep, slots), f"oracle: keep holds "
+                f"{keep.sum()} slots, want the {slots.sum()} exact GT boxes")
+    t0 = time.perf_counter()
+    oracle_cands = feed_scene_cap(replay_step(oracle, dev), dataset,
+                                  batches, organized, device=dev)
+    oracle_feed_ms = (time.perf_counter() - t0) * 1e3 / nb
+    oracle_cpu_cands = feed_scene_cap(replay_step(oracle, cpu), dataset,
+                                      batches, organized, device=cpu)
+    objects = sum(len(v) for v in organized.values())
+    require(len(oracle_cands) == objects > 0,
+            f"oracle: {len(oracle_cands)} candidates for {objects} objects")
+    require(oracle_cpu_cands == oracle_cands, "oracle candidates: card != CPU")
+    # scoring is timed on the oracle's decoded captions: where the
+    # flagship's random weights pass no proposal, its candidates are all
+    # filled in as "sos eos"
+    t0 = time.perf_counter()
+    oracle_scores = score_captions(corpus, dict(oracle_cands))
+    scoring_s = time.perf_counter() - t0
+    words = [len(c[0].split()) - 2 for c in oracle_cands.values()]
+
+    return dict(batch=B, batches=nb, num_points=cfg.num_points,
+                num_proposals=cfg.num_proposals, hidden_size=cfg.hidden_size,
+                vocab=num_vocabs, eval_cap_s=eval_cap_s,
+                feed_ms_per_batch=feed_ms, ap_loop_ms_per_batch=ap_ms,
+                ap_metrics_s=ap_metrics_s,
+                scoring_s=scoring_s, scoring_candidates=len(oracle_cands),
+                postprocess_ms=post_ms, nms_ms=nms_ms,
+                postprocess_rest_ms=post_ms - nms_ms,
+                nms_device=nms_device, counts=counts,
+                candidates=len(card_cands), metrics=metrics,
+                ap={str(t): dict(mAP=m["mAP"], AR=m["AR"]) for t, m in ap.items()},
+                ap_card_vs_cpu_max_err=ap_err, ious_max_abs_err=worst_iou,
+                oracle=dict(
+                    ap={str(t): dict(mAP=m["mAP"], AR=m["AR"])
+                        for t, m in oracle_ap[dev.type].items()},
+                    counts=oracle_counts, ious_max_abs_err=oracle_iou,
+                    candidates=len(oracle_cands),
+                    words_per_caption=[min(words), max(words)],
+                    feed_ms_per_batch=oracle_feed_ms,
+                    CIDEr=oracle_scores[1][0]),
+                decoders=decoders, forwards=forwards,
+                flagship_launches_per_forward={
+                    k: v / (2 * nb) for k, v in flagship_launches.items()},
+                launches=launches)
+
+
+# --------------------------------------------------------------------- phase 7
 def run_probes(torch):
     """The probes' own entry points on the card; returns their launches."""
     from scan2cap_torch.kernels import WRAPPERS, reset_launch_counts
@@ -772,12 +1188,37 @@ def run_probes(torch):
     return report
 
 
+def print_eval(r):
+    """The eval phase's readings, one line each."""
+    for i, c in enumerate(r["counts"]):
+        print(f"  eval batch {i}: nonempty {c['nonempty']}, after NMS "
+              f"{c['after_nms']}, after objectness {c['after_objectness']}, "
+              f"past the IoU gate {c['past_iou_gate']}", flush=True)
+    print(f"  eval: {r['feed_ms_per_batch']:.2f} ms per batch (forward, "
+          f"post-processing, host loop), AP loop {r['ap_loop_ms_per_batch']:.2f} "
+          f"ms per batch, scoring {r['scoring_s']:.3f} s over "
+          f"{r['scoring_candidates']} oracle captions, post-processing "
+          f"{r['postprocess_ms']:.3f} ms of which NMS {r['nms_ms']:.3f} ms "
+          f"({r['nms_device']}); AP metrics {r['ap_metrics_s']:.3f} s; mAP "
+          f"{r['ap']}; oracle {r['oracle']['ap']}",
+          flush=True)
+    o = r["oracle"]
+    print(f"  oracle: {o['feed_ms_per_batch']:.2f} ms per batch of replayed "
+          f"outputs (post-processing, host loop), {o['candidates']} "
+          f"candidates of {o['words_per_caption']} words, counts "
+          f"{o['counts']}", flush=True)
+    for kind, d in r["decoders"].items():
+        print(f"  {kind}: {d['ms_per_batch']:.2f} ms per batch, tokens "
+              f"{d['lang_cap_agreement']:.4f} equal to the CPU's, profile "
+              f"{d['profile']}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phase 3)")
     ap.add_argument("--skip", nargs="+", default=[],
-                    choices=["serve", "train", "probes"],
+                    choices=["serve", "train", "eval", "probes"],
                     help="leave out a path while bringing up another "
                          "(exit 3 by design: not a whole run)")
     args = ap.parse_args(argv)
@@ -847,7 +1288,7 @@ def main(argv=None) -> int:
     # each path starts from launch counts of 0 and is read just after
     partial = args.kernels_only or args.skip
     paths = {}
-    serve = train = probes = None
+    serve = train = evaluation = probes = None
     if not args.kernels_only:
         if "serve" not in args.skip:
             t0 = time.perf_counter()
@@ -859,6 +1300,12 @@ def main(argv=None) -> int:
             train = train_flagship(torch, np)
             paths["train"] = train["launches"]
             print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        if "eval" not in args.skip:
+            t0 = time.perf_counter()
+            evaluation = eval_flagship(torch, np)
+            paths["eval"] = evaluation["launches"]
+            print_eval(evaluation)
+            print(f"eval phase: {time.perf_counter() - t0:.1f} s", flush=True)
         if "probes" not in args.skip:
             t0 = time.perf_counter()
             probes = run_probes(torch)
@@ -906,6 +1353,8 @@ def main(argv=None) -> int:
         print(json.dumps({"probes": probes, "card": card}))
     if train is not None:
         print(json.dumps({"train": train, "card": card}))
+    if evaluation is not None:
+        print(json.dumps({"eval": evaluation, "card": card}))
     if partial:
         return 3
     print(card)

@@ -1,7 +1,11 @@
 """PyTorch/CUDA port of scan2cap_tpu for NVIDIA Hopper (H100).
 
 The package mirrors ``scan2cap_tpu``'s module layout so each port module
-has an obvious counterpart.  It imports torch and numpy only — never JAX,
+has an obvious counterpart.  Ported: CapNet with both caption decoders
+(``models``), its losses and the train and eval steps (``losses``,
+``train``), and the evaluation (``eval``: NMS and post-processing on the
+card, the caption metrics and detection AP on the host).  The solver,
+checkpoints, datasets and command-line entry points come next.  It imports torch and numpy only — never JAX,
 Flax or anything of ``scan2cap_tpu``; what it needs from there it keeps as
 its own copy.  The TPU kernels of the JAX repository (furthest-point
 sampling, the exact ball query, the row gather of ``group_points`` and the

@@ -1,7 +1,7 @@
 """Static model configuration (copy of ``scan2cap_tpu/config.py:45-163``).
 
-Only what the ported paths read: ``ModelConfig`` and the ScanNet
-mean-size table.  Field names and defaults are the JAX package's, so a
+Only what the ported paths read: ``ModelConfig``, the ScanNet
+mean-size table and the class names.  Field names and defaults are the JAX package's, so a
 config written for one package reads the same in the other.  The
 TPU-only knobs (``compute_dtype``, ``storage_dtype``, ``bf16_components``,
 ``spatial_axis``) are not carried: the port computes in float32 and runs
@@ -14,6 +14,14 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+
+SCANNET_TYPE2CLASS = {
+    "cabinet": 0, "bed": 1, "chair": 2, "sofa": 3, "table": 4, "door": 5,
+    "window": 6, "bookshelf": 7, "picture": 8, "counter": 9, "desk": 10,
+    "curtain": 11, "refrigerator": 12, "shower curtain": 13, "toilet": 14,
+    "sink": 15, "bathtub": 16, "others": 17,
+}
+SCANNET_CLASS2TYPE = {v: k for k, v in SCANNET_TYPE2CLASS.items()}
 
 # Per-class mean box sizes (meters), from the reference's
 # meta_data/scannet_reference_means.npz (18 x 3).

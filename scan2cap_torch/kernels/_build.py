@@ -60,14 +60,15 @@ def _paths(name: str):
 
 def _start(name: str):
     """Start nvcc for one source unless its library is already built.
-    Returns (proc or None, tmp_path, so_path, log_path)."""
+    Returns (proc or None, tmp_path, so_path, log_path); the log of the
+    build that made the library stays beside it."""
     src, so = _paths(name)
+    log = so[:-3] + ".log"
     if os.path.exists(so):
-        return None, None, so, None
+        return None, None, so, log
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    log = so[:-3] + ".log"
     with open(log, "w") as logf:
         proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                                 stdout=logf, stderr=subprocess.STDOUT)
@@ -88,14 +89,15 @@ def _finish(name: str, proc, tmp, so, log) -> None:
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every named source in parallel (one nvcc each); return the
-    build logs' text by name (empty for a library that was already built)."""
+    build logs' text by name (for a library that was already built, the log
+    of the build that made it; empty if that log is gone)."""
     names = list(names)
     started = {n: _start(n) for n in names}
     logs = {}
     for n in names:
         _finish(n, *started[n])
         log = started[n][3]
-        if log is not None:
+        if os.path.exists(log):
             with open(log) as f:
                 logs[n] = f.read()
         else:

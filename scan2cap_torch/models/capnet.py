@@ -16,7 +16,8 @@ from torch import nn
 from scan2cap_torch.config import ModelConfig, SCANNET_MEAN_SIZE_ARR
 from scan2cap_torch.device import resolve_device
 from scan2cap_torch.models.backbone import Pointnet2Backbone
-from scan2cap_torch.models.caption import TopDownSceneCaptionModule
+from scan2cap_torch.models.caption import (SceneCaptionModule,
+                                           TopDownSceneCaptionModule)
 from scan2cap_torch.models.graph import GraphModule
 from scan2cap_torch.models.layers import BatchNorm
 from scan2cap_torch.models.proposal import ProposalModule
@@ -47,14 +48,16 @@ class CapNet(nn.Module):
                 num_locals=cfg.num_locals, query_mode=cfg.query_mode,
                 graph_mode=cfg.graph_mode, graph_aggr=cfg.graph_aggr,
                 return_orientation=cfg.use_orientation, num_bins=cfg.num_bins)
-        if not cfg.no_caption:
-            if not cfg.use_topdown:
-                raise NotImplementedError(
-                    "SceneCaptionModule (use_topdown=False) is not ported yet")
+        if not cfg.no_caption and cfg.use_topdown:
             self.caption = TopDownSceneCaptionModule(
                 num_vocabs, emb_size=cfg.emb_size, feat_size=128,
                 hidden_size=cfg.hidden_size, num_locals=cfg.num_locals,
                 query_mode=cfg.query_mode, use_relation=cfg.use_relation,
+                max_des_len=cfg.max_des_len, min_iou=cfg.min_iou,
+                num_vocabs_padded=num_vocabs_padded)
+        elif not cfg.no_caption:
+            self.caption = SceneCaptionModule(
+                num_vocabs, emb_size=cfg.emb_size, feat_size=128,
                 max_des_len=cfg.max_des_len, min_iou=cfg.min_iou,
                 num_vocabs_padded=num_vocabs_padded)
         self._init_weights(seed)

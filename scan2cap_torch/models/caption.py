@@ -1,18 +1,24 @@
-"""Top-down caption decoder
-(counterpart of ``scan2cap_tpu/models/caption.py:36-98, 247-614``; reference
-models/caption_module.py:16-38, 202-592).
+"""Caption decoders
+(counterpart of ``scan2cap_tpu/models/caption.py``; reference
+models/caption_module.py:16-592).
 
-``forward_sample_batch`` is the training path: one target proposal per
-sample (the argmax-IoU proposal against the GT reference box), decoded
-teacher-forced for ``max_des_len + 1`` steps with attention over all K
-proposals, masked to the target's ``num_locals`` locals.
+``SceneCaptionModule`` is the plain GRU decoder (caption_module.py:40-200):
+the target proposal's projected feature is the GRU's first hidden state.
+``TopDownSceneCaptionModule`` is the 2-layer attention decoder
+(caption_module.py:202-592).
+
+``forward_sample_batch`` is the training path of both: one target proposal
+per sample (the argmax-IoU proposal against the GT reference box), decoded
+teacher-forced for ``max_des_len + 1`` steps; the top-down decoder attends
+over all K proposals, masked to the target's ``num_locals`` locals.
 
 ``forward_scene_batch`` decodes a caption for every proposal, free-running
-from the sos embedding, with attention over each target's ``num_locals``
-local slots (``_decode_scene_local``, caption.py:462-580): every other
-proposal is -1e30-masked in the reference, so its softmax weight is
-exactly 0 and scoring only the local slots is the same math.  The plain
-``SceneCaptionModule`` and the full-K scene decode are not ported yet.
+from the sos embedding, for ``max_des_len - 1`` steps.  The top-down
+decoder attends either over each target's ``num_locals`` local slots
+(``_decode_scene_local``): every other proposal is -1e30-masked in the
+reference, so its softmax weight is exactly 0 and scoring only the local
+slots is the same math; or, with ``num_locals=-1``, over all K proposals
+(``_decode_scene``), targets taken ``eval_chunk`` at a time.
 """
 
 from __future__ import annotations
@@ -111,6 +117,97 @@ def _gather_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                         ).reshape(B, K, L, -1)
 
 
+def _iou_gate(target_ious: torch.Tensor, min_iou: float):
+    """(good_bbox_masks (B,) bool, pred_ious: the mean IoU of the good
+    targets, 0 without one)."""
+    good = target_ious > min_iou
+    num_good = torch.sum(good)
+    mean_iou = torch.where(
+        num_good > 0,
+        torch.sum(target_ious * good) / torch.clamp(num_good, min=1),
+        torch.zeros_like(target_ious[0]))
+    return good, mean_iou
+
+
+class SceneCaptionModule(nn.Module):
+    """Plain GRU decoder (caption_module.py:40-200): ``map_feat`` + ReLU
+    projects the proposal features to the embedding width, which is also
+    the GRU's hidden width; the classifier reads the hidden state."""
+
+    def __init__(self, num_vocabs: int, emb_size: int = 300,
+                 feat_size: int = 128, max_des_len: int = 30,
+                 min_iou: float = 0.25, eval_chunk: int = 32,
+                 num_vocabs_padded: int = 0):
+        super().__init__()
+        if num_vocabs_padded and num_vocabs_padded < num_vocabs:
+            raise ValueError(f"num_vocabs_padded={num_vocabs_padded} < "
+                             f"num_vocabs={num_vocabs}")
+        self.num_vocabs = num_vocabs
+        self.max_des_len = max_des_len
+        self.min_iou = min_iou
+        self.eval_chunk = eval_chunk
+        self.map_feat = nn.Linear(feat_size, emb_size)
+        self.recurrent_cell = GRUCell(emb_size, emb_size)
+        self.classifier = nn.Linear(emb_size, num_vocabs_padded or num_vocabs)
+
+    def forward(self, data_dict: dict, use_tf: bool = True,
+                is_eval: bool = False) -> dict:
+        if not is_eval:
+            return self.forward_sample_batch(data_dict)
+        return self.forward_scene_batch(data_dict)
+
+    def _decode(self, hidden: torch.Tensor, first_input: torch.Tensor,
+                word_embs, emb_table, num_steps: int) -> torch.Tensor:
+        """hidden (N, E) first hidden state, first_input (N, E).  Teacher
+        forcing (``word_embs`` (N, T, E)) returns logits (N, num_steps, V);
+        free running (``emb_table`` (V, E)) token ids (N, num_steps)."""
+        prev, outs = first_input, []
+        for t in range(num_steps):
+            hidden = self.recurrent_cell(prev, hidden)
+            logits = _mask_pad_logits(self.classifier(hidden),
+                                      self.num_vocabs)
+            if word_embs is not None:
+                prev = word_embs[:, t + 1]
+                outs.append(logits)
+            else:
+                tokens = torch.argmax(logits, dim=-1)
+                prev = emb_table[tokens]
+                outs.append(tokens)
+        return torch.stack(outs, dim=1)
+
+    def forward_sample_batch(self, data_dict: dict) -> dict:
+        d = dict(data_dict)
+        word_embs = d["lang_feat"]                               # (B,T,E)
+        obj_feats = torch.relu(self.map_feat(d["bbox_feature"]))  # (B,K,E)
+        target_ids, target_ious = select_target(d)
+        logits = self._decode(_gather_targets(obj_feats, target_ids),
+                              word_embs[:, 0], word_embs, None,
+                              self.max_des_len + 1)
+        good, mean_iou = _iou_gate(target_ious, self.min_iou)
+        d["lang_cap"] = logits                                   # (B,T-1,V)
+        d["pred_ious"] = mean_iou
+        d["good_bbox_masks"] = good
+        return d
+
+    def forward_scene_batch(self, data_dict: dict) -> dict:
+        d = dict(data_dict)
+        emb_table = d["glove_emb_table"]                         # (V, E)
+        obj_feats = torch.relu(self.map_feat(d["bbox_feature"]))  # (B,K,E)
+        B, K, E = obj_feats.shape
+        sos = d["lang_feat"][:, 0]                               # (B, E)
+        chunks = []
+        for s in range(0, K, self.eval_chunk):
+            feats = obj_feats[:, s:s + self.eval_chunk]
+            kc = feats.shape[1]
+            tokens = self._decode(
+                feats.reshape(B * kc, E),
+                sos[:, None].expand(B, kc, E).reshape(B * kc, E), None,
+                emb_table, self.max_des_len - 1)                 # 29 steps
+            chunks.append(tokens.reshape(B, kc, -1))
+        d["lang_cap"] = torch.cat(chunks, dim=1).to(torch.int32)  # (B,K,T)
+        return d
+
+
 class TopDownSceneCaptionModule(nn.Module):
     """2-layer attention decoder (caption_module.py:202-592)."""
 
@@ -119,7 +216,7 @@ class TopDownSceneCaptionModule(nn.Module):
                  num_locals: int = -1, query_mode: str = "center",
                  use_relation: bool = False, max_des_len: int = 30,
                  min_iou: float = 0.25, overlay_threshold: float = 0.5,
-                 num_vocabs_padded: int = 0):
+                 eval_chunk: int = 32, num_vocabs_padded: int = 0):
         super().__init__()
         if num_vocabs_padded and num_vocabs_padded < num_vocabs:
             raise ValueError(f"num_vocabs_padded={num_vocabs_padded} < "
@@ -132,6 +229,7 @@ class TopDownSceneCaptionModule(nn.Module):
         self.max_des_len = max_des_len
         self.min_iou = min_iou
         self.overlay_threshold = overlay_threshold
+        self.eval_chunk = eval_chunk
         H = hidden_size
         self.map_topdown = nn.Linear(emb_size + H + feat_size, emb_size)
         self.recurrent_cell_1 = GRUCell(emb_size, H)
@@ -196,18 +294,63 @@ class TopDownSceneCaptionModule(nn.Module):
         logits, attns = self._decode(target_feats, obj_feats, mapped_obj,
                                      valid_masks, word_embs,
                                      self.max_des_len + 1)
-        good = target_ious > self.min_iou
-        num_good = torch.sum(good)
-        mean_iou = torch.where(
-            num_good > 0,
-            torch.sum(target_ious * good) / torch.clamp(num_good, min=1),
-            torch.zeros_like(target_ious[0]))
+        good, mean_iou = _iou_gate(target_ious, self.min_iou)
         d["lang_cap"] = logits                                   # (B,T-1,V)
         d["pred_ious"] = mean_iou
         d["topdown_attn"] = attns
         d["valid_masks"] = valid_masks
         d["good_bbox_masks"] = good
         return d
+
+    def _decode_scene(self, tgt: torch.Tensor, shared_mapped: torch.Tensor,
+                      obj_feats: torch.Tensor, valid: torch.Tensor,
+                      onehot_nbr, nbr_base, rel, first_input: torch.Tensor,
+                      emb_table: torch.Tensor, num_steps: int):
+        """Full-K decode of a chunk of kc targets (caption.py:385-460).
+
+        tgt (B, kc, C), shared_mapped (B, K, H) = map_feat(obj_feats) for
+        all targets, obj_feats (B, K, C), valid (B, kc, K), first_input
+        (B, kc, emb).  With relation features, onehot_nbr (B, kc, L, K)
+        marks each target's L neighbours, nbr_base (B, kc, L, H) is their
+        corrected projection shared_mapped[nbr] + map_feat(rel) and rel
+        (B, kc, L, C) their edge features: map_feat is linear, so only the
+        neighbour slots differ from the shared projection.  Returns tokens
+        (B, kc, T) and attn (B, kc, T, K)."""
+        B, kc, _ = tgt.shape
+        w = self.attend.weight[0]                                   # (H,)
+        neg_mask = torch.where(valid == 0, -1e30, 0.0)              # (B,kc,K)
+        covered = onehot_nbr.sum(dim=2) if onehot_nbr is not None else None
+        h1 = tgt.new_zeros((B, kc, self.hidden_size))
+        h2 = tgt.new_zeros((B, kc, self.hidden_size))
+        prev = first_input
+        tokens_t, attn_t = [], []
+        for _ in range(num_steps):
+            x = torch.relu(self.map_topdown(torch.cat([prev, h2, tgt], -1)))
+            h1 = self.recurrent_cell_1(x, h1)
+            hproj = self.map_hidd(h1)
+            scores = torch.sum(torch.tanh(shared_mapped[:, None]
+                                          + hproj[:, :, None]) * w,
+                               dim=-1)                              # (B,kc,K)
+            if onehot_nbr is not None:
+                s_nbr = torch.sum(torch.tanh(nbr_base + hproj[:, :, None]) * w,
+                                  dim=-1)                           # (B,kc,L)
+                corr = torch.einsum("btl,btlk->btk", s_nbr, onehot_nbr)
+                scores = torch.where(covered > 0, corr, scores)
+            attn = torch.softmax(scores + neg_mask, dim=-1)
+            attended = torch.einsum("btk,bkc->btc", attn, obj_feats)
+            if onehot_nbr is not None:
+                attn_nbr = torch.einsum("btk,btlk->btl", attn, onehot_nbr)
+                attended = attended + torch.sum(attn_nbr[..., None] * rel,
+                                                dim=2)
+            lang_in = torch.relu(self.map_lang(torch.cat([attended, h1], -1)))
+            h2 = self.recurrent_cell_2(lang_in, h2)
+            logits = _mask_pad_logits(self.classifier(h2), self.num_vocabs)
+            tokens = torch.argmax(logits, dim=-1)                   # (B,kc)
+            prev = emb_table[tokens]
+            tokens_t.append(tokens)
+            attn_t.append(attn)
+        return (torch.stack(tokens_t, dim=2).to(torch.int32),
+                torch.stack(attn_t, dim=2))
 
     def _decode_scene_local(self, tgt: torch.Tensor, base_loc: torch.Tensor,
                             ctx_loc: torch.Tensor, first_input: torch.Tensor,
@@ -241,9 +384,7 @@ class TopDownSceneCaptionModule(nn.Module):
 
     def forward_scene_batch(self, data_dict: dict) -> dict:
         if self.num_locals == -1:
-            raise NotImplementedError(
-                "the full-K scene decode (num_locals=-1) is not ported yet; "
-                "the flagship decodes over num_locals slots")
+            return self._forward_scene_full(data_dict)
         d = dict(data_dict)
         emb_table = d["glove_emb_table"]
         obj_feats = d["bbox_feature"]                               # (B,K,C)
@@ -271,5 +412,39 @@ class TopDownSceneCaptionModule(nn.Module):
             sos[:, None].expand(B, K, sos.shape[-1]), emb_table,
             self.max_des_len - 1)                                   # 29 steps
         d["topdown_attn_slots"] = loc_idx                           # (B,K,L)
+        d["valid_masks"] = all_valid
+        return d
+
+    def _forward_scene_full(self, data_dict: dict) -> dict:
+        """The num_locals=-1 scene decode (caption.py:533-534, 582-614):
+        every target attends over all valid proposals."""
+        d = dict(data_dict)
+        emb_table = d["glove_emb_table"]
+        obj_feats = d["bbox_feature"]                               # (B,K,C)
+        B, K, _ = obj_feats.shape
+        all_valid = d["bbox_mask"].to(torch.float32)[:, None, :].expand(B, K, K)
+        sos = d["lang_feat"][:, 0]
+        shared_mapped = self.map_feat(obj_feats)                    # (B,K,H)
+        onehot = nbr_base = rel = None
+        if self.use_relation:
+            rel = d["edge_feature"]                                 # (B,K,L,C)
+            nbr = d["edge_nbr_idx"]                                 # (B,K,L)
+            nbr_base = _gather_slots(shared_mapped, nbr) + self.map_feat(rel)
+            onehot = nn.functional.one_hot(nbr.long(), K).to(obj_feats.dtype)
+        tokens, attn = [], []
+        for s in range(0, K, self.eval_chunk):
+            sl = slice(s, s + self.eval_chunk)
+            kc = obj_feats[:, sl].shape[1]
+            tok, att = self._decode_scene(
+                obj_feats[:, sl], shared_mapped, obj_feats, all_valid[:, sl],
+                onehot[:, sl] if onehot is not None else None,
+                nbr_base[:, sl] if nbr_base is not None else None,
+                rel[:, sl] if rel is not None else None,
+                sos[:, None].expand(B, kc, sos.shape[-1]), emb_table,
+                self.max_des_len - 1)                               # 29 steps
+            tokens.append(tok)
+            attn.append(att)
+        d["lang_cap"] = torch.cat(tokens, dim=1)                    # (B,K,T)
+        d["topdown_attn"] = torch.cat(attn, dim=1)                  # (B,K,T,K)
         d["valid_masks"] = all_valid
         return d

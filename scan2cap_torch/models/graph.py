@@ -150,6 +150,11 @@ class GraphModule(nn.Module):
                  graph_aggr: str = "add", return_orientation: bool = False,
                  num_bins: int = 6, overlay_threshold: float = 0.5):
         super().__init__()
+        if num_locals < 1:
+            # the JAX package's top_k refuses it too; a slice [:-1] of the
+            # sorted neighbours would silently build another graph
+            raise ValueError(f"the graph needs num_locals >= 1, got "
+                             f"{num_locals}")
         self.out_size = out_size
         self.num_layers = num_layers
         self.num_locals = num_locals

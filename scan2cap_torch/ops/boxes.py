@@ -1,11 +1,13 @@
 """Axis-aligned 3D box geometry
-(counterpart of ``scan2cap_tpu/ops/boxes.py:31,66,81``)."""
+(counterpart of ``scan2cap_tpu/ops/boxes.py:31,66,81,98``)."""
 
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from scan2cap_torch.config import SCANNET_MEAN_SIZE_ARR
 
 _SX = (1, 1, -1, -1, 1, 1, -1, -1)
 _SY = (1, -1, -1, 1, 1, -1, -1, 1)
@@ -69,3 +71,16 @@ def box3d_iou_matrix(corners1: torch.Tensor,
     vol1 = torch.prod(max1 - min1, dim=-1)
     vol2 = torch.prod(max2 - min2, dim=-1)
     return inter / (vol1[..., :, None] + vol2[..., None, :] - inter + 1e-8)
+
+
+def param2obb_batch(center: torch.Tensor, heading_class: torch.Tensor,
+                    heading_residual: torch.Tensor, size_class: torch.Tensor,
+                    size_residual: torch.Tensor) -> torch.Tensor:
+    """Oriented-box decode (model_util_scannet.py:166-172): (..., 7) as
+    center, size, -heading.  ScanNet's heading is always 0 (class2angle
+    returns 0), so the heading inputs only fix the shape."""
+    mean = torch.as_tensor(SCANNET_MEAN_SIZE_ARR, device=center.device)
+    size = mean[size_class.long()] + size_residual
+    heading = torch.zeros(center.shape[:-1], dtype=center.dtype,
+                          device=center.device)
+    return torch.cat([center, size, (-heading)[..., None]], dim=-1)

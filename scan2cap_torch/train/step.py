@@ -130,7 +130,9 @@ def make_eval_step(cfg: ModelConfig, model: CapNet,
     carry the detection labels, and the result also holds
     ``object_assignment``, ``objectness_label`` and ``objectness_mask``, as
     the reference's eval path does (lib/eval_helper.py:170).  ``keep_attn``
-    also keeps the per-step attention over the local slots."""
+    also keeps the top-down decoder's per-step attention: over the local
+    slots, with their proposal ids (``topdown_attn_slots``), or from the
+    full-K decode (``num_locals=-1``) over all K proposals, (B, K, T, K)."""
     if cfg != model.cfg:
         raise ValueError("cfg differs from the config the model was built with")
     _check_device(model)
