@@ -9,17 +9,22 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
   3. each kernel against its plain PyTorch version on the card, at the
      main-path shapes (B=2) plus edge cases: FPS (every boundary between
      its variants, scenes smaller than a cluster, ties and padding across
-     the blocks of a cluster, ten clusters in flight, the largest scene),
-     ball query, fused and pack (every boundary between its variants, N no
-     multiple of a word, of 4 or of a chunk, hits that end and start a
-     range, padding from a later range, points on the radius at range and
-     chunk ends, the largest nsample, ten scenes of 40,000 points, views
-     off a 16-byte boundary), the row gather at its eight sites (odd and
+     the blocks of a cluster, ten clusters in flight, scenes of 81,921,
+     100,000 and 200,000 points through the streaming variant, which is
+     also forced onto small scenes), ball query, fused and pack (every
+     boundary between its variants, N no multiple of a word, of 4 or of a
+     chunk, hits that end and start a range, padding from a later range,
+     points on the radius at range and chunk ends, the largest nsample
+     held in shared memory, nsample 257, 512 and 1024 with the hit lists
+     in device memory, ten scenes of 40,000 points, views off a 16-byte
+     boundary), the row gather at its eight sites (odd and
      even widths, views off a 16-byte boundary, a ragged row count), and
      the two pack-tile probes; indices, words, counts and gathered rows
      must be equal; kernel, plain and library-call times and the bound at
      those shapes, and the kernels' own time on the device from a profiler
-     trace beside the event time;
+     trace beside the event time; the same for the two variants above the
+     main path's shapes (FPS over 100,000 points, the ball query at
+     nsample 512);
   4. serve the flagship CapNet (135 input channels over 40,000 points, 256
      proposals, hidden 512, vocabulary 3,433) with seeded random weights
      through ``make_eval_step`` (detection loss on): launch counts per
@@ -46,12 +51,26 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      three shrunk copies) whose duplicates NMS must remove, whose mAP must
      read 1 and whose captions become one candidate per GT object, the same
      on the card and the CPU; scoring seconds over those candidates;
-  7. the probes' entry points (``scan2cap_torch.probes``): every row right;
-  8. the JSON lines: kernels, serving, training, eval, and last the device
-     line.
+  7. the probes' entry points (``scan2cap_torch.probes``): every row right,
+     and the ops' entry points on a 100,000-point scene (FPS streams it
+     from device memory) and at nsample 512 (hit lists in device memory);
+  8. the port's command-line entry points as subprocesses on ScanNet-layout
+     fixture data written here (6 train and 2 val scenes of 150,000
+     points, 12 boxes each, a 3,433-word vocabulary): train one epoch of
+     15 steps at B=8 with the flagship's flags less multiview (the
+     in-training eval fires), resume to epoch 2, eval captions and
+     detection, predict; every loss finite, the resume at global epoch 2
+     with the optimizer's count, last.pt and its reference-layout export
+     reloaded bit-equal, pred.json for both val scenes, the native data
+     plane built, launches per train step and per eval forward the
+     structure's; ms per step, fetch s, __getitem__ ms (native, numpy),
+     eval, predict and checkpoint-save ms (the runs' own stats files);
+  9. the JSON lines: kernels, serving, training, eval, cli, and last the
+     device line.
 Launch counts are set to 0 just before each of the paths 4-7 and read just
-after.  ``--kernels-only`` stops after phase 3 (a short first check of a
-new kernel).  Imports nothing of JAX.
+after; the entry points of 8 count their own (their stats files).
+``--kernels-only`` stops after phase 3 (a short first check of a new
+kernel).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -147,9 +166,9 @@ def device_only_ms(fn, iters):
 # --------------------------------------------------------------------- phase 3
 def check_fps_edges(torch):
     """Every FPS edge case: the kernel's indices equal the plain version's,
-    or the run fails; a scene above the limit is refused."""
+    or the run fails; scenes above what registers hold go through the
+    streaming variant."""
     from scan2cap_torch.kernels import furthest_point_sample_cuda
-    from scan2cap_torch.kernels.fps import fps_max_points
     from scan2cap_torch.ops.sampling import furthest_point_sample_plain
     from scan2cap_torch.probes.cases import FPS_EDGE_CASES, fps_edge_case
 
@@ -163,22 +182,14 @@ def check_fps_edges(torch):
         require(torch.equal(got, want), f"fps edge case {name}: kernel != plain")
         if name.startswith("all_invalid"):
             require(bool((got[1] == 0).all()), "all-invalid scene must give 0s")
-    most = fps_max_points()
-    try:
-        furthest_point_sample_cuda(torch.zeros((1, most + 1, 3), device=dev), 4)
-    except ValueError:
-        pass
-    else:
-        raise PhaseError(f"fps took N={most + 1}, above its limit {most}")
     return len(FPS_EDGE_CASES)
 
 
 def check_bq_edges(torch):
     """Every ball-query edge case through both entry points: indices, words
-    and counts equal the plain versions', or the run fails; an nsample above
-    the wrapper's limit is refused."""
+    and counts equal the plain versions', or the run fails (an nsample
+    above 256 keeps its hit lists in device memory)."""
     from scan2cap_torch.kernels import ball_query_cuda, ball_query_pack_cuda
-    from scan2cap_torch.kernels.ballquery import BQ_MAX_NSAMPLE
     from scan2cap_torch.ops.grouping import (ball_query_pack_plain,
                                              ball_query_plain, radius_squared)
     from scan2cap_torch.probes.cases import (BQ_EDGE_CASES, bq_edge_case,
@@ -198,14 +209,6 @@ def check_bq_edges(torch):
         require(torch.equal(got, want), f"ball_query edge case {name}")
         require(torch.equal(wk.view(torch.int32), wp.view(torch.int32))
                 and torch.equal(ck, cp), f"ball_query_pack edge case {name}")
-    x = torch.zeros((1, 64, 3), device=dev)
-    try:
-        ball_query_cuda(x, x, 0.04, BQ_MAX_NSAMPLE + 1)
-    except ValueError:
-        pass
-    else:
-        raise PhaseError(f"ball query took nsample={BQ_MAX_NSAMPLE + 1}, "
-                         f"above its limit {BQ_MAX_NSAMPLE}")
     return len(BQ_EDGE_CASES)
 
 
@@ -321,9 +324,82 @@ def check_kernels(torch, np, sm_clock_mhz):
                                    int((ck - cp).abs().max()),
                                    int((wk.view(torch.int32)
                                         != wp.view(torch.int32)).any()))))
+    variant_sites = check_large_variants(torch, np, xyz0, bq_in["sa1"][1],
+                                         sm_clock_mhz)
     gather_sites = check_gather(torch, bq_idx)
     probe_sites = check_probes(torch, np)
-    return fps_sites, bq_sites, pack_sites, gather_sites, probe_sites
+    return (fps_sites, bq_sites, pack_sites, gather_sites, probe_sites,
+            variant_sites)
+
+
+# (name, N, npoint) of FPS above what registers hold, and (name, N, M,
+# radius, nsample) of the first-k with its hit lists in device memory
+FPS_STREAM_SITE = ("room_100000", 100000, 2048)
+BQ_LISTS_SITE = ("sa1_nsample512", 40000, 2048, 0.4, 512)
+
+
+def check_large_variants(torch, np, xyz0, q0, sm_clock_mhz):
+    """The two variants that lift the limits of the main path's shapes:
+    FPS streaming a 100,000-point room from device memory, and the first-k
+    ball query at nsample 512 (lists in device memory) at sa1's shape.
+    Exact against the plain versions; times as for the main-path sites."""
+    from scan2cap_torch.kernels import (ball_query_cuda,
+                                        furthest_point_sample_cuda)
+    from scan2cap_torch.kernels import ballquery, fps
+    from scan2cap_torch.ops.grouping import (ball_query_pack_plain,
+                                             ball_query_plain, radius_squared)
+    from scan2cap_torch.ops.sampling import furthest_point_sample_plain
+    from scan2cap_torch.probes.bq_variants import room
+
+    dev = torch.device("cuda")
+    B = xyz0.shape[0]
+    name, N, npoint = FPS_STREAM_SITE
+    x = torch.from_numpy(room(np.random.RandomState(3), B, N)).to(dev)
+    require(fps.VARIANTS[fps.fps_variant(N)][2] == 0,
+            f"N={N} does not get the streaming FPS variant")
+    got = furthest_point_sample_cuda(x, npoint)
+    want = furthest_point_sample_plain(x, npoint)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"fps site {name}: kernel != plain")
+    ms = cuda_ms(torch, lambda: furthest_point_sample_cuda(x, npoint), iters=3)
+    dms = device_only_ms(lambda: furthest_point_sample_cuda(x, npoint), 3)["ms"]
+    pms = cuda_ms(torch, lambda: furthest_point_sample_plain(x, npoint),
+                  iters=1)
+    b_ms, by = bound_ms(B * N * 12 + B * npoint * 4,
+                        B * (npoint - 1) * N * FPS_OPS_PER_POINT)
+    fps_site = dict(site=name, shape=[B, N, npoint], ms=ms, device_ms=dms,
+                    us_per_step=ms * 1e3 / (npoint - 1),
+                    variant=list(fps.VARIANTS[fps.fps_variant(N)]),
+                    plain_ms=pms, bound_ms=b_ms, bound_by=by,
+                    max_abs_err=int((got - want).abs().max()))
+
+    name, N, M, r, s = BQ_LISTS_SITE
+    require(xyz0.shape[1] == N and q0.shape[1] == M, "sa1 inputs")
+    require(ballquery.lists_in_memory(s), f"nsample {s} keeps its lists "
+            f"in shared memory")
+    r2 = radius_squared(r)
+    got = ball_query_cuda(xyz0, q0, r2, s)
+    want = ball_query_plain(xyz0, q0, r, s)
+    total = ball_query_pack_plain(xyz0, q0, r2)[1].sum(-1)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"ball_query site {name}: kernel != plain")
+    tested = torch.where(total >= s, want[..., -1].long() + 1,
+                         torch.full_like(total, N).long())
+    pairs = int(tested.sum())
+    ms = cuda_ms(torch, lambda: ball_query_cuda(xyz0, q0, r2, s), iters=20)
+    dms = device_only_ms(lambda: ball_query_cuda(xyz0, q0, r2, s), 20)["ms"]
+    pms = cuda_ms(torch, lambda: ball_query_plain(xyz0, q0, r, s), iters=2)
+    b_ms, by = bound_ms(B * N * 12 + B * M * 12 + B * M * s * 4,
+                        pairs * BQ_OPS_PER_PAIR)
+    bq_site = dict(site=name, shape=[B, N, M, s], radius=r, ms=ms,
+                   device_ms=dms,
+                   variant=list(ballquery.VARIANTS[ballquery.bq_variant(N, M, s)]),
+                   plain_ms=pms, bound_ms=b_ms, bound_by=by,
+                   pairs_tested=pairs,
+                   queries_filled=float((total >= s).float().mean()),
+                   issue_floor_ms=issue_floor_ms(pairs, sm_clock_mhz),
+                   max_abs_err=int((got - want).abs().max()))
+    return dict(fps_streamed=[fps_site], ball_query_lists_in_memory=[bq_site])
 
 
 def check_gather(torch, bq_idx):
@@ -503,7 +579,7 @@ def flagship_batch(np, cfg, B, vocab=None, seed=0):
 def serve_flagship(torch, np, requests=30, windows=3):
     from scan2cap_torch.config import flagship_config
     from scan2cap_torch.data.synthetic import to_device
-    from scan2cap_torch.kernels import (WRAPPERS, ball_query_cuda,
+    from scan2cap_torch.kernels import (ball_query_cuda, launch_counts,
                                         furthest_point_sample_cuda,
                                         group_points_cuda,
                                         reset_launch_counts)
@@ -535,7 +611,7 @@ def serve_flagship(torch, np, requests=30, windows=3):
             out = step(batch)
         torch.cuda.synchronize()
         window_ms.append((time.perf_counter() - t0) * 1e3 / requests)
-    launches = {w.__name__: w.launches for w in WRAPPERS}
+    launches = launch_counts()
     served = requests * windows
     require(furthest_point_sample_cuda.launches == 5 * served,
             f"FPS launches {launches}, want 5 per forward")
@@ -637,7 +713,7 @@ def train_flagship(torch, np, warmup=3, steps=10, windows=3, lr=1e-3,
                    bn_momentum=0.1):
     from scan2cap_torch.config import flagship_config
     from scan2cap_torch.data.synthetic import to_device
-    from scan2cap_torch.kernels import WRAPPERS, reset_launch_counts
+    from scan2cap_torch.kernels import launch_counts, reset_launch_counts
     from scan2cap_torch.losses import get_scene_cap_loss
     from scan2cap_torch.models import CapNet
     from scan2cap_torch.models.voting import l2_normalize_votes
@@ -709,7 +785,7 @@ def train_flagship(torch, np, warmup=3, steps=10, windows=3, lr=1e-3,
         window_ms.append((time.perf_counter() - t0) * 1e3 / steps)
         losses += [float(v) for v in span]
     taken = steps * windows
-    launches = {w.__name__: w.launches for w in WRAPPERS}
+    launches = launch_counts()
     per_step = {k: v / taken for k, v in launches.items()}
     require(per_step["furthest_point_sample_cuda"] == 5
             and per_step["ball_query_cuda"] == 5,
@@ -985,7 +1061,7 @@ def eval_flagship(torch, np, dev="cuda", sizes=None, num_vocabs=NUM_VOCABS,
     from scan2cap_torch.eval.eval_helper import (eval_cap, feed_scene_cap,
                                                  postprocess_scene_cap,
                                                  score_captions)
-    from scan2cap_torch.kernels import WRAPPERS, reset_launch_counts
+    from scan2cap_torch.kernels import launch_counts, reset_launch_counts
     from scan2cap_torch.models import CapNet
     from scan2cap_torch.ops.nms import nms_3d
     from scan2cap_torch.train.step import make_eval_step
@@ -1011,11 +1087,11 @@ def eval_flagship(torch, np, dev="cuda", sizes=None, num_vocabs=NUM_VOCABS,
     ap, _, ap_metrics_s = ap_loop(torch, step, batches, vocab["emb_table"],
                                   dev)
     ap_ms = (time.perf_counter() - t0) * 1e3 / nb
-    flagship_launches = {w.__name__: w.launches for w in WRAPPERS}
+    flagship_launches = launch_counts()
     decoders = {kind: serve_decoder(torch, np, kind, dev, sizes, num_vocabs,
                                     requests)
                 for kind in ("scene_caption", "topdown_full_k")}
-    launches = {w.__name__: w.launches for w in WRAPPERS}
+    launches = launch_counts()
     forwards = 2 * nb + sum(d["forwards"] for d in decoders.values())
     want = dict(furthest_point_sample_cuda=(5 * 2 * nb, 5 * forwards),
                 ball_query_cuda=(5 * 2 * nb, 5 * forwards),
@@ -1171,7 +1247,7 @@ def eval_flagship(torch, np, dev="cuda", sizes=None, num_vocabs=NUM_VOCABS,
 # --------------------------------------------------------------------- phase 7
 def run_probes(torch):
     """The probes' own entry points on the card; returns their launches."""
-    from scan2cap_torch.kernels import WRAPPERS, reset_launch_counts
+    from scan2cap_torch.kernels import launch_counts, reset_launch_counts
     from scan2cap_torch.probes import gather, pack, shift
 
     reset_launch_counts()
@@ -1184,8 +1260,361 @@ def run_probes(torch):
     g = gather.run("cuda", iters=20)
     require(g["equal"], "gather probe: kernel rows != torch.gather rows")
     report["gather"] = g
-    report["launches"] = {w.__name__: w.launches for w in WRAPPERS}
+    report["large"] = run_large_scene(torch)
+    report["launches"] = launch_counts()
     return report
+
+
+def run_large_scene(torch):
+    """The ops' entry points above the main path's shapes: FPS of a scene
+    larger than registers hold and a ball query whose nsample puts its hit
+    lists in device memory, each held against its plain version."""
+    import numpy as np
+    from scan2cap_torch.ops import grouping, sampling
+    from scan2cap_torch.probes.bq_variants import room
+
+    _, N, npoint = FPS_STREAM_SITE
+    x = torch.from_numpy(room(np.random.RandomState(4), 1, N)).to("cuda")
+    got = sampling.furthest_point_sample(x, npoint)
+    require(torch.equal(got, sampling.furthest_point_sample_plain(x, npoint)),
+            "large scene: FPS != plain")
+    q = torch.gather(x, 1, got[0, :256].long()[None, :, None].expand(-1, -1, 3))
+    _, _, _, r, s = BQ_LISTS_SITE
+    idx = grouping.ball_query(x, q.contiguous(), r, s)
+    require(torch.equal(idx, grouping.ball_query_plain(x, q.contiguous(), r, s)),
+            "large scene: ball query != plain")
+    return dict(num_points=N, npoint=npoint, queries=256, nsample=s)
+
+
+# --------------------------------------------------------------------- phase 8
+# the flagship's flags less --use_multiview (its features come from an HDF5
+# file through h5py): 4 input channels over 40,000 points, 256 proposals,
+# the CLI's default batch of 8
+CLI_FLAGS = ("--use_normal", "--use_topdown", "--num_locals", "10",
+             "--num_graph_steps", "2", "--use_relation", "--use_orientation")
+CLI_SCENE_POINTS = 150000
+CLI_BOXES = 12
+CLI_WORDS = NUM_VOCABS - 4             # and the four specials
+CLI_TRAIN_ENTRIES = 120
+CLI_BATCH = 8
+# warm steps of the resumed run under torch.profiler (--profile)
+CLI_PROFILED_STEPS = 3
+# nyu40 ids of the named classes (cabinet .. bathtub)
+NAMED_NYU40 = (3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36)
+
+
+def write_scannet_fixture(np, root, points=CLI_SCENE_POINTS, seed=0):
+    """ScanNet-layout scenes, ScanRefer JSON, a GloVe pickle and the
+    rotations file under ``root``/data, made from ``seed``: 6 train and 2
+    val scenes of 150,000 points (floor and walls around 12 boxes of named
+    classes, each box half a thousand points and more), 120 train entries
+    whose tokens cover all 3,429 words once, 3 val entries a scene."""
+    import pickle
+
+    from scan2cap_torch.config import SCANNET_CLASS2TYPE
+    from scan2cap_torch.data.dataset import DC_NYU2CLS
+
+    rs = np.random.RandomState(seed)
+    data = os.path.join(root, "data")
+    scannet = os.path.join(data, "scannet", "scannet_data")
+    os.makedirs(scannet)
+    train = [f"scene{i:04d}_00" for i in range(6)]
+    val = [f"scene{100 + i:04d}_00" for i in range(2)]
+    names, rotations = {}, {}
+    for sid in train + val:
+        P = points
+        verts = np.zeros((P, 9), np.float32)
+        verts[:, 0:2] = rs.uniform(-4, 4, (P, 2))
+        verts[:, 2] = rs.uniform(0, 0.05, P)
+        verts[:, 3:6] = rs.randint(0, 256, (P, 3))
+        normals = rs.randn(P, 3)
+        verts[:, 6:9] = normals / np.linalg.norm(normals, axis=1, keepdims=True)
+        ins = np.zeros(P, np.int32)
+        sem = np.full(P, 2, np.int32)                      # floor
+        bboxes = np.zeros((CLI_BOXES, 8), np.float32)
+        per_box = P // 2 // CLI_BOXES
+        for o in range(CLI_BOXES):
+            lo, hi = P // 2 + o * per_box, P // 2 + (o + 1) * per_box
+            center = np.float32([*rs.uniform(-3, 3, 2), rs.uniform(0.3, 1.2)])
+            size = rs.uniform(0.3, 1.5, 3).astype(np.float32)
+            verts[lo:hi, 0:3] = center + (rs.rand(per_box, 3) - 0.5) * size
+            nyu = NAMED_NYU40[(o + len(names)) % len(NAMED_NYU40)]
+            ins[lo:hi] = o + 1
+            sem[lo:hi] = nyu
+            bboxes[o] = [*center, *size, nyu, o + 1]
+            names[(sid, o + 1)] = SCANNET_CLASS2TYPE[DC_NYU2CLS[nyu]]
+        base = os.path.join(scannet, sid)
+        np.save(base + "_aligned_vert.npy", verts)
+        np.save(base + "_ins_label.npy", ins)
+        np.save(base + "_sem_label.npy", sem)
+        np.save(base + "_aligned_bbox.npy", bboxes)
+        rotations[sid] = {str(o + 1): np.eye(3).tolist()
+                          for o in range(CLI_BOXES)}
+    words = [f"word{i:04d}" for i in range(CLI_WORDS)]
+    glove = {w: rs.randn(300).astype(np.float32)
+             for w in words + ["pad_", "unk", "sos", "eos"]}
+    with open(os.path.join(data, "glove.p"), "wb") as f:
+        pickle.dump(glove, f)
+
+    def entry(sid, obj, ann, tokens):
+        return {"scene_id": sid, "object_id": str(obj),
+                "object_name": names[(sid, obj)].replace(" ", "_"),
+                "ann_id": str(ann), "token": tokens,
+                "description": " ".join(tokens)}
+
+    train_entries = [entry(train[i % 6], 1 + (i // 6) % CLI_BOXES, i // 72,
+                           words[i::CLI_TRAIN_ENTRIES])
+                     for i in range(CLI_TRAIN_ENTRIES)]
+    val_entries = [entry(sid, obj, 0, list(rs.choice(words, 12)))
+                   for sid in val for obj in (1, 2, 3)]
+    organized = {}
+    for e in train_entries + val_entries:
+        organized.setdefault(e["scene_id"], {}).setdefault(
+            e["object_id"], {})[e["ann_id"]] = e
+    for name, content in (("ScanRefer_filtered_train.json", train_entries),
+                          ("ScanRefer_filtered_val.json", val_entries),
+                          ("ScanRefer_filtered_organized.json", organized),
+                          ("scannet_instance_rotations.json", rotations)):
+        with open(os.path.join(data, name), "w") as f:
+            json.dump(content, f)
+    return data, train, val
+
+
+def run_entry_point(module, args, env, logs):
+    """``python -m module args`` to its end; its output goes to the log
+    file, and a failure ends the phase with the log's tail."""
+    log = os.path.join(logs, module.rsplit(".", 1)[-1] + ".log")
+    t0 = time.perf_counter()
+    with open(log, "a") as f:
+        rc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                            env=env, stdout=f, stderr=subprocess.STDOUT,
+                            timeout=600).returncode
+    wall = time.perf_counter() - t0
+    with open(log) as f:
+        text = f.read()
+    require(rc == 0, f"{module} {' '.join(args)} exited {rc}:\n{text[-3000:]}")
+    return text, wall
+
+
+def getitem_ms(np, data, train, native_on, num_points=40000):
+    """ms per sample of the train dataset's __getitem__ (augmented, as the
+    CLI's configuration has it) on the native data plane or numpy's."""
+    from scan2cap_torch import native
+    from scan2cap_torch.data.dataset import ScannetReferenceDataset
+
+    with open(os.path.join(data, "ScanRefer_filtered_train.json")) as f:
+        entries = json.load(f)[:16]
+    ds = ScannetReferenceDataset(
+        entries, train,
+        scannet_data_dir=os.path.join(data, "scannet", "scannet_data"),
+        glove_path=os.path.join(data, "glove.p"), num_points=num_points,
+        use_height=True, use_normal=True, augment=True)
+    saved = native._lib, native._tried
+    if not native_on:
+        native._lib, native._tried = None, True
+    try:
+        ds.__getitem__(0, np.random.RandomState(0))
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            ds.__getitem__(i, np.random.RandomState(i))
+        return (time.perf_counter() - t0) * 1e3 / len(ds)
+    finally:
+        native._lib, native._tried = saved
+
+
+def per_call(launches, calls):
+    return {k: v / calls for k, v in launches.items() if calls}
+
+
+def trace_kernels(path, steps):
+    """Device time (ms) and kernels per step in a ``--profile`` trace (the
+    chrome trace ``torch.profiler`` exports: GPU kernels are the events of
+    category "kernel", their "dur" in microseconds)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return dict(kernel_ms=sum(e["dur"] for e in kernels) / 1e3 / steps,
+                kernels=len(kernels) / steps)
+
+
+def cli_phase(torch, np, card, dev="cuda", rehearse=False):
+    """The port's own entry points as subprocesses on ``dev``, on
+    ScanNet-layout fixture data at full scale: train one epoch (the
+    in-training eval fires at its last step), resume to epoch 2, evaluate
+    captions and detection, write benchmark predictions.  ``rehearse``
+    shrinks scenes and model for a run on the CPU (``SCAN2CAP_TEST_TINY``,
+    1,024 points, 32 proposals); launches are then not counted."""
+    import shutil
+    import tempfile
+
+    from scan2cap_torch import convert, native
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.scripts.train import model_config_from_info
+    from scan2cap_torch.train.checkpoints import CheckpointIO
+
+    require(native.available(), "the native data plane did not build")
+    root = tempfile.mkdtemp(prefix="scan2cap_cli_")
+    logs = os.path.join(ROOT, "chiprun_out", "cli")
+    os.makedirs(logs, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        data, train, val = write_scannet_fixture(
+            np, root, points=3000 if rehearse else CLI_SCENE_POINTS)
+        fixture_s = time.perf_counter() - t0
+        num_points = 1024 if rehearse else 40000
+        native_ms = getitem_ms(np, data, train, True, num_points)
+        numpy_ms = getitem_ms(np, data, train, False, num_points)
+        out = os.path.join(root, "outputs")
+        env = dict(os.environ, SCAN2CAP_DATA=data, SCAN2CAP_OUTPUT=out,
+                   PYTHONPATH=ROOT)
+        env.pop("SCAN2CAP_TEST_TINY", None)
+        flags = [*CLI_FLAGS, "--device", dev]
+        if rehearse:
+            env["SCAN2CAP_TEST_TINY"] = "1"
+            flags += ["--num_points", "1024", "--num_proposals", "32"]
+        steps = CLI_TRAIN_ENTRIES // CLI_BATCH
+        walls = {}
+        _, walls["train"] = run_entry_point(
+            "scan2cap_torch.scripts.train",
+            [*flags, "--epoch", "1", "--val_step", str(steps),
+             "--verbose", "1", "--tag", "smoke_a"], env, logs)
+        run_a = next(d for d in os.listdir(out) if d.endswith("_SMOKE_A"))
+        text, walls["resume"] = run_entry_point(
+            "scan2cap_torch.scripts.train",
+            [*flags, "--epoch", "2", "--val_step", "1000", "--verbose",
+             "1", "--profile", str(CLI_PROFILED_STEPS), "--use_checkpoint",
+             run_a, "--tag", "smoke_b"], env, logs)
+        # the CLI counts epochs from 0, its log from 1: "epoch 2 starting"
+        require(f"resumed from {run_a} at epoch 1" in text,
+                "the resume did not start at global epoch 2")
+        run_b = next(d for d in os.listdir(out) if d.endswith("_SMOKE_B"))
+        text, walls["eval"] = run_entry_point(
+            "scan2cap_torch.scripts.eval",
+            ["--folder", run_b, "--eval_caption", "--eval_detection",
+             "--device", dev], env, logs)
+        for tag in ("[BLEU-4]", "[CIDEr]", "[ROUGE]", "[METEOR]",
+                    "mAP@0.25", "mAP@0.5"):
+            require(tag in text, f"eval printed no {tag}")
+        _, walls["predict"] = run_entry_point(
+            "scan2cap_torch.benchmark.predict",
+            ["--folder", run_b, "--device", dev], env, logs)
+
+        def read(run, name):
+            with open(os.path.join(out, run, name)) as f:
+                return f.read() if name.endswith(".txt") else json.load(f)
+
+        log_a, log_b = read(run_a, "log.txt"), read(run_b, "log.txt")
+        require(f"[eval @ iter {steps}]" in log_a,
+                "the in-training eval did not fire")
+        require("epoch 2 starting..." in log_b
+                and "epoch 1 starting..." not in log_b,
+                "the resumed run did not run global epoch 2 alone")
+        stats_a = read(run_a, "train_stats.json")
+        stats_b = read(run_b, "train_stats.json")
+        losses = [x for st in (stats_a, stats_b) for e in st["epochs"]
+                  for x in e["losses"]]
+        require(len(losses) == 2 * steps and all(np.isfinite(losses)),
+                f"train losses: {losses}")
+        ckpt = CheckpointIO(os.path.join(out, run_b, "ckpt"))
+        resume = ckpt.restore("resume")
+        opt_steps = {int(v["step"]) for v in
+                     resume["optimizer"]["state"].values()}
+        require(resume["epoch"] == 1 and resume["step"] == 2 * steps
+                and opt_steps == {2 * steps},
+                f"resume bundle: epoch {resume['epoch']}, step "
+                f"{resume['step']}, optimizer steps {opt_steps}")
+
+        # last.pt into a fresh model on the card, and through the
+        # reference's layout, bit-equal
+        last = ckpt.restore("last")["model"]
+        info = read(run_b, "info.json")
+        os.environ.update({k: env[k] for k in ("SCAN2CAP_TEST_TINY",)
+                           if k in env})
+        model = CapNet(model_config_from_info(info),
+                       num_vocabs=NUM_VOCABS, device=dev, seed=1)
+        os.environ.pop("SCAN2CAP_TEST_TINY", None)
+        model.load_state_dict(last, strict=True)
+        require(all(torch.equal(v.cpu(), last[k])
+                    for k, v in model.state_dict().items()),
+                "last.pt does not load bit-equal")
+        pth = os.path.join(root, "model.pth")
+        torch.save(convert.reference_from_state_dict(last), pth)
+        back = convert.state_dict_from_reference(pth)
+        require(set(back) == set(last) and all(
+            torch.equal(back[k], last[k]) for k in last),
+            "the reference-layout export does not reload bit-equal")
+
+        preds = read(run_b, "pred.json")
+        require(set(preds) == set(val), f"pred.json covers {sorted(preds)}")
+
+        # launches: per train step and per eval forward, the structure's
+        bb = model.backbone_net
+        sa = (bb.sa1, bb.sa2, bb.sa3, bb.sa4, model.proposal.vote_aggregation)
+        gathers = sum(1 if m.gather_lean else 2 for m in sa)
+        backward = int(bb.sa1.gather_lean and bb.sa1.leaf_inputs)
+        want_step = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
+                         group_points_cuda=gathers + backward)
+        want_forward = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
+                            group_points_cuda=gathers)
+        ev, pr = read(run_b, "eval_stats.json"), read(run_b, "predict_stats.json")
+        per = dict(
+            train_step=per_call(stats_a["launches"], stats_a["steps"]),
+            resume_step=per_call(stats_b["launches"], stats_b["steps"]),
+            eval_caption_forward=per_call(ev["caption"]["launches"],
+                                          ev["caption"]["batches"]),
+            eval_detection_forward=per_call(ev["detection"]["launches"],
+                                            ev["detection"]["batches"]),
+            predict_forward=per_call(pr["predict"]["launches"],
+                                     pr["predict"]["batches"]))
+        for what, counts in per.items():
+            want = want_step if what.endswith("step") else want_forward
+            for k, v in want.items():
+                require(rehearse or counts.get(k) == v,
+                        f"{what}: {k} {counts.get(k)} launches, the "
+                        f"structure's is {v}")
+        launches = {}
+        for counts in (stats_a["launches"], stats_b["launches"],
+                       ev["caption"]["launches"], ev["detection"]["launches"],
+                       pr["predict"]["launches"]):
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+
+        step_s = sorted(stats_a["epochs"][0]["step_s"][2:])
+        step_ms = step_s[len(step_s) // 2] * 1e3
+        profile = trace_kernels(os.path.join(out, run_b, "profile",
+                                             "trace.json"), CLI_PROFILED_STEPS)
+        require(rehearse or profile["kernels"] > 0,
+                "the --profile trace of the resumed run holds no kernel")
+        profile["busy_share_of_step"] = profile["kernel_ms"] / step_ms
+        resume_s = sorted(stats_b["epochs"][0]["step_s"][2:])
+        fetch = sorted(stats_a["epochs"][0]["fetch_s"])
+        return dict(
+            card=card, config=" ".join(flags), batch=CLI_BATCH,
+            scene_points=3000 if rehearse else CLI_SCENE_POINTS,
+            vocab=NUM_VOCABS,
+            train_scenes=len(train), val_scenes=len(val),
+            train_entries=CLI_TRAIN_ENTRIES, steps_per_epoch=steps,
+            train_ms_per_step=step_ms, scenes_per_s=CLI_BATCH / step_ms * 1e3,
+            resume_ms_per_step=resume_s[len(resume_s) // 2] * 1e3,
+            step_ms_all=[x * 1e3 for x in stats_a["epochs"][0]["step_s"]],
+            fetch_s_median=fetch[len(fetch) // 2], fetch_s_max=fetch[-1],
+            fetch_s=stats_a["epochs"][0]["fetch_s"],
+            getitem_ms_native=native_ms, getitem_ms_numpy=numpy_ms,
+            native_available=native.available(),
+            checkpoint_save_ms=[x * 1e3 for x in
+                                stats_a["save_s"] + stats_b["save_s"]],
+            eval_caption_ms_per_batch=(ev["caption"]["s"] * 1e3
+                                       / ev["caption"]["batches"]),
+            eval_detection_ms_per_batch=(ev["detection"]["s"] * 1e3
+                                         / ev["detection"]["batches"]),
+            predict_ms_per_batch=(pr["predict"]["s"] * 1e3
+                                  / pr["predict"]["batches"]),
+            losses=losses, launches_per_call=per, launches=launches,
+            profile=profile,
+            entry_point_wall_s=walls, fixture_s=fixture_s,
+            predictions={k: len(v) for k, v in preds.items()})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def print_eval(r):
@@ -1218,7 +1647,7 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phase 3)")
     ap.add_argument("--skip", nargs="+", default=[],
-                    choices=["serve", "train", "eval", "probes"],
+                    choices=["serve", "train", "eval", "probes", "cli"],
                     help="leave out a path while bringing up another "
                          "(exit 3 by design: not a whole run)")
     args = ap.parse_args(argv)
@@ -1269,10 +1698,15 @@ def main(argv=None) -> int:
     on_path = {ballquery.bq_variant(N, M, s) for _, N, M, _, s in BQ_SITES}
     built = {ballquery.kernel_of_name(k["name"]): k
              for k in resources["ballquery"]}
+    built.pop(None, None)        # the first-k kernels with lists in memory
     spilled = sorted(key for key, k in built.items()
                      if k.get("spill_stores") or k.get("spill_loads"))
+    lists_spilled = [k["name"][-40:] for k in resources["ballquery"]
+                     if "bq_lists_kernel" in k["name"]
+                     and (k.get("spill_stores") or k.get("spill_loads"))]
     print("ball query (variant, pack) kernels that spill: "
-          f"{spilled or 'none'}", flush=True)
+          f"{spilled or 'none'}; with lists in device memory: "
+          f"{lists_spilled or 'none'}", flush=True)
     for v in on_path:
         for pack in (False, True):
             require((v, pack) in built, f"the build log holds no ball-query "
@@ -1281,14 +1715,14 @@ def main(argv=None) -> int:
                 f"variant {ballquery.VARIANTS[v]} spills registers")
 
     t0 = time.perf_counter()
-    (fps_sites, bq_sites, pack_sites, gather_sites,
-     probe_sites) = check_kernels(torch, np, sm_clock_mhz)
+    (fps_sites, bq_sites, pack_sites, gather_sites, probe_sites,
+     variant_sites) = check_kernels(torch, np, sm_clock_mhz)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # each path starts from launch counts of 0 and is read just after
     partial = args.kernels_only or args.skip
     paths = {}
-    serve = train = evaluation = probes = None
+    serve = train = evaluation = probes = cli = None
     if not args.kernels_only:
         if "serve" not in args.skip:
             t0 = time.perf_counter()
@@ -1311,6 +1745,20 @@ def main(argv=None) -> int:
             probes = run_probes(torch)
             paths["probes"] = probes["launches"]
             print(f"probe phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        if "cli" not in args.skip:
+            t0 = time.perf_counter()
+            cli = cli_phase(torch, np, card)
+            paths["cli"] = cli["launches"]
+            print(f"  cli: {cli['train_ms_per_step']:.1f} ms per step at "
+                  f"B={cli['batch']} ({cli['scenes_per_s']:.1f} scenes/s), "
+                  f"fetch {cli['fetch_s_median']:.4f} s per batch, "
+                  f"__getitem__ {cli['getitem_ms_native']:.1f} ms native, "
+                  f"{cli['getitem_ms_numpy']:.1f} ms numpy, eval "
+                  f"{cli['eval_caption_ms_per_batch']:.1f} ms per batch, "
+                  f"predict {cli['predict_ms_per_batch']:.1f} ms per batch, "
+                  f"saves {cli['checkpoint_save_ms']} ms, profile of a step "
+                  f"{cli['profile']}", flush=True)
+            print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     def launches(wrapper):
         return {path: run[wrapper] for path, run in paths.items()} or None
@@ -1339,6 +1787,15 @@ def main(argv=None) -> int:
         kernel_entry("shift_probe", probe_cu,
                      "scripts/micro_mxu_shift_probe.py:30",
                      probe_sites["shift_probe"], launches("shift_probe_cuda")),
+        # the variants above the main path's shapes, counted apart (their
+        # launches are also in fps's and ball_query's)
+        kernel_entry("fps_streamed", "scan2cap_torch/csrc/fps.cu",
+                     "scan2cap_tpu/ops/pallas/fps.py:117",
+                     variant_sites["fps_streamed"], launches("fps_streamed")),
+        kernel_entry("ball_query_lists_in_memory", bq,
+                     "scan2cap_tpu/ops/pallas/ballquery.py:58",
+                     variant_sites["ball_query_lists_in_memory"],
+                     launches("ball_query_lists_in_memory")),
     ]
     if not partial:
         for k in kernels:
@@ -1355,6 +1812,8 @@ def main(argv=None) -> int:
         print(json.dumps({"train": train, "card": card}))
     if evaluation is not None:
         print(json.dumps({"eval": evaluation, "card": card}))
+    if cli is not None:
+        print(json.dumps({"cli": cli, "card": card}))
     if partial:
         return 3
     print(card)

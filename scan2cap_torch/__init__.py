@@ -3,11 +3,15 @@
 The package mirrors ``scan2cap_tpu``'s module layout so each port module
 has an obvious counterpart.  Ported: CapNet with both caption decoders
 (``models``), its losses and the train and eval steps (``losses``,
-``train``), and the evaluation (``eval``: NMS and post-processing on the
-card, the caption metrics and detection AP on the host).  The solver,
-checkpoints, datasets and command-line entry points come next.  It imports torch and numpy only — never JAX,
-Flax or anything of ``scan2cap_tpu``; what it needs from there it keeps as
-its own copy.  The TPU kernels of the JAX repository (furthest-point
+``train``), the evaluation (``eval``: NMS and post-processing on the card,
+the caption metrics and detection AP on the host), the ScanRefer dataset
+and its native host data plane (``data``, ``native``), the solver and its
+``torch.save`` checkpoints (``train``), the reference's ``.pth`` layout
+both ways (``convert``), and the command-line entry points
+``python -m scan2cap_torch.scripts.train``, ``scan2cap_torch.scripts.eval``
+and ``scan2cap_torch.benchmark.predict``.  It imports torch and numpy only
+— never JAX, Flax or anything of ``scan2cap_tpu``; what it needs from there
+it keeps as its own copy.  The TPU kernels of the JAX repository (furthest-point
 sampling, the exact ball query, the row gather of ``group_points`` and the
 two pack-tile probes) are hand-written CUDA under ``csrc/``, built with
 ``nvcc`` at first use (``kernels/_build.py``).

@@ -1,8 +1,9 @@
-"""Static model configuration (copy of ``scan2cap_tpu/config.py:45-163``).
+"""Static model configuration (copy of ``scan2cap_tpu/config.py:27-227``).
 
-Only what the ported paths read: ``ModelConfig``, the ScanNet
-mean-size table and the class names.  Field names and defaults are the JAX package's, so a
-config written for one package reads the same in the other.  The
+Only what the ported paths read: ``ModelConfig``, the ScanNet class names,
+nyu40 ids, mean-size table and mean colour, the numpy box decode the
+dataset uses, and ``PathConfig``.  Field names and defaults are the JAX
+package's, so a config written for one package reads the same in the other.  The
 TPU-only knobs (``compute_dtype``, ``storage_dtype``, ``bf16_components``,
 ``spatial_axis``) are not carried: the port computes in float32 and runs
 on one card.
@@ -11,6 +12,7 @@ on one card.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 import numpy as np
@@ -22,6 +24,15 @@ SCANNET_TYPE2CLASS = {
     "sink": 15, "bathtub": 16, "others": 17,
 }
 SCANNET_CLASS2TYPE = {v: k for k, v in SCANNET_TYPE2CLASS.items()}
+
+# nyu40 ids kept for detection: all but wall (1), floor (2), ceiling (22)
+SCANNET_NYU40IDS = np.array(
+    [3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 23,
+     24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40],
+    dtype=np.int64,
+)
+
+MEAN_COLOR_RGB = np.array([109.8, 97.2, 83.8], dtype=np.float32)  # lib/dataset.py:29
 
 # Per-class mean box sizes (meters), from the reference's
 # meta_data/scannet_reference_means.npz (18 x 3).
@@ -45,6 +56,17 @@ SCANNET_MEAN_SIZE_ARR = np.array([
     [1.17320759, 1.05987140, 0.51812528],   # bathtub
     [0.43294385, 0.51933507, 0.48437456],   # others
 ], dtype=np.float32)
+
+
+def param2obb_batch(center, heading_class, heading_residual, size_class,
+                    size_residual) -> np.ndarray:
+    """(..., 3), (...,), (...,), (...,), (..., 3) -> (..., 7) oriented box
+    (model_util_scannet.py:156-172) in numpy: ScanNet's heading is always 0
+    and is negated; the size is the class's mean plus the residual."""
+    heading = np.zeros(np.asarray(heading_class).shape, dtype=np.float32)
+    size = SCANNET_MEAN_SIZE_ARR[np.asarray(size_class)] + size_residual
+    return np.concatenate(
+        [center, size, (-heading)[..., None]], axis=-1).astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,3 +127,38 @@ def flagship_config(**overrides) -> ModelConfig:
                 use_normal=True, use_multiview=True)
     base.update(overrides)
     return ModelConfig(**base)
+
+
+@dataclasses.dataclass(frozen=True)
+class PathConfig:
+    """Where the data and the runs lie: ``SCAN2CAP_BASE`` (default the
+    working directory), ``SCAN2CAP_DATA`` (default ``<base>/data``) and
+    ``SCAN2CAP_OUTPUT`` (default ``<base>/outputs``)."""
+
+    base: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("SCAN2CAP_BASE", os.getcwd()))
+
+    @property
+    def data(self) -> str:
+        return os.environ.get("SCAN2CAP_DATA", os.path.join(self.base, "data"))
+
+    @property
+    def scannet_data(self) -> str:
+        return os.path.join(self.data, "scannet", "scannet_data")
+
+    @property
+    def scannet_meta(self) -> str:
+        return os.path.join(self.data, "scannet", "meta_data")
+
+    @property
+    def multiview(self) -> str:
+        return os.path.join(self.scannet_data, "enet_feats_maxpool.hdf5")
+
+    @property
+    def glove(self) -> str:
+        return os.path.join(self.data, "glove.p")
+
+    @property
+    def output(self) -> str:
+        return os.environ.get("SCAN2CAP_OUTPUT",
+                              os.path.join(self.base, "outputs"))

@@ -76,8 +76,13 @@
 // N = 40,000 gets 8 x 2 x 4 x 512 (16 queries and 8 warps a block) and the
 // small sites (N <= 2,048) get 4 x 2 x 4 x 512.  Shared memory: 2 R (3C + 4)
 // floats of points plus, for the first-k, G Q R (nsample + 1) ints of
-// lists; that sets the largest nsample a variant takes (the wrapper's
-// limit is 256, which every variant holds).
+// lists and their counts.  Every variant holds the lists of nsample up to
+// 256 there; above that (LISTS_IN_SHARED false) the lists live in a
+// workspace in device memory, G Q R nsample ints a block, written by the
+// scan and read by the merge after the block's barrier, which orders
+// global memory as it does shared.  Hits are rare writes and the merge
+// reads each list once, so this costs little beside the scan; it lifts the
+// bound on nsample to what device memory holds.
 
 #include <cuda_runtime.h>
 
@@ -134,12 +139,14 @@ __device__ __forceinline__ void copy_chunk(float* buf, const float* src,
 }
 
 // Q queries a warp, G warps of queries and R ranges of the scene a block,
-// C points a chunk.  Grid: (ceil(M / (G*Q)), B).
-template <int Q, int G, int R, int C, bool PACK>
-__global__ void __launch_bounds__(G * R * 32)
-bq_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
-          int n, int m, float r2, int nsample, int* __restrict__ idx,
-          unsigned* __restrict__ words, int* __restrict__ counts) {
+// C points a chunk.  Grid: (ceil(M / (G*Q)), B).  The first-k's lists lie
+// in shared memory, or with LISTS_IN_SHARED false in `lists`.
+template <int Q, int G, int R, int C, bool PACK, bool LISTS_IN_SHARED>
+__device__ __forceinline__ void bq_body(
+    const float* __restrict__ xyz, const float* __restrict__ new_xyz, int n,
+    int m, float r2, int nsample, int* __restrict__ idx,
+    unsigned* __restrict__ words, int* __restrict__ counts,
+    int* __restrict__ lists) {
   static_assert(C % 32 == 0 && C >= 32, "a chunk is whole words");
   constexpr int kTile = G * Q;              // queries of a block
   constexpr int kBuf = 3 * C + 4;           // floats of one chunk buffer
@@ -150,7 +157,12 @@ bq_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
   extern __shared__ float4 s_raw[];
   float* s_pts = reinterpret_cast<float*>(s_raw);            // [R][2][kBuf]
   int* s_cnt = reinterpret_cast<int*>(s_pts + R * 2 * kBuf);  // [kTile][R]
-  int* s_list = s_cnt + kTile * R;                 // [kTile][R][nsample]
+  int* s_list;                                     // [kTile][R][nsample]
+  if constexpr (LISTS_IN_SHARED)
+    s_list = s_cnt + kTile * R;
+  else
+    s_list = lists + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x)
+                         * kTile * R * nsample;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -346,18 +358,46 @@ bq_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
   }
 }
 
+// The pack and the first-k with its lists in shared memory.
+template <int Q, int G, int R, int C, bool PACK>
+__global__ void __launch_bounds__(G * R * 32)
+bq_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
+          int n, int m, float r2, int nsample, int* __restrict__ idx,
+          unsigned* __restrict__ words, int* __restrict__ counts,
+          int* __restrict__ lists) {
+  bq_body<Q, G, R, C, PACK, true>(xyz, new_xyz, n, m, r2, nsample, idx,
+                                  words, counts, lists);
+}
+
+// The first-k with its lists in device memory (nsample above 256).
+template <int Q, int G, int R, int C>
+__global__ void __launch_bounds__(G * R * 32)
+bq_lists_kernel(const float* __restrict__ xyz,
+                const float* __restrict__ new_xyz, int n, int m, float r2,
+                int nsample, int* __restrict__ idx,
+                unsigned* __restrict__ words, int* __restrict__ counts,
+                int* __restrict__ lists) {
+  bq_body<Q, G, R, C, false, false>(xyz, new_xyz, n, m, r2, nsample, idx,
+                                    words, counts, lists);
+}
+
 using Launcher = cudaError_t (*)(const float*, const float*, int, int, int,
-                                 float, int, int*, unsigned*, int*,
+                                 float, int, int*, unsigned*, int*, int*,
                                  cudaStream_t);
 
-template <int Q, int G, int R, int C, bool PACK>
+template <int Q, int G, int R, int C, bool PACK, bool LISTS_IN_SHARED = true>
 cudaError_t launch(const float* xyz, const float* new_xyz, int batch, int n,
                    int m, float r2, int nsample, int* idx, unsigned* words,
-                   int* counts, cudaStream_t stream) {
-  auto kernel = bq_kernel<Q, G, R, C, PACK>;
+                   int* counts, int* lists, cudaStream_t stream) {
+  auto kernel = [] {
+    if constexpr (LISTS_IN_SHARED) return bq_kernel<Q, G, R, C, PACK>;
+    else return bq_lists_kernel<Q, G, R, C>;
+  }();
   size_t smem = static_cast<size_t>(R) * 2 * (3 * C + 4) * sizeof(float);
   if constexpr (!PACK)
-    smem += static_cast<size_t>(G) * Q * R * (nsample + 1) * sizeof(int);
+    smem += static_cast<size_t>(G) * Q * R
+            * ((LISTS_IN_SHARED ? nsample : 0) + 1) * sizeof(int);
+  if (!LISTS_IN_SHARED && lists == nullptr) return cudaErrorInvalidValue;
   if (smem > kMaxSharedBytes || batch > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -366,17 +406,18 @@ cudaError_t launch(const float* xyz, const float* new_xyz, int batch, int n,
   const dim3 grid(static_cast<unsigned>((m + G * Q - 1) / (G * Q)),
                   static_cast<unsigned>(batch));
   kernel<<<grid, G * R * 32, smem, stream>>>(xyz, new_xyz, n, m, r2, nsample,
-                                             idx, words, counts);
+                                             idx, words, counts, lists);
   return cudaGetLastError();
 }
 
 struct Variant {
   int queries, groups, ranges, chunk;
-  Launcher first_k, pack;
+  Launcher first_k, pack, first_k_lists_in_memory;
 };
 
-#define BQ_VARIANT(q, g, r, c) \
-  {q, g, r, c, &launch<q, g, r, c, false>, &launch<q, g, r, c, true>}
+#define BQ_VARIANT(q, g, r, c)                                      \
+  {q, g, r, c, &launch<q, g, r, c, false>, &launch<q, g, r, c, true>, \
+   &launch<q, g, r, c, false, false>}
 // The same list, in the same order, as VARIANTS of kernels/ballquery.py.
 const Variant kVariants[] = {
     BQ_VARIANT(8, 2, 4, 512), BQ_VARIANT(8, 4, 4, 512),
@@ -419,19 +460,22 @@ int ball_query_pack_launch(const float* xyz, const float* new_xyz, int batch,
     return cudaErrorInvalidValue;
   if (batch * m == 0) return 0;
   return static_cast<int>(kVariants[variant].pack(
-      xyz, new_xyz, batch, n, m, r2, 0, nullptr, words, counts,
+      xyz, new_xyz, batch, n, m, r2, 0, nullptr, words, counts, nullptr,
       static_cast<cudaStream_t>(stream)));
 }
 
-// Same inputs; idx (B, M, nsample) int32, every slot written.
+// Same inputs; idx (B, M, nsample) int32, every slot written.  `lists`
+// null keeps the hit lists in shared memory; otherwise it is a workspace of
+// B * ceil(M / (G*Q)) * G*Q * R * nsample ints on the device, where they go.
 int ball_query_launch(const float* xyz, const float* new_xyz, int batch, int n,
                       int m, float r2, int nsample, int* idx, int variant,
-                      void* stream) {
+                      int* lists, void* stream) {
   if (variant < 0 || variant >= kNumVariants || n < 1 || nsample < 1)
     return cudaErrorInvalidValue;
   if (batch * m == 0) return 0;
-  return static_cast<int>(kVariants[variant].first_k(
-      xyz, new_xyz, batch, n, m, r2, nsample, idx, nullptr, nullptr,
+  const Variant& v = kVariants[variant];
+  return static_cast<int>((lists ? v.first_k_lists_in_memory : v.first_k)(
+      xyz, new_xyz, batch, n, m, r2, nsample, idx, nullptr, nullptr, lists,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -73,10 +73,12 @@
 // main path N = 512 gets 1 x 128 x 4, N = 1024 gets 1 x 256 x 4, N = 2048
 // gets 1 x 512 x 4 and N = 40000 gets 8 x 256 x 20: few warps with many
 // points each, because the argmax across warps costs more than the
-// arithmetic.  The largest scene is 81,920 points (8 blocks x 256 threads x
-// 40 points: 160 registers of state per thread); what sets it is the
-// register file, then 16 bytes a point of shared memory (160 KB of 227 KB
-// there).
+// arithmetic.  The largest scene in registers is 81,920 points (8 blocks x
+// 256 threads x 40 points: 160 registers of state per thread); what sets it
+// is the register file, then 16 bytes a point of shared memory (160 KB of
+// 227 KB there).  Above that, 8 x 1024 x 0 streams the scene from a
+// workspace in device memory (fps_stream_kernel): no limit but the
+// device's memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -140,6 +142,94 @@ __device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
 // Bytes of one candidate: (key, index, x, y) and z.
 constexpr unsigned kCandidateBytes = 20;
 
+// Shared state of the exchange between the blocks of a cluster: each
+// block's candidate (key, index, x, y) and z, double-buffered by the step's
+// parity, and the transaction barriers they land on.
+template <int CS>
+struct Exchange {
+  int4 cand[2][CS];
+  int cand_z[2][CS];
+  unsigned long long bar[2];
+};
+
+// Arm both barriers (one arrival and CS candidates each); called by one
+// thread before the block's first __syncthreads.
+template <int CS>
+__device__ __forceinline__ void exchange_init(Exchange<CS>& x) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(smem_addr(&x.bar[0])) : "memory");
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+               :: "r"(smem_addr(&x.bar[1])) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  mbar_expect(smem_addr(&x.bar[0]), CS * kCandidateBytes);
+  mbar_expect(smem_addr(&x.bar[1]), CS * kCandidateBytes);
+}
+
+// Step k's pick of the whole cluster from each block's winner (best, pick),
+// one of the block's own points, whose coordinates coords(pick) returns
+// (called by the sending lanes only).  Lanes 0..CS-1 of warp 0 send the
+// candidate into this block's slot in every block of the cluster with
+// st.async onto the receiver's barrier; every block waits for all CS
+// candidates, and every warp reduces them itself.  Returns the pick and
+// sets (lx, ly, lz) to its coordinates.
+template <int CS, int TT, int T, typename Coords>
+__device__ __forceinline__ int cluster_pick(Exchange<CS>& x, int k, int rank,
+                                            int warp, int lane, int tid,
+                                            int best, int pick, Coords coords,
+                                            float& lx, float& ly, float& lz) {
+  const int par = k & 1;
+  if (warp == 0 && lane < CS) {      // lane r sends to block r
+    const float3 w = coords(pick);
+    const unsigned bar = in_block(smem_addr(&x.bar[par]), lane);
+    asm volatile(
+        "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes"
+        ".v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
+        :: "r"(in_block(smem_addr(&x.cand[par][rank]), lane)),
+           "r"(best), "r"(pick), "r"(__float_as_int(w.x)),
+           "r"(__float_as_int(w.y)), "r"(bar) : "memory");
+    asm volatile(
+        "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes"
+        ".b32 [%0], %1, [%2];"
+        :: "r"(in_block(smem_addr(&x.cand_z[par][rank]), lane)),
+           "r"(__float_as_int(w.z)), "r"(bar) : "memory");
+  }
+  const unsigned bar = smem_addr(&x.bar[par]);
+  const unsigned phase = ((k - 1) >> 1) & 1;   // this barrier's uses so far
+  int spins = 0;
+  while (!mbar_try_wait(bar, phase))
+    if (++spins > (1 << 24)) __trap();   // a lost candidate: fail, not hang
+  const int4 c = lane < CS ? x.cand[par][lane]
+                           : make_int4(INT_MIN, INT_MAX, 0, 0);
+  best = c.x;
+  pick = c.y;
+  warp_arg_max(best, pick);
+  const int owner = (pick % TT) / T;           // the block that sent it
+  const int4 w = x.cand[par][owner];
+  lx = __int_as_float(w.z);
+  ly = __int_as_float(w.w);
+  lz = __int_as_float(x.cand_z[par][owner]);
+  // arm this parity's barrier for its next use, two steps on
+  if (tid == 0) mbar_expect(bar, CS * kCandidateBytes);
+  return pick;
+}
+
+// (key, index) argmax over the block, the result in every thread; one
+// __syncthreads, slots double-buffered by the step's parity.
+template <int W>
+__device__ __forceinline__ void block_arg_max(int2 (*s_warp)[W], int par,
+                                              int warp, int lane, int& best,
+                                              int& pick) {
+  warp_arg_max(best, pick);
+  if constexpr (W > 1) {
+    if (lane == 0) s_warp[par][warp] = make_int2(best, pick);
+    __syncthreads();
+    const int2 c = lane < W ? s_warp[par][lane] : make_int2(INT_MIN, INT_MAX);
+    best = c.x;
+    pick = c.y;
+    warp_arg_max(best, pick);
+  }
+}
+
 template <int CS, int T, int P>
 __global__ void __launch_bounds__(T, 1)
 fps_kernel(const float* __restrict__ xyz, int n, int npoint,
@@ -150,9 +240,7 @@ fps_kernel(const float* __restrict__ xyz, int n, int npoint,
   static_assert(CS == 1 || W > 1, "the cluster's exchange leans on __syncthreads");
   extern __shared__ float4 s_xyz[];                 // [slot * T + thread]
   __shared__ int2 s_warp[2][W];                     // (key, index) per warp
-  __shared__ int4 s_cand[2][CS];     // (key, index, x, y) per block of the cluster
-  __shared__ int s_cand_z[2][CS];
-  __shared__ unsigned long long s_bar[2];           // candidates landed
+  __shared__ Exchange<CS> s_x;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -190,15 +278,7 @@ fps_kernel(const float* __restrict__ xyz, int n, int npoint,
   float lx = __ldg(p), ly = __ldg(p + 1), lz = __ldg(p + 2);   // pick 0
   if (gt == 0) o[0] = 0;
   if constexpr (CS > 1) {
-    if (tid == 0) {                   // one arrival (below) and CS candidates
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                   :: "r"(smem_addr(&s_bar[0])) : "memory");
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                   :: "r"(smem_addr(&s_bar[1])) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      mbar_expect(smem_addr(&s_bar[0]), CS * kCandidateBytes);
-      mbar_expect(smem_addr(&s_bar[1]), CS * kCandidateBytes);
-    }
+    if (tid == 0) exchange_init(s_x);
   }
   __syncthreads();
   // no block writes into another before all of the cluster's blocks run
@@ -219,15 +299,7 @@ fps_kernel(const float* __restrict__ xyz, int n, int npoint,
       }
     }
     int pick = slot * TT + gt;
-    warp_arg_max(best, pick);
-    if constexpr (W > 1) {
-      if (lane == 0) s_warp[par][warp] = make_int2(best, pick);
-      __syncthreads();
-      const int2 c = lane < W ? s_warp[par][lane] : make_int2(INT_MIN, INT_MAX);
-      best = c.x;
-      pick = c.y;
-      warp_arg_max(best, pick);
-    }
+    block_arg_max<W>(s_warp, par, warp, lane, best, pick);
     // (best, pick) is this block's winner, one of its own points
     if constexpr (CS == 1) {
       const float4 w = s_xyz[pick];                 // TT == T: pick is the slot
@@ -236,38 +308,13 @@ fps_kernel(const float* __restrict__ xyz, int n, int npoint,
       lz = w.z;
       if (tid == 0) o[k] = pick;
     } else {
-      if (warp == 0 && lane < CS) {      // lane r sends to block r
-        const float4 w = s_xyz[(pick / TT) * T + pick % T];
-        const unsigned bar = in_block(smem_addr(&s_bar[par]), lane);
-        asm volatile(
-            "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes"
-            ".v4.b32 [%0], {%1, %2, %3, %4}, [%5];"
-            :: "r"(in_block(smem_addr(&s_cand[par][rank]), lane)),
-               "r"(best), "r"(pick), "r"(__float_as_int(w.x)),
-               "r"(__float_as_int(w.y)), "r"(bar) : "memory");
-        asm volatile(
-            "st.async.weak.shared::cluster.mbarrier::complete_tx::bytes"
-            ".b32 [%0], %1, [%2];"
-            :: "r"(in_block(smem_addr(&s_cand_z[par][rank]), lane)),
-               "r"(__float_as_int(w.z)), "r"(bar) : "memory");
-      }
-      const unsigned bar = smem_addr(&s_bar[par]);
-      const unsigned phase = ((k - 1) >> 1) & 1;   // this barrier's uses so far
-      int spins = 0;
-      while (!mbar_try_wait(bar, phase))
-        if (++spins > (1 << 24)) __trap();   // a lost candidate: fail, not hang
-      const int4 c = lane < CS ? s_cand[par][lane]
-                               : make_int4(INT_MIN, INT_MAX, 0, 0);
-      best = c.x;
-      pick = c.y;
-      warp_arg_max(best, pick);
-      const int owner = (pick % TT) / T;           // the block that sent it
-      const int4 w = s_cand[par][owner];
-      lx = __int_as_float(w.z);
-      ly = __int_as_float(w.w);
-      lz = __int_as_float(s_cand_z[par][owner]);
-      // arm this parity's barrier for its next use, two steps on
-      if (tid == 0) mbar_expect(bar, CS * kCandidateBytes);
+      pick = cluster_pick<CS, TT, T>(
+          s_x, k, rank, warp, lane, tid, best, pick,
+          [&](int i) {
+            const float4 w = s_xyz[(i / TT) * T + i % T];
+            return make_float3(w.x, w.y, w.z);
+          },
+          lx, ly, lz);
       if (gt == 0) o[k] = pick;
     }
   }
@@ -275,22 +322,88 @@ fps_kernel(const float* __restrict__ xyz, int n, int npoint,
   if constexpr (CS > 1) cg::this_cluster().sync();
 }
 
-using Launcher = cudaError_t (*)(const float*, int, int, int, int*,
+// The variant without a size limit (P == 0): a scene's points and running
+// minimum stream from a workspace in device memory, 16 bytes a point
+// (x, y, z and the key's bits), which each thread writes for its own points
+// first and then reads once per step; the key goes back only where it
+// fell.  Point j belongs to thread j % (CS*T), which scans j, j + CS*T, ...
+// in ascending order; the argmax across warps and the cluster's exchange
+// are the register variants'.  The pick's coordinates come from the input.
+// At 100,000 points a cluster of 8 blocks streams 1.6 MB a step, which
+// stays in L2.
+template <int CS, int T>
+__global__ void __launch_bounds__(T, 1)
+fps_stream_kernel(const float* __restrict__ xyz, int n, int npoint,
+                  int* __restrict__ out, float4* __restrict__ work) {
+  constexpr int W = T / 32;
+  constexpr int TT = CS * T;
+  static_assert(T % 32 == 0 && W <= 32 && CS <= 32, "one warp reduces the slots");
+  static_assert(CS > 1 && W > 1, "a cluster of several warps a block");
+  __shared__ int2 s_warp[2][W];
+  __shared__ Exchange<CS> s_x;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int scene = blockIdx.x / CS;
+  const int gt = rank * T + tid;
+  const float* p = xyz + static_cast<size_t>(scene) * n * 3;
+  float4* wk = work + static_cast<size_t>(scene) * n;
+  int* o = out + static_cast<size_t>(scene) * npoint;
+
+  for (int j = gt; j < n; j += TT) {
+    const float x = __ldg(p + 3 * j);
+    const float y = __ldg(p + 3 * j + 1);
+    const float z = __ldg(p + 3 * j + 2);
+    const float n2 = __fmaf_rn(z, z, __fmaf_rn(y, y, __fmul_rn(x, x)));
+    wk[j] = make_float4(
+        x, y, z, __int_as_float(n2 > 1e-3f ? __float_as_int(1e10f) : kPadding));
+  }
+  float lx = __ldg(p), ly = __ldg(p + 1), lz = __ldg(p + 2);   // pick 0
+  if (gt == 0) o[0] = 0;
+  if (tid == 0) exchange_init(s_x);
+  __syncthreads();
+  cg::this_cluster().sync();
+
+  for (int k = 1; k < npoint; ++k) {
+    const int par = k & 1;
+    int best = INT_MIN;
+    int pick = gt;
+    for (int j = gt; j < n; j += TT) {
+      const float4 w = wk[j];
+      const int key = __float_as_int(w.w);
+      const int m = min(key, __float_as_int(sq_dist(w.x, w.y, w.z, lx, ly, lz)));
+      if (m != key) wk[j].w = __int_as_float(m);
+      if (m > best) {       // ascending index: strict '>' keeps the lowest
+        best = m;
+        pick = j;
+      }
+    }
+    block_arg_max<W>(s_warp, par, warp, lane, best, pick);
+    pick = cluster_pick<CS, TT, T>(
+        s_x, k, rank, warp, lane, tid, best, pick,
+        [&](int i) {
+          // a block without points sends its key INT_MIN, which never wins,
+          // with some point's coordinates
+          const float* q = p + 3 * min(i, n - 1);
+          return make_float3(__ldg(q), __ldg(q + 1), __ldg(q + 2));
+        },
+        lx, ly, lz);
+    if (gt == 0) o[k] = pick;
+  }
+  cg::this_cluster().sync();
+}
+
+using Launcher = cudaError_t (*)(const float*, int, int, int, int*, float4*,
                                  cudaStream_t);
 
 template <int CS, int T, int P>
 cudaError_t launch(const float* xyz, int batch, int n, int npoint, int* out,
-                   cudaStream_t stream) {
-  auto kernel = fps_kernel<CS, T, P>;
-  const size_t smem = static_cast<size_t>(T) * P * sizeof(float4);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+                   float4* work, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(batch) * CS);
   cfg.blockDim = dim3(T);
-  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -299,7 +412,21 @@ cudaError_t launch(const float* xyz, int batch, int n, int npoint, int* out,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = CS > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, xyz, n, npoint, out);
+  cudaError_t err;
+  if constexpr (P == 0) {
+    if (work == nullptr) return cudaErrorInvalidValue;
+    err = cudaLaunchKernelEx(&cfg, fps_stream_kernel<CS, T>, xyz, n, npoint,
+                             out, work);
+  } else {
+    auto kernel = fps_kernel<CS, T, P>;
+    const size_t smem = static_cast<size_t>(T) * P * sizeof(float4);
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    cfg.dynamicSmemBytes = smem;
+    err = cudaLaunchKernelEx(&cfg, kernel, xyz, n, npoint, out);
+  }
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -318,7 +445,7 @@ const Variant kVariants[] = {
     FPS_VARIANT(8, 256, 4),   FPS_VARIANT(8, 256, 8),   FPS_VARIANT(8, 256, 12),
     FPS_VARIANT(8, 256, 16),  FPS_VARIANT(8, 256, 20),  FPS_VARIANT(8, 256, 24),
     FPS_VARIANT(8, 256, 32),  FPS_VARIANT(8, 256, 40),  FPS_VARIANT(8, 128, 40),
-    FPS_VARIANT(8, 512, 10),  FPS_VARIANT(8, 1024, 5),
+    FPS_VARIANT(8, 512, 10),  FPS_VARIANT(8, 1024, 5),  FPS_VARIANT(8, 1024, 0),
 };
 #undef FPS_VARIANT
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
@@ -338,28 +465,20 @@ int fps_variant_info(int v, int* cluster, int* threads, int* points) {
   return 0;
 }
 
-// Largest scene any variant holds.
-int fps_max_points() {
-  int most = 0;
-  for (const Variant& v : kVariants) {
-    const int holds = v.cluster * v.threads * v.points;
-    if (holds > most) most = holds;
-  }
-  return most;
-}
-
 // xyz: (B, N, 3) float32, contiguous, on the device; out: (B, npoint) int32.
-// `variant` indexes the list above and must hold N points.  Returns the
-// launch's cudaError_t (0 on success); a refused launch is an error, no
-// other kernel is tried.
+// `variant` indexes the list above and must hold N points (points 0: any
+// N, with `work` a (B, N) float4 workspace on the device; null otherwise).
+// Returns the launch's cudaError_t (0 on success); a refused launch is an
+// error, no other kernel is tried.
 int fps_launch(const float* xyz, int batch, int n, int npoint, int* out,
-               int variant, void* stream) {
+               int variant, void* work, void* stream) {
   if (variant < 0 || variant >= kNumVariants) return cudaErrorInvalidValue;
   const Variant& v = kVariants[variant];
-  if (n < 1 || n > v.cluster * v.threads * v.points)
+  if (n < 1 || (v.points > 0 && n > v.cluster * v.threads * v.points))
     return cudaErrorInvalidValue;
   if (batch == 0 || npoint == 0) return 0;
   return static_cast<int>(v.launch(xyz, batch, n, npoint, out,
+                                   static_cast<float4*>(work),
                                    static_cast<cudaStream_t>(stream)));
 }
 

@@ -176,6 +176,12 @@ def make_scene_batch(
 
 def to_device(batch: Dict[str, np.ndarray],
               device: str | torch.device = "cuda") -> Dict[str, torch.Tensor]:
-    """numpy batch -> tensors on ``device`` (CUDA unless asked otherwise)."""
+    """numpy batch -> tensors on ``device`` (CUDA unless asked otherwise).
+
+    Always a copy, on the CPU too, where ``torch.as_tensor`` alone would
+    alias the numpy memory: a ``Loader(reuse_buffers=True)`` batch is a
+    ring slot that a worker overwrites two batches later.  The copy from
+    pageable host memory has completed when this returns."""
     dev = resolve_device(device)
-    return {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in batch.items()}
+    return {k: torch.as_tensor(np.asarray(v)).to(dev, copy=True)
+            for k, v in batch.items()}

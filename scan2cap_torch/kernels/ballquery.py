@@ -10,8 +10,9 @@ shared memory.  A variant is (queries per warp Q, query warps G, ranges of
 the scene R, points per chunk C): a block of G*R warps takes G*Q queries,
 and warp (g, r) tests its Q queries against range r.  Which variant a call
 gets depends on its shape (``bq_variant``).  The first-k entry point keeps
-a list of at most ``nsample`` hits per query and range in shared memory,
-which bounds ``nsample`` (``BQ_MAX_NSAMPLE``).
+a list of at most ``nsample`` hits per query and range: in shared memory up
+to ``BQ_SHARED_NSAMPLE``, above that in a workspace in device memory
+(``bq_lists_kernel``), so that ``nsample`` has no bound but memory.
 """
 
 from __future__ import annotations
@@ -48,19 +49,24 @@ _BY_SIZE = (
 
 # what a block can use on sm_90 (kMaxSharedBytes of the source)
 MAX_SHARED_BYTES = 232448
-# the largest nsample the first-k entry point takes: every variant's lists
-# fit beside its chunk buffers up to here
-BQ_MAX_NSAMPLE = 256
+# the largest nsample whose hit lists the first-k keeps in shared memory:
+# every variant's lists fit beside its chunk buffers up to here; a larger
+# nsample puts them in device memory
+BQ_SHARED_NSAMPLE = 256
+
+
+def lists_in_memory(nsample: int) -> bool:
+    """Whether the first-k keeps its hit lists in device memory."""
+    return nsample > BQ_SHARED_NSAMPLE
 
 
 def bq_variant(n: int, m: int = 1, nsample: int = 1) -> int:
     """Index into ``VARIANTS`` of the variant a call with ``n`` points,
     ``m`` queries a scene and ``nsample`` slots gets.  Today N alone
-    decides; every variant takes every M and every nsample up to
-    ``BQ_MAX_NSAMPLE``."""
-    if n < 1 or m < 0 or not 1 <= nsample <= BQ_MAX_NSAMPLE:
+    decides; every variant takes every M and every nsample >= 1."""
+    if n < 1 or m < 0 or nsample < 1:
         raise ValueError(f"N={n}, M={m}, nsample={nsample} outside the "
-                         f"kernel's N >= 1, nsample 1..{BQ_MAX_NSAMPLE}")
+                         f"kernel's N >= 1, nsample >= 1")
     for bound, shape in _BY_SIZE:
         if bound is None or n <= bound:
             return VARIANTS.index(shape)
@@ -69,10 +75,21 @@ def bq_variant(n: int, m: int = 1, nsample: int = 1) -> int:
 
 def shared_bytes(variant: int, nsample: int, pack: bool = False) -> int:
     """Dynamic shared memory of one block: two chunk buffers per range,
-    and for the first-k the hit lists and their counts."""
+    and for the first-k the hit counts and, up to ``BQ_SHARED_NSAMPLE``,
+    the hit lists."""
     q, g, r, c = VARIANTS[variant]
-    lists = 0 if pack else g * q * r * (nsample + 1) * 4
+    held = 0 if lists_in_memory(nsample) else nsample
+    lists = 0 if pack else g * q * r * (held + 1) * 4
     return r * 2 * (3 * c + 4) * 4 + lists
+
+
+def list_workspace_ints(variant: int, batch: int, m: int, nsample: int) -> int:
+    """Ints of the device-memory hit lists of a first-k call: nsample per
+    query of every tile and range (0 while they fit in shared memory)."""
+    if not lists_in_memory(nsample):
+        return 0
+    q, g, r, _ = VARIANTS[variant]
+    return batch * -(-m // (g * q)) * g * q * r * nsample
 
 
 def range_words(n: int, ranges: int) -> Tuple[int, int]:
@@ -139,7 +156,7 @@ def _bind():
     _pack_launch = _build.bind("ballquery", "ball_query_pack_launch",
                                [p, p, i, i, i, f, p, p, i, p])
     _launch = _build.bind("ballquery", "ball_query_launch",
-                          [p, p, i, i, i, f, i, p, i, p])
+                          [p, p, i, i, i, f, i, p, i, p, p])
 
 
 def _prepare(xyz: torch.Tensor, new_xyz: torch.Tensor, nsample: int,
@@ -189,19 +206,27 @@ def ball_query_pack_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor,
 def ball_query_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor, r2: float,
                     nsample: int, variant: int | None = None) -> torch.Tensor:
     """(B, N, 3), (B, M, 3) -> (B, M, nsample) int32 first-k hit indices
-    with the reference's padding, for ``nsample`` up to ``BQ_MAX_NSAMPLE``.
-    ``r2`` and ``variant`` as for ``ball_query_pack_cuda``."""
+    with the reference's padding, for any ``nsample`` >= 1 (above
+    ``BQ_SHARED_NSAMPLE`` the hit lists get a workspace from PyTorch's
+    allocator).  ``r2`` and ``variant`` as for ``ball_query_pack_cuda``."""
     variant = _prepare(xyz, new_xyz, nsample, variant, "ball_query_cuda")
     B, N, _ = xyz.shape
     M = new_xyz.shape[1]
     idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz.device)
+    ints = list_workspace_ints(variant, B, M, nsample)
+    lists = (torch.empty(ints, dtype=torch.int32, device=xyz.device)
+             if ints else None)
     if _launch is None:
         _bind()
     _build.launch(_launch, xyz.device, xyz.data_ptr(), new_xyz.data_ptr(),
-                  B, N, M, r2, nsample, idx.data_ptr(), variant)
+                  B, N, M, r2, nsample, idx.data_ptr(), variant,
+                  None if lists is None else lists.data_ptr())
     ball_query_cuda.launches += 1
+    ball_query_cuda.lists_in_memory_launches += lists is not None
     return idx
 
 
 ball_query_pack_cuda.launches = 0
 ball_query_cuda.launches = 0
+# of those, the launches whose hit lists went to device memory
+ball_query_cuda.lists_in_memory_launches = 0

@@ -28,7 +28,7 @@ class ProposalModule(nn.Module):
         self.num_heading_bin = num_heading_bin
         self.num_size_cluster = num_size_cluster
         self.register_buffer(
-            "mean_size", torch.as_tensor(np.asarray(mean_size_arr, np.float32)),
+            "mean_size", torch.tensor(np.asarray(mean_size_arr, np.float32)),
             persistent=False)
         self.vote_aggregation = PointnetSAModuleVotes(
             num_proposal, 0.3, 16, seed_feat_dim, (128, 128, 128))

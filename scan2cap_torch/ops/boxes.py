@@ -8,6 +8,7 @@ from typing import Tuple
 import torch
 
 from scan2cap_torch.config import SCANNET_MEAN_SIZE_ARR
+from scan2cap_torch.ops.distance import fma32
 
 _SX = (1, 1, -1, -1, 1, 1, -1, -1)
 _SY = (1, -1, -1, 1, 1, -1, -1, 1)
@@ -48,15 +49,25 @@ def box_min_max(corners: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def box3d_iou_batch(corners1: torch.Tensor,
                     corners2: torch.Tensor) -> torch.Tensor:
     """Elementwise AABB IoU over broadcast leading dims (box_util.py:156-209):
-    (..., 8, 3) x (..., 8, 3) -> (...,)."""
+    (..., 8, 3) x (..., 8, 3) -> (...,).
+
+    Rounded as jitted XLA rounds the JAX function on the CPU: each product
+    of extents is ``(x*y)*z``, and the union's ``vol1 + vol2`` is one fused
+    multiply-add onto ``vol2`` (``fma32``); ``- inter`` and ``+ 1e-8``
+    follow.  The IoU gates decisions (the caption keep gate, the target
+    argmax, the local-context overlay), so it must equal JAX's bit for bit."""
     min1, max1 = box_min_max(corners1)
     min2, max2 = box_min_max(corners2)
     lo = torch.maximum(min1, min2)
     hi = torch.minimum(max1, max2)
-    inter = torch.prod(torch.clamp(hi - lo, min=0.0), dim=-1)
-    vol1 = torch.prod(max1 - min1, dim=-1)
-    vol2 = torch.prod(max2 - min2, dim=-1)
-    return inter / (vol1 + vol2 - inter + 1e-8)
+    e = torch.clamp(hi - lo, min=0.0)
+    inter = (e[..., 0] * e[..., 1]) * e[..., 2]
+    s1, s2 = max1 - min1, max2 - min2
+    vol2 = (s2[..., 0] * s2[..., 1]) * s2[..., 2]
+    s1x, s1y, s1z, vol2 = torch.broadcast_tensors(s1[..., 0], s1[..., 1],
+                                                  s1[..., 2], vol2)
+    union = fma32(s1x * s1y, s1z, vol2)
+    return inter / (union - inter + 1e-8)
 
 
 def box3d_iou_matrix(corners1: torch.Tensor,

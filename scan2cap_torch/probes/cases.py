@@ -13,19 +13,26 @@ import numpy as np
 import torch
 
 from scan2cap_torch.kernels import ballquery
-from scan2cap_torch.kernels.fps import _BY_SIZE, fps_max_points, fps_variant
+from scan2cap_torch.kernels.fps import _BY_SIZE, fps_variant
 
 # the cluster variant of the flagship's first layer, forced onto scenes far
-# smaller than it, so that most of its blocks hold no point
+# smaller than it, so that most of its blocks hold no point; and the
+# streaming variant of the largest scenes, forced onto small ones
 _CLUSTER_N = 40000
+_STREAMED_N = _BY_SIZE[-2][0] + 1
+_FORCED = (("_in_a_cluster", _CLUSTER_N), ("_streamed", _STREAMED_N))
 
 FPS_EDGE_CASES = (
     "padding", "all_invalid", "ties", "ties_in_a_cluster", "batch10",
     "n1", "n1_in_a_cluster", "n5", "n5_in_a_cluster", "n9", "n9_in_a_cluster",
     "n39999", "ties_across_blocks", "padding_30000_of_40000",
     "all_invalid_40000", "batch10_40000",
-) + tuple(f"boundary_n{n}" for bound, _ in _BY_SIZE
-          for n in (bound - 1, bound, bound + 1) if n <= fps_max_points())
+    "n1_streamed", "n9_streamed", "ties_streamed", "padding_streamed",
+    "all_invalid_streamed",
+    # scenes above what registers hold: 2,048 picks, as sa1 takes
+    "large_n81921", "large_n100000", "large_n200000",
+) + tuple(f"boundary_n{n}" for bound, _ in _BY_SIZE if bound is not None
+          for n in (bound - 1, bound, bound + 1))
 
 
 def _rs(name: str) -> np.random.RandomState:
@@ -43,8 +50,10 @@ def fps_edge_case(name: str) -> Tuple[np.ndarray, int, Optional[int]]:
     def grid(B, N):                                # many equal distances
         return np.round(rs.randn(B, N, 3) * 2.0).astype(np.float32) / 2.0
 
-    cluster = fps_variant(_CLUSTER_N) if name.endswith("_in_a_cluster") else None
-    base = name[:-len("_in_a_cluster")] if cluster is not None else name
+    cluster, base = None, name
+    for suffix, n in _FORCED:
+        if name.endswith(suffix):
+            cluster, base = fps_variant(n), name[:-len(suffix)]
     if base == "padding":                          # zero padding at the end
         x = cloud(2, 1300, 3.0)
         x[:, 700:] = 0.0
@@ -79,6 +88,8 @@ def fps_edge_case(name: str) -> Tuple[np.ndarray, int, Optional[int]]:
         return cloud(10, 40000), 64, cluster
     if base.startswith("boundary_n"):              # where the variant changes
         return cloud(2, int(base[len("boundary_n"):])), 32, cluster
+    if base.startswith("large_n"):
+        return cloud(2, int(base[len("large_n"):])), 2048, cluster
     raise KeyError(name)
 
 
@@ -144,6 +155,9 @@ BQ_EDGE_CASES = (
     "on_radius_at_boundaries", "on_radius_at_boundaries_40000",
     "dense_40000", "batch10_40000",
     "view_off_4_bytes", "view_off_8_bytes", "view_off_12_bytes",
+    # hit lists in device memory (nsample above what shared memory holds)
+    "nsample257", "nsample512", "nsample1024",
+    "nsample257_40000", "nsample512_40000", "nsample1024_40000",
 ) + tuple(f"boundary_n{n}" for bound in _BQ_BOUNDS
           for n in (bound - 1, bound, bound + 1))
 
@@ -231,8 +245,15 @@ def bq_edge_case(name: str) -> BqCase:
         return p, p[:, :9].copy(), 0.5, 32, None, 0
     if base == "nsample_limit":          # every range holds more than 256
         p = f32(rs.rand(2, _BQ_SPLIT_N, 3) * 0.3)
-        return (p, p[:, :21].copy(), 0.5, ballquery.BQ_MAX_NSAMPLE, variant,
-                0)
+        return (p, p[:, :21].copy(), 0.5, ballquery.BQ_SHARED_NSAMPLE,
+                variant, 0)
+    if base in ("nsample257", "nsample512", "nsample1024"):
+        # queries in the dense core hold more hits than nsample, the sparse
+        # room's fewer: both the cap and the padding
+        n = 40000 if big else 999
+        p = mixed(2, n)
+        return (p, p[:, :8].copy(), 0.5 if big else 2.5,
+                int(base[len("nsample"):]), None, 0)
     if base == "exactly_nsample_hits":
         at = rs.choice(N, 16, replace=False)
         return (*sparse(2, N, M, at), 0.2, 16, variant, 0)

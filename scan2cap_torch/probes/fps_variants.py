@@ -1,5 +1,6 @@
 """Times every variant of the FPS kernel (``csrc/fps.cu``) at the five FPS
-sites of one flagship forward, B=2, on seeded room-scale points.
+sites of one flagship forward and at a scene above what registers hold
+(100,000 points), B=2, on seeded room-scale points.
 
 A variant is (cluster size, threads per block, points per thread); every
 variant that holds a site's N is run, held against the variant the wrapper
@@ -26,7 +27,8 @@ from scan2cap_torch.kernels.fps import (VARIANTS, fps_variant,
 from scan2cap_torch.probes.timing import event_ms
 
 SITES = (("sa1", 40000, 2048), ("sa2", 2048, 1024), ("sa3", 1024, 512),
-         ("sa4", 512, 256), ("vote_aggregation", 1024, 256))
+         ("sa4", 512, 256), ("vote_aggregation", 1024, 256),
+         ("large", 100000, 2048))
 
 
 def run(device: str | torch.device = "cuda", batch: int = 2,
@@ -42,7 +44,7 @@ def run(device: str | torch.device = "cuda", batch: int = 2,
         chosen = fps_variant(n)
         want = furthest_point_sample_cuda(xyz, npoint)
         for v, shape in enumerate(VARIANTS):
-            if variant_points(v) < n:
+            if (variant_points(v) or n) < n:       # None: any N
                 continue
             row = dict(site=name, n=n, npoint=npoint, variant=list(shape),
                        chosen=v == chosen)

@@ -1,0 +1,277 @@
+"""Training CLI of the port: ``python -m scan2cap_torch.scripts.train``
+(counterpart of ``scripts/train.py``; the reference's scripts/train.py
+flags, :306-350).
+
+Reads ScanNet-layout scenes and ScanRefer JSON from ``SCAN2CAP_DATA``,
+builds the Loader, CapNet and the train step on ``--device`` (default
+``cuda``; the tests pass ``cpu``), runs the Solver, and writes the run under
+``SCAN2CAP_OUTPUT/<stamp>``: ``info.json`` (the flags eval and predict read
+back), ``log.txt``, ``scalars.json`` and ``ckpt/{best,last,resume}.pt``.
+``--use_pretrained`` mounts the detection modules of a reference-layout
+``.pth`` or of a port run; ``--use_checkpoint`` resumes a port run at its
+next global epoch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from datetime import datetime
+
+import numpy as np
+
+# what the port does not run (one card, float32): the flags stay so that a
+# JAX command line parses, and stop with this message
+NOT_PORTED = ("{flag} is not ported: the PyTorch port runs on one card in "
+              "float32 (ROADMAP.md, Queue 1, item 11)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--tag", type=str, default="")
+    p.add_argument("--dataset", type=str, default="ScanRefer",
+                   help="ScanRefer or ReferIt3D")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--epoch", type=int, default=20)
+    p.add_argument("--verbose", type=int, default=10)
+    p.add_argument("--val_step", type=int, default=2000)
+    p.add_argument("--profile", type=int, default=0,
+                   help="torch.profiler trace of N warm steps (after the "
+                        "first); writes <run>/profile/trace.json")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--wd", type=float, default=1e-5)
+    p.add_argument("--num_points", type=int, default=40000)
+    p.add_argument("--num_proposals", type=int, default=256)
+    p.add_argument("--num_locals", type=int, default=-1)
+    p.add_argument("--num_scenes", type=int, default=-1)
+    p.add_argument("--num_graph_steps", type=int, default=0)
+    p.add_argument("--criterion", type=str, default="cider")
+    p.add_argument("--query_mode", type=str, default="center")
+    p.add_argument("--graph_mode", type=str, default="edge_conv")
+    p.add_argument("--graph_aggr", type=str, default="add")
+    p.add_argument("--no_height", action="store_true")
+    p.add_argument("--no_augment", action="store_true")
+    p.add_argument("--no_detection", action="store_true")
+    p.add_argument("--no_caption", action="store_true")
+    p.add_argument("--use_tf", action="store_true",
+                   help="accepted as the reference accepts it; training "
+                        "always teacher-forces and eval always decodes "
+                        "free-running")
+    p.add_argument("--use_color", action="store_true")
+    p.add_argument("--use_normal", action="store_true")
+    p.add_argument("--use_multiview", action="store_true")
+    p.add_argument("--use_topdown", action="store_true")
+    p.add_argument("--use_relation", action="store_true")
+    p.add_argument("--use_orientation", action="store_true")
+    p.add_argument("--use_distance", action="store_true")
+    p.add_argument("--use_pretrained", type=str, default=None,
+                   help="detection weights to start from: a reference-"
+                        "layout .pth or the name of a port run")
+    p.add_argument("--use_checkpoint", type=str, default="",
+                   help="a port run to resume at its next epoch")
+    p.add_argument("--spatial", action="store_true", help="not ported")
+    p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
+                   help="not ported")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--bf16", action="store_true", help="not ported")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="the device to run on (cuda, or cpu)")
+    return p
+
+
+def refuse_unported(args) -> None:
+    for flag in ("mesh", "spatial", "bf16"):
+        if getattr(args, flag, None):
+            raise SystemExit(NOT_PORTED.format(flag=f"--{flag}"))
+
+
+def model_config_from_args(args):
+    from scan2cap_torch.config import ModelConfig
+    fields = dict(
+        num_points=args.num_points,
+        num_proposals=args.num_proposals,
+        num_locals=args.num_locals,
+        num_graph_steps=args.num_graph_steps,
+        query_mode=args.query_mode,
+        graph_mode=args.graph_mode,
+        graph_aggr=args.graph_aggr,
+        use_relation=args.use_relation,
+        use_orientation=args.use_orientation,
+        use_distance=args.use_distance,
+        use_topdown=args.use_topdown,
+        use_color=args.use_color,
+        use_normal=args.use_normal,
+        use_multiview=args.use_multiview,
+        use_height=not args.no_height,
+        no_caption=args.no_caption,
+    )
+    # test hook: shrink the SA pyramid so fixture-size scenes run fast
+    if os.environ.get("SCAN2CAP_TEST_TINY"):
+        fields.update(sa_npoints=(128, 64, 32, 16), max_num_obj=16)
+    return ModelConfig(**fields)
+
+
+def model_config_from_info(info: dict):
+    """The ModelConfig of a saved run (its info.json), for eval and
+    predict."""
+    return model_config_from_args(argparse.Namespace(**info))
+
+
+def dataset_kwargs(paths, mcfg) -> dict:
+    return dict(
+        scannet_data_dir=paths.scannet_data,
+        glove_path=paths.glove,
+        num_points=mcfg.num_points,
+        max_num_obj=mcfg.max_num_obj,
+        use_height=mcfg.use_height,
+        use_color=mcfg.use_color,
+        use_normal=mcfg.use_normal,
+        use_multiview=mcfg.use_multiview,
+        multiview_path=paths.multiview,
+    )
+
+
+def caption_scores(bleu, cider, rouge, meteor) -> dict:
+    return {"bleu-1": bleu[0][0], "bleu-2": bleu[0][1],
+            "bleu-3": bleu[0][2], "bleu-4": bleu[0][3],
+            "cider": cider[0], "rouge": rouge[0], "meteor": meteor[0]}
+
+
+def train(args):
+    from scan2cap_torch.config import PathConfig
+    from scan2cap_torch.convert import (DETECTION_MODULES,
+                                        mount_detection_weights)
+    from scan2cap_torch.data.dataset import (Loader, ScannetReferenceDataset,
+                                             get_scanrefer)
+    from scan2cap_torch.device import resolve_device
+    from scan2cap_torch.eval.eval_helper import eval_cap, prepare_corpus
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.train.checkpoints import CheckpointIO
+    from scan2cap_torch.train.solver import Solver
+    from scan2cap_torch.train.step import (create_train_state,
+                                           make_eval_step, make_train_step)
+
+    refuse_unported(args)
+    device = resolve_device(args.device)
+    paths = PathConfig()
+    mcfg = model_config_from_args(args)
+
+    # ---- data ----
+    train_path = os.path.join(paths.data,
+                              f"{args.dataset}_filtered_train.json")
+    val_path = os.path.join(paths.data, f"{args.dataset}_filtered_val.json")
+    scanrefer_train, eval_train, eval_val, all_scenes = get_scanrefer(
+        train_path, val_path, args.num_scenes)
+    if args.debug:
+        scanrefer_train = [scanrefer_train[0]] * args.batch_size
+        eval_train = [scanrefer_train[0]]
+        eval_val = [scanrefer_train[0]]
+
+    scan2cad = None
+    if args.use_orientation:
+        with open(os.path.join(paths.data,
+                               "scannet_instance_rotations.json")) as f:
+            scan2cad = json.load(f)
+
+    common = dataset_kwargs(paths, mcfg)
+    train_ds = ScannetReferenceDataset(
+        scanrefer_train, all_scenes, split="train",
+        augment=not args.no_augment, scan2cad_rotation=scan2cad, **common)
+    val_ds = ScannetReferenceDataset(
+        eval_val, all_scenes, split="val", augment=False,
+        vocab=train_ds.vocabulary, glove=train_ds.glove, **common)
+    # the solver's upload copies, so the ring slots can be reused
+    train_loader = Loader(train_ds, args.batch_size, shuffle=True,
+                          seed=args.seed, reuse_buffers=True)
+    val_loader = Loader(val_ds, args.batch_size, shuffle=False,
+                        seed=args.seed, drop_last=False)
+    with open(os.path.join(paths.data,
+                           "ScanRefer_filtered_organized.json")) as f:
+        organized = json.load(f)
+
+    # ---- model + state ----
+    model = CapNet(mcfg, num_vocabs=train_ds.num_vocabs, device=device,
+                   seed=args.seed)
+    state = create_train_state(mcfg, model, wd=args.wd)
+
+    if args.use_pretrained:
+        # warm-start the detection modules (scripts/train.py:82-105)
+        if args.use_pretrained.endswith(".pth"):
+            mount_detection_weights(model, args.use_pretrained)
+        else:
+            pre = CheckpointIO(os.path.join(
+                paths.output, args.use_pretrained, "ckpt")
+            ).restore_best_or_last()["model"]
+            model.load_state_dict(
+                {k: v for k, v in pre.items()
+                 if k.split(".")[0] in DETECTION_MODULES}, strict=False)
+
+    start_epoch = 0
+    if args.use_checkpoint:
+        # the resume bundle {epoch, model, optimizer, step}
+        # (lib/solver.py:502-510 checkpoint.tar)
+        resume = CheckpointIO(os.path.join(
+            paths.output, args.use_checkpoint, "ckpt")).restore(
+            "resume", map_location=device)
+        model.load_state_dict(resume["model"], strict=True)
+        state.optimizer.load_state_dict(resume["optimizer"])
+        state.step = int(resume["step"])
+        start_epoch = int(resume["epoch"]) + 1
+        print(f"resumed from {args.use_checkpoint} at epoch {start_epoch}",
+              flush=True)
+
+    train_step = make_train_step(
+        mcfg, state, detection=not args.no_detection,
+        caption=not args.no_caption, orientation=args.use_orientation,
+        distance=args.use_distance, use_tf=args.use_tf)
+    eval_step = make_eval_step(mcfg, model)
+
+    with open(val_path) as f:
+        val_scenes = {e["scene_id"] for e in eval_val}
+        corpus_val = prepare_corpus([d for d in json.load(f)
+                                     if d["scene_id"] in val_scenes])
+
+    def eval_fn():
+        return caption_scores(*eval_cap(eval_step, val_ds, val_loader,
+                                        organized, corpus=corpus_val,
+                                        device=device))
+
+    stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    if args.tag:
+        stamp += "_" + args.tag.upper()
+
+    solver = Solver(
+        state, train_step, train_loader,
+        output=os.path.join(paths.output, stamp), lr=args.lr,
+        emb_table=train_ds.emb_table,
+        eval_fn=None if args.no_caption else eval_fn,
+        val_step=args.val_step, criterion=args.criterion,
+        verbose=args.verbose, lr_decay=args.no_caption,
+        bn_decay=args.no_caption, profile_steps=args.profile)
+
+    # info.json (scripts/train.py:183-197)
+    info = dict(vars(args))
+    info["num_train"] = len(train_ds)
+    info["num_eval_val"] = len(val_ds)
+    info["num_vocabs_padded"] = 0
+    with open(os.path.join(solver.output, "info.json"), "w") as f:
+        json.dump(info, f, indent=4)
+
+    print(f"start training... stamp: {stamp}", flush=True)
+    # global epochs: a resume continues the schedules at the restored epoch
+    solver(args.epoch, args.verbose, start_epoch=start_epoch)
+    train_loader.close()
+    val_loader.close()
+    return solver
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    np.random.seed(args.seed)
+    return train(args)
+
+
+if __name__ == "__main__":
+    main()

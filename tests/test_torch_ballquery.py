@@ -40,7 +40,7 @@ def test_bq_variant_covers_every_shape_without_a_gap():
     assert bounds[-1] is None and bounds[:-1] == sorted(bounds[:-1])
     for n in list(range(1, 4200)) + list(range(4200, 400000, 997)):
         for m, nsample in ((1, 1), (37, 16), (2048, 64),
-                           (5, bq.BQ_MAX_NSAMPLE)):
+                           (5, bq.BQ_SHARED_NSAMPLE), (5, 1024)):
             v = bq.bq_variant(n, m, nsample)
             assert 0 <= v < len(bq.VARIANTS)
             assert bq.shared_bytes(v, nsample) <= bq.MAX_SHARED_BYTES
@@ -55,10 +55,16 @@ def test_bq_every_variant_fits_the_card(v):
     assert g * r * 32 <= 1024                     # threads of a block
     assert c % 32 == 0 and c >= 32                # a chunk is whole words
     assert (3 * c + 4) % 4 == 0                   # buffers stay 16-byte aligned
-    # every variant holds the wrapper's largest nsample, and each nsample
-    # of the package's configurations
-    for nsample in (16, 32, 64, bq.BQ_MAX_NSAMPLE):
+    # every variant holds the lists of the largest nsample kept in shared
+    # memory, and each nsample of the package's configurations; above
+    # that only the counts stay there, whatever nsample
+    for nsample in (16, 32, 64, bq.BQ_SHARED_NSAMPLE):
         assert bq.shared_bytes(v, nsample) <= bq.MAX_SHARED_BYTES
+    assert bq.shared_bytes(v, bq.BQ_SHARED_NSAMPLE + 1) == bq.shared_bytes(
+        v, 1 << 20) == r * 2 * (3 * c + 4) * 4 + g * q * r * 4
+    assert bq.list_workspace_ints(v, 2, 37, 64) == 0
+    assert bq.list_workspace_ints(v, 2, 37, 512) == \
+        2 * -(-37 // (g * q)) * g * q * r * 512
     assert bq.shared_bytes(v, 64, pack=True) == r * 2 * (3 * c + 4) * 4
     # the variant is read back from a kernel's name, as the build log
     # (mangled) and a profiler trace (demangled) spell it
@@ -158,14 +164,20 @@ def test_bq_wrapper_errors():
     with pytest.raises(ValueError, match="float32"):
         bq.ball_query_pack_cuda(x, q[..., :2], 0.04)
     with pytest.raises(ValueError, match="nsample"):
-        bq.ball_query_cuda(x, q, 0.04, bq.BQ_MAX_NSAMPLE + 1)
+        bq.ball_query_cuda(x, q, 0.04, -1)
     with pytest.raises(ValueError, match="nsample"):
         bq.ball_query_cuda(x, q, 0.04, 0)
+    # above the shared lists' limit the kernel takes it: only the CPU
+    # tensor is refused
+    with pytest.raises(ValueError, match="CUDA"):
+        bq.ball_query_cuda(x, q, 0.04, bq.BQ_SHARED_NSAMPLE + 1)
     with pytest.raises(ValueError, match="N=0"):
         bq.ball_query_cuda(torch.zeros((1, 0, 3)), q, 0.04, 4)
     with pytest.raises(ValueError, match="no variant"):
         bq.ball_query_cuda(x, q, 0.04, 4, variant=len(bq.VARIANTS))
-    assert bq.BQ_MAX_NSAMPLE >= 64
+    assert bq.BQ_SHARED_NSAMPLE >= 64
+    assert not bq.lists_in_memory(bq.BQ_SHARED_NSAMPLE)
+    assert bq.lists_in_memory(bq.BQ_SHARED_NSAMPLE + 1)
     # the CPU path never reaches the wrapper
     assert grouping.ball_query(x, q, 0.2, 4).shape == (1, 8, 4)
 
@@ -325,7 +337,12 @@ def test_bq_constructed_cases_are_what_their_names_say():
     idx, total, s, _, _ = rows("no_hits")
     assert (total == 0).all() and (idx == 0).all()
     idx, total, s, _, _ = rows("nsample_limit")
-    assert s == bq.BQ_MAX_NSAMPLE and (total > 4 * s).all()
+    assert s == bq.BQ_SHARED_NSAMPLE and (total > 4 * s).all()
+    for name in ("nsample257", "nsample512", "nsample1024",
+                 "nsample512_40000"):          # lists in device memory
+        idx, total, s, _, N = rows(name)
+        assert bq.lists_in_memory(s) and (total < s).any()   # some pad
+        assert (total >= s).any() or s > N     # and some fill theirs
     idx, total, s, _, N = rows("nsample_above_n")
     assert s > N and (total <= N).all() and (total > 1).all()
     idx, total, s, _, _ = rows("dense_40000")
@@ -348,9 +365,11 @@ def test_bq_edge_case_names_are_complete():
     tiles = {bq.VARIANTS[v][0] * bq.VARIANTS[v][1] for v in
              {bq.bq_variant(1), bq.bq_variant(40000)}}
     assert any(all(q.shape[1] % t for t in tiles) for _, q, *_ in shapes)
+    assert {"nsample257", "nsample512", "nsample1024", "nsample257_40000",
+            "nsample512_40000", "nsample1024_40000"} <= names
     for p, q, radius, nsample, variant, offset in shapes:
         assert p.dtype == q.dtype == np.float32 and p.shape[0] == q.shape[0]
-        assert 1 <= nsample <= bq.BQ_MAX_NSAMPLE
+        assert 1 <= nsample
         assert variant is None or 0 <= variant < len(bq.VARIANTS)
 
 

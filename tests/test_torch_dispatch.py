@@ -23,11 +23,15 @@ from scan2cap_torch.ops import distance, grouping, sampling
 from scan2cap_torch.probes import cases
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BOUNDS = [bound for bound, _ in fps._BY_SIZE]
+# the register variants' bounds; the last row of _BY_SIZE takes every N
+# above them
+BOUNDS = [bound for bound, _ in fps._BY_SIZE if bound is not None]
+STREAMED = fps.fps_variant(fps.REGISTER_POINTS + 1)
 
 
 def _holds(variant):
-    return fps.variant_points(variant)
+    """The largest N a variant holds (the streaming one: any)."""
+    return fps.variant_points(variant) or float("inf")
 
 
 @pytest.mark.parametrize("bound", BOUNDS)
@@ -40,8 +44,7 @@ def test_fps_variant_holds_every_n_up_to_its_bound(bound):
         if n >= lo:
             assert fps.fps_variant(n) == v, n
             assert _holds(v) >= n
-    if bound < BOUNDS[-1]:
-        assert fps.fps_variant(bound + 1) != v
+    assert fps.fps_variant(bound + 1) != v
     cluster, threads, points = fps.VARIANTS[v]
     assert cluster * threads * points >= bound
     # one block while 2048 points fit its registers, a cluster above
@@ -53,13 +56,18 @@ def test_fps_variant_holds_every_n_up_to_its_bound(bound):
 
 def test_fps_variant_covers_one_to_the_limit_without_a_gap():
     assert BOUNDS == sorted(BOUNDS)
-    assert fps.fps_max_points() == BOUNDS[-1] >= 58047
-    assert fps.fps_max_points() == max(
-        _holds(v) for v in range(len(fps.VARIANTS)))
+    assert fps._BY_SIZE[-1][0] is None
+    assert fps.REGISTER_POINTS == BOUNDS[-1] >= 58047
+    assert fps.REGISTER_POINTS == max(
+        fps.variant_points(v) or 0 for v in range(len(fps.VARIANTS)))
     for n in range(1, 4200):
         assert _holds(fps.fps_variant(n)) >= n
-    for n in range(4200, fps.fps_max_points() + 1, 97):
+    for n in range(4200, fps.REGISTER_POINTS + 1, 97):
         assert _holds(fps.fps_variant(n)) >= n
+    # above what registers hold, every N streams: no limit, no refusal
+    assert fps.VARIANTS[STREAMED] == (8, 1024, 0)
+    for n in (fps.REGISTER_POINTS + 1, 100000, 200000, 10 ** 7):
+        assert fps.fps_variant(n) == STREAMED
 
 
 @pytest.mark.parametrize("n,shape", [(40000, (8, 256, 20)), (2048, (1, 512, 4)),
@@ -79,10 +87,12 @@ def test_fps_variants_are_the_ones_the_source_builds():
     assert len(set(fps.VARIANTS)) == len(fps.VARIANTS)
     for cluster, threads, points in fps.VARIANTS:
         assert cluster in (1, 8) and threads % 32 == 0 and threads <= 1024
+    # one variant without a limit, and it is the cluster kernel's
+    assert [v for v in fps.VARIANTS if v[2] == 0] == [(8, 1024, 0)]
 
 
 @pytest.mark.parametrize("n,npoint,match", [
-    (0, 4, "outside"), (fps.fps_max_points() + 1, 4, "outside"),
+    (0, 4, "outside"), (fps.REGISTER_POINTS + 1, 4, "CUDA tensor"),
     (64, 0, "positive"), (64, -3, "positive"), (64, 4, "CUDA tensor")])
 def test_fps_wrapper_errors(n, npoint, match):
     with pytest.raises(ValueError, match=match):
@@ -96,7 +106,11 @@ def test_fps_wrapper_refuses_a_variant_too_small():
     with pytest.raises(ValueError):
         fps.fps_variant(0)
     with pytest.raises(ValueError):
-        fps.fps_variant(fps.fps_max_points() + 1)
+        fps.fps_variant(-1)
+    # the streaming variant holds any N: only the CPU tensor is refused
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fps.furthest_point_sample_cuda(torch.zeros((1, 4000, 3)), 4,
+                                       variant=STREAMED)
 
 
 @pytest.mark.parametrize("out_off", [0, 4, 8, 12])
@@ -158,6 +172,10 @@ def _fps_emulated(xyz, npoint, variant):
     cluster, threads, points = fps.VARIANTS[variant]
     tt = cluster * threads
     n = xyz.shape[0]
+    if points == 0:
+        # the streaming variant: the same deal of points over threads, as
+        # many slots as N needs (an absent slot never wins, as -2 does not)
+        points = -(-n // tt)
     assert n <= tt * points
     x = torch.from_numpy(xyz)
     pad = np.zeros((tt * points, 3), np.float32)
@@ -208,7 +226,9 @@ def _fps_emulated(xyz, npoint, variant):
     ("ties", (8, 256, 4)), ("n1", None), ("n1", (8, 256, 4)),
     ("n5", (8, 256, 4)), ("n9", (8, 256, 4)), ("n9", (1, 32, 16)),
     ("boundary_n513", None), ("boundary_n2049", None),
-    ("padding", (8, 128, 40))])
+    ("padding", (8, 128, 40)), ("padding", (8, 1024, 0)),
+    ("ties", (8, 1024, 0)), ("n1", (8, 1024, 0)), ("n9", (8, 1024, 0)),
+    ("all_invalid", (8, 1024, 0))])
 def test_fps_kernel_arithmetic_emulated_matches_plain(case, variant):
     xyz, npoint, _ = cases.fps_edge_case(case)
     npoint = min(npoint, 24)
@@ -276,8 +296,13 @@ def test_gather_plain_at_the_edge_shapes_matches_jax(case):
 def test_edge_case_names_are_complete():
     for bound in BOUNDS:
         assert f"boundary_n{bound}" in cases.FPS_EDGE_CASES
-    assert f"boundary_n{fps.fps_max_points()}" in cases.FPS_EDGE_CASES
-    assert f"boundary_n{fps.fps_max_points() + 1}" not in cases.FPS_EDGE_CASES
+        assert f"boundary_n{bound + 1}" in cases.FPS_EDGE_CASES
+    for name in ("large_n81921", "large_n100000", "large_n200000"):
+        xyz, npoint, variant = cases.fps_edge_case(name)
+        assert xyz.shape[:2] == (2, int(name[len("large_n"):]))
+        assert npoint == 2048 and fps.fps_variant(xyz.shape[1]) == STREAMED
+    assert sum(cases.fps_edge_case(n)[2] == STREAMED
+               for n in cases.FPS_EDGE_CASES) >= 4
     for name in cases.FPS_EDGE_CASES:
         xyz, npoint, variant = cases.fps_edge_case(name)
         assert xyz.dtype == np.float32 and xyz.shape[-1] == 3 and npoint >= 1

@@ -6,8 +6,11 @@
 * ``eval.ap_helper``: ``parse_predictions_device`` on the same ``out``
   dict (masks and classes exact, probabilities within 1e-6), the host
   lists, and AP/AR at 0.25 and 0.5 within 1e-9;
+* ``ops.boxes.box3d_iou_batch`` bitwise against jitted JAX on 20,000
+  seeded pairs and at each call site: ``postprocess_scene_cap``,
+  ``select_target`` and ``query_locals_for_targets``;
 * ``eval.eval_helper``: ``postprocess_scene_cap`` (keep mask, detected
-  ids exact, IoUs within 1e-6) with and without NMS, and ``feed_scene_cap``
+  ids and IoUs exact) with and without NMS, and ``feed_scene_cap``
   / ``eval_cap`` through a small CapNet on both top-down decode routes
   (local slots, full K), weights carried with ``state_dict_from_flax``:
   equal candidates, scores and intermediates;
@@ -132,6 +135,84 @@ def test_iou_matrix_rounds_as_jax(case):
     want = np.asarray(jax.jit(jax.vmap(jnms._aabb_iou_matrix))(
         jnp.asarray(lo), jnp.asarray(hi)))
     got = nms._aabb_iou_matrix(T_(lo), T_(hi)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _box_pairs(n, seed):
+    """n pairs of boxes (8 corners each, not axis-ordered), half of them
+    jittered copies of each other: IoUs across (0, 1]."""
+    rs = np.random.RandomState(seed)
+    lo = rs.uniform(-2, 2, (2, n, 3)).astype(np.float32)
+    hi = lo + rs.uniform(0.05, 2, (2, n, 3)).astype(np.float32)
+    a, b = _corners(lo[0], hi[0]), _corners(lo[1], hi[1])
+    half = n // 2
+    b[:half] = a[:half] + rs.uniform(-0.3, 0.3, (half, 1, 3)).astype(
+        np.float32)
+    return a, b
+
+
+def test_iou_batch_rounds_as_jax():
+    a, b = _box_pairs(20000, 0)
+    want = np.asarray(jax.jit(jboxes.box3d_iou_batch)(a, b))
+    got = boxes.box3d_iou_batch(T_(a), T_(b)).numpy()
+    assert (want > 0).sum() > 8000
+    np.testing.assert_array_equal(got, want)               # 0 of 20,000
+    # broadcast over the proposals, as select_target calls it
+    a3, b3 = a[:4000].reshape(40, 100, 8, 3), b[:40]
+    want = np.asarray(jax.jit(jboxes.box3d_iou_batch)(a3, b3[:, None]))
+    np.testing.assert_array_equal(
+        boxes.box3d_iou_batch(T_(a3), T_(b3)[:, None]).numpy(), want)
+
+
+def _targets_case(seed, B=6, K=48):
+    """Proposals jittered around a GT box per sample, overlaps straddling
+    the 0.5 overlay gate, with masks and the targets' ids."""
+    rs = np.random.RandomState(seed)
+    lo = rs.uniform(-2, 2, (B, 1, 3)).astype(np.float32)
+    hi = lo + rs.uniform(0.3, 1.5, (B, 1, 3)).astype(np.float32)
+    size = hi - lo
+    jit = rs.uniform(-0.35, 0.35, (B, K, 2, 3)).astype(np.float32) * size[:, :, None]
+    corners = _corners(lo + jit[:, :, 0], hi + jit[:, :, 1])
+    masks = (rs.rand(B, K) < 0.8).astype(np.float32)
+    return corners, _corners(lo[:, 0], hi[:, 0]), masks
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_select_target_iou_matches_jax_bitwise(seed):
+    from scan2cap_tpu.models import caption as jcaption
+    from scan2cap_torch.models import caption
+    corners, gt, _ = _targets_case(seed)
+    d = {"bbox_corner": corners, "ref_box_corner_label": gt}
+    jid, jiou = jax.jit(jcaption.select_target)(
+        {k: jnp.asarray(v) for k, v in d.items()})
+    tid, tiou = caption.select_target({k: T_(v) for k, v in d.items()})
+    np.testing.assert_array_equal(tid.numpy(), np.asarray(jid))
+    np.testing.assert_array_equal(tiou.numpy(), np.asarray(jiou))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_query_locals_iou_matches_jax_bitwise(seed):
+    from scan2cap_tpu.models import caption as jcaption
+    from scan2cap_torch.models import caption
+    corners, _, masks = _targets_case(seed)
+    tids = np.random.RandomState(seed).randint(0, corners.shape[1],
+                                                corners.shape[0])
+    want = jax.jit(jcaption.query_locals_for_targets, static_argnums=(3,))(
+        jnp.asarray(corners), jnp.asarray(masks),
+        jnp.asarray(tids, jnp.int32), 6)
+    got = caption.query_locals_for_targets(T_(corners), T_(masks),
+                                           T_(tids.astype(np.int32)), 6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def overlay_iou(c, t):           # the IoU of that call, as it calls it
+        tc = jnp.take_along_axis(c, t[:, None, None, None], axis=1)
+        return jboxes.box3d_iou_batch(jnp.broadcast_to(tc, c.shape), c)
+    want = np.asarray(jax.jit(overlay_iou)(jnp.asarray(corners),
+                                           jnp.asarray(tids)))
+    c = T_(corners)
+    tc = c[torch.arange(c.shape[0]), T_(tids)][:, None]
+    got = boxes.box3d_iou_batch(tc.expand_as(c), c).numpy()
+    assert ((want > 0.3) & (want < 0.7)).sum() > 20     # near the gate
     np.testing.assert_array_equal(got, want)
 
 
@@ -264,8 +345,8 @@ def test_postprocess_scene_cap_matches_jax(seed, use_nms):
         {k: T_(v) for k, v in batch.items()}, min_iou=0.5, use_nms=use_nms)
     for k in ("keep", "detected_object_ids", "captions"):
         np.testing.assert_array_equal(got[k].numpy(), want[k], err_msg=k)
-    np.testing.assert_allclose(got["ious"].numpy(), want["ious"], atol=1e-6,
-                               rtol=0)
+    # the IoU gates the keep mask: XLA's rounding, bit for bit
+    np.testing.assert_array_equal(got["ious"].numpy(), want["ious"])
     keep = got["keep"].numpy()
     assert keep.any() and not keep.all()
     # the returned gates are what keep is made of

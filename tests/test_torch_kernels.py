@@ -87,16 +87,17 @@ def test_fps_every_variant_gives_the_same_indices(card):
     xt = torch.from_numpy(x).to(card)
     want = sampling.furthest_point_sample_plain(xt, npoint)
     for v in range(len(fps_wrapper.VARIANTS)):
-        if fps_wrapper.variant_points(v) >= x.shape[1]:
+        if (fps_wrapper.variant_points(v) or x.shape[1]) >= x.shape[1]:
             got = kernels.furthest_point_sample_cuda(xt, npoint, variant=v)
             assert torch.equal(got, want), fps_wrapper.VARIANTS[v]
 
 
-def test_fps_refuses_a_scene_above_its_limit(card):
-    most = fps_wrapper.fps_max_points()
-    with pytest.raises(ValueError):
-        kernels.furthest_point_sample_cuda(
-            torch.zeros((1, most + 1, 3), device=card), 4)
+def test_fps_streams_a_scene_above_the_register_limit(card):
+    x = torch.randn((1, fps_wrapper.REGISTER_POINTS + 1, 3), device=card)
+    before = kernels.furthest_point_sample_cuda.streamed_launches
+    got = sampling.furthest_point_sample(x, 64)
+    assert kernels.furthest_point_sample_cuda.streamed_launches == before + 1
+    assert torch.equal(got, sampling.furthest_point_sample_plain(x, 64))
     with pytest.raises(ValueError):
         kernels.furthest_point_sample_cuda(
             torch.zeros((1, 0, 3), device=card), 4)
@@ -169,7 +170,8 @@ def test_ball_query_pack_kernel_edge_cases_match_plain(card, case):
 
 @pytest.mark.parametrize("case", ["many_hits", "n39999", "m_ragged_split",
                                   "nsample_th_hit_starts_a_range",
-                                  "view_off_8_bytes", "nsample_limit"])
+                                  "view_off_8_bytes", "nsample_limit",
+                                  "nsample512"])
 def test_ball_query_every_variant_gives_the_same_indices(card, case):
     pt, qt, radius, nsample, _ = _bq_case(case, card)
     r2 = grouping.radius_squared(radius)
@@ -183,15 +185,19 @@ def test_ball_query_every_variant_gives_the_same_indices(card, case):
         assert torch.equal(counts, pc), shape
 
 
-def test_ball_query_refuses_an_nsample_above_its_limit(card):
+def test_ball_query_lists_go_to_memory_above_the_shared_limit(card):
     x = torch.zeros((1, 64, 3), device=card)
     with pytest.raises(ValueError):
-        kernels.ball_query_cuda(x, x, 0.04, bq_wrapper.BQ_MAX_NSAMPLE + 1)
-    with pytest.raises(ValueError):
         kernels.ball_query_cuda(x, x, 0.04, 0)
-    got = kernels.ball_query_cuda(x, x, 0.04, bq_wrapper.BQ_MAX_NSAMPLE)
-    assert got.shape == (1, 64, bq_wrapper.BQ_MAX_NSAMPLE)
-    assert (got[0, :, :64] == torch.arange(64, device=card)).all()
+    for nsample in (bq_wrapper.BQ_SHARED_NSAMPLE,
+                    bq_wrapper.BQ_SHARED_NSAMPLE + 1, 1024):
+        before = kernels.ball_query_cuda.lists_in_memory_launches
+        got = kernels.ball_query_cuda(x, x, 0.04, nsample)
+        assert (kernels.ball_query_cuda.lists_in_memory_launches - before
+                == int(bq_wrapper.lists_in_memory(nsample)))
+        assert got.shape == (1, 64, nsample)
+        assert (got[0, :, :64] == torch.arange(64, device=card)).all()
+        assert (got[0, :, 64:] == 0).all()          # padding: the first hit
 
 
 def test_wrappers_check_their_inputs(card):
