@@ -24,7 +24,10 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      those shapes, and the kernels' own time on the device from a profiler
      trace beside the event time; the same for the two variants above the
      main path's shapes (FPS over 100,000 points, the ball query at
-     nsample 512);
+     nsample 512); and each of FPS, the first-k (lists in device memory)
+     and the gather at MaskVoteNet's vote aggregation (B=16: one pick of
+     1,024 votes, one query of radius 5 m and 512 samples a scene, (1, 512)
+     rows of width 128);
   4. serve the flagship CapNet (135 input channels over 40,000 points, 256
      proposals, hidden 512, vocabulary 3,433) with seeded random weights
      through ``make_eval_step`` (detection loss on): launch counts per
@@ -59,16 +62,36 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      points, 12 boxes each, a 3,433-word vocabulary): train one epoch of
      15 steps at B=8 with the flagship's flags less multiview (the
      in-training eval fires), resume to epoch 2, eval captions and
-     detection, predict; every loss finite, the resume at global epoch 2
+     detection, predict, then the offline flow of launch/benchmark.sh
+     (build the GT boxes, score pred.json into eval_results.json); every
+     loss finite, the resume at global epoch 2
      with the optimizer's count, last.pt and its reference-layout export
      reloaded bit-equal, pred.json for both val scenes, the native data
      plane built, launches per train step and per eval forward the
      structure's; ms per step, fetch s, __getitem__ ms (native, numpy),
      eval, predict and checkpoint-save ms (the runs' own stats files);
-  9. the JSON lines: kernels, serving, training, eval, cli, and last the
-     device line.
-Launch counts are set to 0 just before each of the paths 4-7 and read just
-after; the entry points of 8 count their own (their stats files).
+  9. MaskVoteNet (``launch/train_maskvotenet.sh``: B=16, multiview +
+     normal + height + mask over 40,000 points) through
+     ``make_mask_votenet_step`` on a repeated synthetic batch: every FPS,
+     first-k and gather launch of step 2 (forward and backward, B=16)
+     held exactly against its plain version on the same inputs on the
+     card; step 1 of a fresh model at B=4 against the port on the CPU
+     (loss 1e-3, gradient norms 1e-2), the
+     loss falls, miou finite, launches per step (5 FPS, 5 first-k of which
+     1 with its lists in device memory, 6 gathers), ms per step over three
+     spans, kernel ms and busy share from a profiled step; then
+     ``scan2cap_torch.scripts.train_maskvotenet`` as a subprocess on the
+     fixture of 8 at B=16 with --use_normal for two epochs: the same
+     launches per step, last.pt and its reference-layout export reloaded
+     bit-equal, ms per iteration, fetch s, save ms, __getitem__ ms;
+ 10. the offline scorer on tests/fixtures/benchmark_mini with NMS and the
+     rotated assignment on the card: equal to the CPU's results within
+     1e-6 and to the pinned values, seconds per stage;
+ 11. the JSON lines: kernels, serving, training, eval, cli, mvn,
+     benchmark, and last the device line.
+Launch counts are set to 0 just before each of the paths 4-7 and 9 and
+read just after; the entry points of 8 and 9 count their own (their stats
+files).
 ``--kernels-only`` stops after phase 3 (a short first check of a new
 kernel).  Imports nothing of JAX.
 """
@@ -136,6 +159,38 @@ def bound_ms(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fps_bound_ms(B, N, npoint):
+    """FPS's bound: every point read once, the picks written, the distance
+    updates of npoint - 1 steps.  One pick is index 0: only it is written."""
+    if npoint == 1:
+        return bound_ms(B * 4, 0)
+    return bound_ms(B * N * 12 + B * npoint * 4,
+                    B * (npoint - 1) * N * FPS_OPS_PER_POINT)
+
+
+def first_k_bound_ms(torch, want, total, N, nsample):
+    """The first-k's bound from this data: a query stops at its nsample-th
+    hit (the last index of a full list) or tests all N points; a scene's
+    points are read up to the furthest any of its queries tests, its
+    queries read and its lists written once.  ``want`` (B, M, nsample) the
+    indices, ``total`` (B, M) the hits.  Returns (ms, by, pairs tested)."""
+    B, M, _ = want.shape
+    tested = torch.where(total >= nsample, want[..., -1].long() + 1,
+                         torch.full_like(total, N).long())
+    pairs, points = int(tested.sum()), int(tested.amax(-1).sum())
+    ms, by = bound_ms(points * 12 + B * M * 12 + B * M * nsample * 4,
+                      pairs * BQ_OPS_PER_PAIR)
+    return ms, by, pairs
+
+
+def gather_bound_ms(torch, idx, C):
+    """The row gather's bound: each distinct row that idx names read once,
+    idx read, the (B, M, S, C) rows written."""
+    B = idx.shape[0]
+    rows = sum(int(torch.unique(i).numel()) for i in idx.reshape(B, -1))
+    return bound_ms(rows * C * 4 + idx.numel() * 4 + idx.numel() * C * 4, 0)
 
 
 def issue_floor_ms(pairs_tested, sm_clock_mhz):
@@ -267,8 +322,7 @@ def check_kernels(torch, np, sm_clock_mhz):
                              iters)["ms"]
         pms = cuda_ms(torch, lambda: furthest_point_sample_plain(x, npoint),
                       iters=1)
-        b_ms, by = bound_ms(B * N * 12 + B * npoint * 4,
-                            B * (npoint - 1) * N * FPS_OPS_PER_POINT)
+        b_ms, by = fps_bound_ms(B, N, npoint)
         fps_sites.append(dict(site=name, shape=[B, N, npoint], ms=ms,
                               device_ms=dms,
                               us_per_step=ms * 1e3 / (npoint - 1),
@@ -290,18 +344,13 @@ def check_kernels(torch, np, sm_clock_mhz):
         bq_idx[name] = want
         require(torch.equal(wk.view(torch.int32), wp.view(torch.int32))
                 and torch.equal(ck, cp), f"ball_query_pack site {name}")
-        # work this data needs: a query stops at its nsample-th hit
-        total = cp.sum(-1)
-        tested = torch.where(total >= s, want[..., -1].long() + 1,
-                             torch.full_like(total, N).long())
-        pairs = int(tested.sum())
+        b_ms, by, pairs = first_k_bound_ms(torch, want, cp.sum(-1), N, s)
         io = B * N * 12 + B * M * 12
         variant = list(ballquery.VARIANTS[ballquery.bq_variant(N, M, s)])
 
         ms = cuda_ms(torch, lambda: ball_query_cuda(pts, q, r2, s), iters=20)
         dms = device_only_ms(lambda: ball_query_cuda(pts, q, r2, s), 20)["ms"]
         pms = cuda_ms(torch, lambda: ball_query_plain(pts, q, r, s), iters=2)
-        b_ms, by = bound_ms(io + B * M * s * 4, pairs * BQ_OPS_PER_PAIR)
         bq_sites.append(dict(site=name, shape=[B, N, M, s], radius=r, ms=ms,
                              device_ms=dms, variant=variant,
                              plain_ms=pms, bound_ms=b_ms, bound_by=by,
@@ -327,6 +376,12 @@ def check_kernels(torch, np, sm_clock_mhz):
     variant_sites = check_large_variants(torch, np, xyz0, bq_in["sa1"][1],
                                          sm_clock_mhz)
     gather_sites = check_gather(torch, bq_idx)
+    # MaskVoteNet's vote aggregation: one more site of each kernel
+    mvn = check_mvn_sites(torch, sm_clock_mhz)
+    fps_sites.append(mvn["fps"])
+    variant_sites["ball_query_lists_in_memory"].append(
+        mvn["ball_query_lists_in_memory"])
+    gather_sites.append(mvn["gather"])
     probe_sites = check_probes(torch, np)
     return (fps_sites, bq_sites, pack_sites, gather_sites, probe_sites,
             variant_sites)
@@ -365,8 +420,7 @@ def check_large_variants(torch, np, xyz0, q0, sm_clock_mhz):
     dms = device_only_ms(lambda: furthest_point_sample_cuda(x, npoint), 3)["ms"]
     pms = cuda_ms(torch, lambda: furthest_point_sample_plain(x, npoint),
                   iters=1)
-    b_ms, by = bound_ms(B * N * 12 + B * npoint * 4,
-                        B * (npoint - 1) * N * FPS_OPS_PER_POINT)
+    b_ms, by = fps_bound_ms(B, N, npoint)
     fps_site = dict(site=name, shape=[B, N, npoint], ms=ms, device_ms=dms,
                     us_per_step=ms * 1e3 / (npoint - 1),
                     variant=list(fps.VARIANTS[fps.fps_variant(N)]),
@@ -383,14 +437,10 @@ def check_large_variants(torch, np, xyz0, q0, sm_clock_mhz):
     total = ball_query_pack_plain(xyz0, q0, r2)[1].sum(-1)
     torch.cuda.synchronize()
     require(torch.equal(got, want), f"ball_query site {name}: kernel != plain")
-    tested = torch.where(total >= s, want[..., -1].long() + 1,
-                         torch.full_like(total, N).long())
-    pairs = int(tested.sum())
+    b_ms, by, pairs = first_k_bound_ms(torch, want, total, N, s)
     ms = cuda_ms(torch, lambda: ball_query_cuda(xyz0, q0, r2, s), iters=20)
     dms = device_only_ms(lambda: ball_query_cuda(xyz0, q0, r2, s), 20)["ms"]
     pms = cuda_ms(torch, lambda: ball_query_plain(xyz0, q0, r, s), iters=2)
-    b_ms, by = bound_ms(B * N * 12 + B * M * 12 + B * M * s * 4,
-                        pairs * BQ_OPS_PER_PAIR)
     bq_site = dict(site=name, shape=[B, N, M, s], radius=r, ms=ms,
                    device_ms=dms,
                    variant=list(ballquery.VARIANTS[ballquery.bq_variant(N, M, s)]),
@@ -400,6 +450,110 @@ def check_large_variants(torch, np, xyz0, q0, sm_clock_mhz):
                    issue_floor_ms=issue_floor_ms(pairs, sm_clock_mhz),
                    max_abs_err=int((got - want).abs().max()))
     return dict(fps_streamed=[fps_site], ball_query_lists_in_memory=[bq_site])
+
+
+def check_mvn_sites(torch, sm_clock_mhz):
+    """The three kernels at MaskVoteNet's vote aggregation
+    (``probes/cases.py`` ``mvn_aggregation``): FPS picking 1 of 1,024 votes,
+    the first-k at radius 5 m and nsample 512 (its hit lists in device
+    memory, one query a scene), the gather of (1, 512) rows of width 128;
+    B=16.  Exact against the plain versions; times as for the main-path
+    sites."""
+    from scan2cap_torch.kernels import (ball_query_cuda,
+                                        furthest_point_sample_cuda,
+                                        group_points_cuda)
+    from scan2cap_torch.kernels import ballquery, fps
+    from scan2cap_torch.ops.grouping import (ball_query_pack_plain,
+                                             ball_query_plain,
+                                             group_points_plain,
+                                             radius_squared)
+    from scan2cap_torch.ops.sampling import furthest_point_sample_plain
+    from scan2cap_torch.probes import cases
+
+    dev = torch.device("cuda")
+    name = "mvn_aggregation"
+    x, npoint, _ = cases.fps_edge_case(name)
+    x = torch.from_numpy(x).to(dev)
+    B, N, _ = x.shape
+    got = furthest_point_sample_cuda(x, npoint)
+    want = furthest_point_sample_plain(x, npoint)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want) and bool((got == 0).all()),
+            "fps site mvn_aggregation: kernel != plain")
+    b_ms, by = fps_bound_ms(B, N, npoint)
+    fps_site = dict(site=name, shape=[B, N, npoint],
+                    ms=cuda_ms(torch, lambda: furthest_point_sample_cuda(
+                        x, npoint), iters=20),
+                    device_ms=device_only_ms(lambda: furthest_point_sample_cuda(
+                        x, npoint), 20)["ms"],
+                    us_per_step=None,
+                    variant=list(fps.VARIANTS[fps.fps_variant(N)]),
+                    plain_ms=cuda_ms(torch, lambda: furthest_point_sample_plain(
+                        x, npoint), iters=20),
+                    bound_ms=b_ms, bound_by=by,
+                    max_abs_err=int((got - want).abs().max()))
+
+    pts, q, r, s, _, _ = cases.bq_edge_case(name)
+    pts, q = torch.from_numpy(pts).to(dev), torch.from_numpy(q).to(dev)
+    M = q.shape[1]
+    require(ballquery.lists_in_memory(s), "the aggregation's lists fit in "
+            "shared memory")
+    r2 = radius_squared(r)
+    before = ball_query_cuda.lists_in_memory_launches
+    got = ball_query_cuda(pts, q, r2, s)
+    require(ball_query_cuda.lists_in_memory_launches == before + 1,
+            "the aggregation's first-k did not keep its lists in memory")
+    want = ball_query_plain(pts, q, r, s)
+    total = ball_query_pack_plain(pts, q, r2)[1].sum(-1)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "ball_query site mvn_aggregation: "
+            "kernel != plain")
+    require(bool((total < s).any() and (total >= s).any()),
+            "the aggregation case must hold short and full lists")
+    b_ms, by, pairs = first_k_bound_ms(torch, want, total, N, s)
+    bq_site = dict(site=name, shape=[B, N, M, s], radius=r,
+                   ms=cuda_ms(torch, lambda: ball_query_cuda(pts, q, r2, s),
+                              iters=20),
+                   device_ms=device_only_ms(
+                       lambda: ball_query_cuda(pts, q, r2, s), 20)["ms"],
+                   variant=list(ballquery.VARIANTS[
+                       ballquery.bq_variant(N, M, s)]),
+                   plain_ms=cuda_ms(torch, lambda: ball_query_plain(
+                       pts, q, r, s), iters=5),
+                   bound_ms=b_ms, bound_by=by, pairs_tested=pairs,
+                   queries_filled=float((total >= s).float().mean()),
+                   issue_floor_ms=issue_floor_ms(pairs, sm_clock_mhz),
+                   workspace_ints=ballquery.list_workspace_ints(
+                       ballquery.bq_variant(N, M, s), B, M, s),
+                   max_abs_err=int((got - want).abs().max()))
+
+    shape = cases.GATHER_EDGE_CASES[name]
+    _, N, C, M, S, _ = shape
+    g = torch.Generator().manual_seed(9)
+    feats = torch.randn((B, N, C), generator=g).to(dev)
+    idx = want                              # the first-k's own indices
+    require(tuple(idx.shape) == (B, M, S), f"gather site {name}: {idx.shape}")
+    got, want = group_points_cuda(feats, idx), group_points_plain(feats, idx)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), "gather site mvn_aggregation: "
+            "kernel != plain")
+    expand = idx.reshape(B, M * S).long()[..., None].expand(-1, -1, C)
+    b_ms, by = gather_bound_ms(torch, idx, C)
+    gather_site = dict(
+        site=name, shape=[B, N, C, M, S],
+        ms=cuda_ms(torch, lambda: group_points_cuda(feats, idx), iters=20),
+        device_ms=device_only_ms(lambda: group_points_cuda(feats, idx),
+                                 20)["ms"],
+        library_device_ms=device_only_ms(
+            lambda: torch.gather(feats, 1, expand), 20)["ms"],
+        plain_ms=cuda_ms(torch, lambda: group_points_plain(feats, idx),
+                         iters=20),
+        library_ms=cuda_ms(torch, lambda: torch.gather(feats, 1, expand),
+                           iters=20),
+        bound_ms=b_ms, bound_by=by,
+        max_abs_err=float((got - want).abs().max()))
+    return dict(fps=fps_site, ball_query_lists_in_memory=bq_site,
+                gather=gather_site)
 
 
 def check_gather(torch, bq_idx):
@@ -442,7 +596,7 @@ def check_gather(torch, bq_idx):
         dms = device_only_ms(lambda: group_points_cuda(feats, idx), 20)["ms"]
         dlms = device_only_ms(lambda: torch.gather(feats, 1, expand),
                               20)["ms"]
-        b_ms, by = bound_ms(B * N * C * 4 + B * M * S * 4 + B * M * S * C * 4, 0)
+        b_ms, by = gather_bound_ms(torch, idx, C)
         sites.append(dict(site=name, shape=[B, N, C, M, S], ms=ms,
                           device_ms=dms, library_device_ms=dlms,
                           plain_ms=pms, library_ms=lms, bound_ms=b_ms,
@@ -709,6 +863,25 @@ def grad_norms(model):
     return {n: float(p.grad.double().norm()) for n, p in model.named_parameters()}
 
 
+def step1_parity(np, first, cpu_first, card_norms, cpu_norms, what):
+    """Step 1 on the card against the port's CPU run: the loss within 1e-3
+    relative and every gradient norm within 1e-2 (a tensor whose norm is a
+    rounding residue, a bias ahead of a batch norm, is held to 1e-6 of the
+    whole gradient).  Returns (loss error, worst tensor, its error)."""
+    loss_rel = abs(first["loss"] - cpu_first["loss"]) / abs(cpu_first["loss"])
+    require(loss_rel <= 1e-3, f"{what} step-1 loss: card {first['loss']} "
+            f"vs CPU {cpu_first['loss']} (rel {loss_rel})")
+    total = float(np.sqrt(sum(v * v for v in cpu_norms.values())))
+    worst_name, worst_rel = None, 0.0
+    for n, want in cpu_norms.items():
+        rel = abs(card_norms[n] - want) / max(want, 1e-6 * total)
+        if rel > worst_rel:
+            worst_name, worst_rel = n, rel
+    require(worst_rel <= 1e-2, f"{what} gradient norm of {worst_name}: card "
+            f"{card_norms[worst_name]} vs CPU {cpu_norms[worst_name]}")
+    return loss_rel, worst_name, worst_rel
+
+
 def train_flagship(torch, np, warmup=3, steps=10, windows=3, lr=1e-3,
                    bn_momentum=0.1):
     from scan2cap_torch.config import flagship_config
@@ -759,19 +932,8 @@ def train_flagship(torch, np, warmup=3, steps=10, windows=3, lr=1e-3,
     cpu_norms = grad_norms(cpu_model)
     cpu_ms = (time.perf_counter() - t0) * 1e3
     del cpu_model, cpu_step
-    loss_rel = abs(first["loss"] - cpu_first["loss"]) / abs(cpu_first["loss"])
-    require(loss_rel <= 1e-3, f"step-1 loss: card {first['loss']} vs CPU "
-            f"{cpu_first['loss']} (rel {loss_rel})")
-    total = float(np.sqrt(sum(v * v for v in cpu_norms.values())))
-    worst_name, worst_rel = None, 0.0
-    for n, want in cpu_norms.items():
-        # 1e-2 relative; a tensor whose norm is a rounding residue (a bias
-        # ahead of a batch norm) is held to 1e-6 of the whole gradient
-        rel = abs(gpu_norms[n] - want) / max(want, 1e-6 * total)
-        if rel > worst_rel:
-            worst_name, worst_rel = n, rel
-    require(worst_rel <= 1e-2, f"gradient norm of {worst_name}: card "
-            f"{gpu_norms[worst_name]} vs CPU {cpu_norms[worst_name]}")
+    loss_rel, worst_name, worst_rel = step1_parity(
+        np, first, cpu_first, gpu_norms, cpu_norms, "CapNet")
 
     for _ in range(warmup - 1):
         step(batch, lr, bn_momentum)
@@ -1339,16 +1501,18 @@ def write_scannet_fixture(np, root, points=CLI_SCENE_POINTS, seed=0):
             size = rs.uniform(0.3, 1.5, 3).astype(np.float32)
             verts[lo:hi, 0:3] = center + (rs.rand(per_box, 3) - 0.5) * size
             nyu = NAMED_NYU40[(o + len(names)) % len(NAMED_NYU40)]
+            # ScanNet's layout: object o carries instance label o + 1 (0
+            # is no object), its box the object id o
             ins[lo:hi] = o + 1
             sem[lo:hi] = nyu
-            bboxes[o] = [*center, *size, nyu, o + 1]
-            names[(sid, o + 1)] = SCANNET_CLASS2TYPE[DC_NYU2CLS[nyu]]
+            bboxes[o] = [*center, *size, nyu, o]
+            names[(sid, o)] = SCANNET_CLASS2TYPE[DC_NYU2CLS[nyu]]
         base = os.path.join(scannet, sid)
         np.save(base + "_aligned_vert.npy", verts)
         np.save(base + "_ins_label.npy", ins)
         np.save(base + "_sem_label.npy", sem)
         np.save(base + "_aligned_bbox.npy", bboxes)
-        rotations[sid] = {str(o + 1): np.eye(3).tolist()
+        rotations[sid] = {str(o): np.eye(3).tolist()
                           for o in range(CLI_BOXES)}
     words = [f"word{i:04d}" for i in range(CLI_WORDS)]
     glove = {w: rs.randn(300).astype(np.float32)
@@ -1362,11 +1526,11 @@ def write_scannet_fixture(np, root, points=CLI_SCENE_POINTS, seed=0):
                 "ann_id": str(ann), "token": tokens,
                 "description": " ".join(tokens)}
 
-    train_entries = [entry(train[i % 6], 1 + (i // 6) % CLI_BOXES, i // 72,
+    train_entries = [entry(train[i % 6], (i // 6) % CLI_BOXES, i // 72,
                            words[i::CLI_TRAIN_ENTRIES])
                      for i in range(CLI_TRAIN_ENTRIES)]
     val_entries = [entry(sid, obj, 0, list(rs.choice(words, 12)))
-                   for sid in val for obj in (1, 2, 3)]
+                   for sid in val for obj in (0, 1, 2)]
     organized = {}
     for e in train_entries + val_entries:
         organized.setdefault(e["scene_id"], {}).setdefault(
@@ -1498,6 +1662,15 @@ def cli_phase(torch, np, card, dev="cuda", rehearse=False):
         _, walls["predict"] = run_entry_point(
             "scan2cap_torch.benchmark.predict",
             ["--folder", run_b, "--device", dev], env, logs)
+        # the offline flow of launch/benchmark.sh: GT boxes, then the scorer
+        _, walls["build_benchmark_gt"] = run_entry_point(
+            "scan2cap_torch.scripts.build_benchmark_gt",
+            ["--split", "val", "--data", data], env, logs)
+        _, walls["benchmark_eval"] = run_entry_point(
+            "scan2cap_torch.benchmark.eval",
+            ["--path", os.path.join(out, run_b, "pred.json"), "--gt_path",
+             os.path.join(data, "ScanRefer_filtered_val_gt_bbox.json"),
+             "--device", dev], env, logs)
 
         def read(run, name):
             with open(os.path.join(out, run, name)) as f:
@@ -1546,6 +1719,9 @@ def cli_phase(torch, np, card, dev="cuda", rehearse=False):
 
         preds = read(run_b, "pred.json")
         require(set(preds) == set(val), f"pred.json covers {sorted(preds)}")
+        scored = read(run_b, "eval_results.json")
+        require({"captioning", "detection", "densecap"} <= set(scored),
+                f"eval_results.json holds {sorted(scored)}")
 
         # launches: per train step and per eval forward, the structure's
         bb = model.backbone_net
@@ -1612,9 +1788,489 @@ def cli_phase(torch, np, card, dev="cuda", rehearse=False):
             losses=losses, launches_per_call=per, launches=launches,
             profile=profile,
             entry_point_wall_s=walls, fixture_s=fixture_s,
-            predictions={k: len(v) for k, v in preds.items()})
+            predictions={k: len(v) for k, v in preds.items()},
+            benchmark=dict(
+                detection_map={t: scored["detection"][t]["mAP"]
+                               for t in ("0.25", "0.5")},
+                densecap_map=scored["densecap"]["mAP"],
+                cider_f1_at_05=scored["captioning"]["0.5"]["f1-score"][
+                    "cider"]))
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- phase 9
+# launch/train_maskvotenet.sh: B=16, multiview + normal + height and the
+# mask channel, 136 columns with xyz
+MVN_BATCH = 16
+# step 1's card-against-CPU check at full width, at a smaller batch: the
+# CPU's step at B=16 takes minutes; the indices at B=16 are held exactly
+# against the plain versions on the card instead (HeldAgainstPlain)
+MVN_PARITY_BATCH = 4
+# the entry point's run on the CLI fixture: --use_normal (no multiview:
+# its features come from an HDF5 file through h5py), two epochs
+MVN_CLI_EPOCHS = 2
+
+
+def mvn_config(**overrides):
+    from scan2cap_torch.config import ModelConfig
+    base = dict(num_points=40000, num_proposals=1, max_num_obj=1,
+                use_normal=True, use_multiview=True, no_caption=True)
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+def mvn_batch(np, cfg, B, seed=0):
+    """A synthetic MaskVoteNet batch (host arrays): seeded normals and
+    multiview features in place of the zeros."""
+    from scan2cap_torch.data.synthetic import make_mask_votenet_batch
+    host = make_mask_votenet_batch(cfg, B, num_objects=8, seed=seed)
+    rs = np.random.RandomState(1 + seed)
+    pc = host["point_clouds"]
+    pc[..., 3:3 + 131] = rs.randn(B, cfg.num_points, 131).astype(np.float32) * 0.1
+    require(pc.shape == (B, cfg.num_points, 136), f"MaskVoteNet input {pc.shape}")
+    return host
+
+
+def mvn_launches_right(per_step, where):
+    """5 FPS and 5 first-k per step, 1 of them with its hit lists in device
+    memory (the aggregation's nsample 512), 6 gathers."""
+    want = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
+                ball_query_lists_in_memory=1, group_points_cuda=6)
+    for k, v in want.items():
+        require(per_step.get(k) == v, f"{where}: {k} {per_step.get(k)} "
+                f"launches per step, want {v}")
+
+
+class HeldAgainstPlain:
+    """While open, every launch of the path's three kernels through
+    ``scan2cap_torch.ops`` (FPS, the first-k ball query, the row gather)
+    is held against its plain version on the same inputs on the card, and
+    must equal it exactly; ``checked`` lists (kernel, shape) per launch.
+    The plain versions launch no wrapper, so the counts stay the path's."""
+
+    def __init__(self, torch):
+        from scan2cap_torch.ops import grouping, sampling
+        self.torch, self.grouping, self.sampling = torch, grouping, sampling
+        self.checked = []
+
+    def fps(self, xyz, npoint, **kw):
+        got = self.kernels["fps"](xyz, npoint, **kw)
+        want = self.sampling.furthest_point_sample_plain(xyz, npoint)
+        self._hold("furthest_point_sample_cuda", got, want,
+                   [*xyz.shape[:2], npoint])
+        return got
+
+    def first_k(self, xyz, new_xyz, r2, nsample, **kw):
+        got = self.kernels["first_k"](xyz, new_xyz, r2, nsample, **kw)
+        radius = float(r2) ** 0.5
+        require(self.grouping.radius_squared(radius) == r2,
+                f"radius {radius} does not give back r2 {r2}")
+        want = self.grouping.ball_query_plain(xyz, new_xyz, radius, nsample)
+        self._hold("ball_query_cuda", got, want,
+                   [xyz.shape[0], xyz.shape[1], new_xyz.shape[1], nsample])
+        return got
+
+    def gather(self, features, idx, **kw):
+        got = self.kernels["gather"](features, idx, **kw)
+        want = self.grouping.group_points_plain(features, idx)
+        self._hold("group_points_cuda", got, want,
+                   [*features.shape, *idx.shape[1:]])
+        return got
+
+    def _hold(self, kernel, got, want, shape):
+        require(self.torch.equal(got, want), f"{kernel} at {shape} on the "
+                f"path: kernel != plain")
+        self.checked.append((kernel, shape))
+
+    def __enter__(self):
+        g, s = self.grouping, self.sampling
+        self.saved = dict(fps=s.furthest_point_sample_cuda,
+                          first_k=g.ball_query_cuda,
+                          gather=g.group_points_cuda)
+        self.kernels = dict(self.saved)
+        s.furthest_point_sample_cuda = self.fps
+        g.ball_query_cuda, g.group_points_cuda = self.first_k, self.gather
+        return self
+
+    def __exit__(self, *exc):
+        s, g, k = self.sampling, self.grouping, self.saved
+        s.furthest_point_sample_cuda = k["fps"]
+        g.ball_query_cuda, g.group_points_cuda = k["first_k"], k["gather"]
+
+
+def train_mask_votenet(torch, np, dev="cuda", cfg=None, B=MVN_BATCH,
+                       parity_batch=MVN_PARITY_BATCH, warmup=2, steps=5,
+                       windows=3, lr=1e-3, bn_momentum=0.1):
+    """MaskVoteNet's train step at the launch script's width on a repeated
+    synthetic batch: step 2 with every kernel launch held against its plain
+    version on the card, step 1 of a fresh model at ``parity_batch``
+    against the port on the CPU, launches per step, ms per step over
+    ``windows`` spans, a profiled step.  ``dev="cpu"`` rehearses the
+    control flow (no kernels, no launch counts, no profile)."""
+    from scan2cap_torch.data.synthetic import to_device
+    from scan2cap_torch.kernels import launch_counts, reset_launch_counts
+    from scan2cap_torch.models.mask_votenet import MaskVoteNet
+    from scan2cap_torch.train.step import (MVN_REPORT_KEYS, create_train_state,
+                                           make_mask_votenet_step)
+
+    card = dev != "cpu"
+    cfg = cfg or mvn_config()
+    host = mvn_batch(np, cfg, B)
+    batch = to_device(host, dev)
+
+    def build(device):
+        model = MaskVoteNet(cfg, device=device, seed=0)
+        state = create_train_state(cfg, model)
+        return model, state, make_mask_votenet_step(cfg, state)
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    model, state, step = build(dev)
+    agg = model.proposal.vote_aggregation
+    require(model.backbone_net.sa1.gather_lean and agg.nsample == 512,
+            "MaskVoteNet's sa1 must be gather-lean at 133 channels and its "
+            "aggregation take 512 samples")
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = step(batch, lr, bn_momentum)                  # step 1
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    first = {k: float(v) for k, v in first.items()}
+    dev_norms = grad_norms(model)
+    require(set(first) == set(MVN_REPORT_KEYS), f"metrics {sorted(first)}")
+    require(all(np.isfinite(v) for v in first.values()),
+            f"step 1 metrics not finite: {first}")
+    require(first["vote_loss"] > 0 and first["box_loss"] > 0
+            and 0 <= first["miou"] <= 1, f"degenerate training batch: {first}")
+
+    cpu_ref = held_report = None
+    if card:
+        # step 2: every FPS, first-k and gather launch of a whole step at
+        # B=16 (forward and backward) against its plain version on the same
+        # inputs on the card, exactly
+        with HeldAgainstPlain(torch) as held:
+            step(batch, lr, bn_momentum)
+        sync()
+        by_kernel = {}
+        for kernel, _ in held.checked:
+            by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+        lists = sum(1 for k, shape in held.checked
+                    if k == "ball_query_cuda" and shape[-1] == 512)
+        require(by_kernel == dict(furthest_point_sample_cuda=5,
+                                  ball_query_cuda=5, group_points_cuda=6)
+                and lists == 1, f"MaskVoteNet step held against the plain "
+                f"versions: {by_kernel}, {lists} at nsample 512")
+        held_report = dict(batch=B, exact=len(held.checked),
+                           by_kernel=by_kernel,
+                           shapes=[[k, shape] for k, shape in held.checked])
+
+        # step 1 of a fresh model on the card and on the CPU at
+        # parity_batch: the same weights and batch, the CPU through the
+        # port's plain versions, at full width
+        small = mvn_batch(np, cfg, parity_batch)
+        p_model, _, p_step = build(dev)
+        p_first = {k: float(v) for k, v in
+                   p_step(to_device(small, dev), lr, bn_momentum).items()}
+        p_norms = grad_norms(p_model)
+        del p_model, p_step
+        t0 = time.perf_counter()
+        cpu_model, _, cpu_step = build("cpu")
+        cpu_first = {k: float(v) for k, v in
+                     cpu_step(to_device(small, "cpu"), lr, bn_momentum).items()}
+        cpu_norms = grad_norms(cpu_model)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        del cpu_model, cpu_step
+        loss_rel, worst_name, worst_rel = step1_parity(
+            np, p_first, cpu_first, p_norms, cpu_norms, "MaskVoteNet")
+        cpu_ref = dict(batch=parity_batch, num_points=cfg.num_points,
+                       ms=cpu_ms, loss=cpu_first["loss"],
+                       miou=cpu_first["miou"], loss_rel_err=loss_rel,
+                       worst_grad_norm_rel_err=worst_rel,
+                       worst_grad_norm_tensor=worst_name,
+                       tensors=len(cpu_norms))
+    else:
+        step(batch, lr, bn_momentum)
+
+    for _ in range(warmup - 2):
+        step(batch, lr, bn_momentum)
+    sync()
+    reset_launch_counts()
+    window_ms, losses, mious = [], [], []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        span = [step(batch, lr, bn_momentum) for _ in range(steps)]
+        sync()
+        window_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+        losses += [float(m["loss"]) for m in span]
+        mious += [float(m["miou"]) for m in span]
+    taken = steps * windows
+    launches = launch_counts()
+    per_step = {k: v / taken for k, v in launches.items()}
+    if card:
+        mvn_launches_right(per_step, "MaskVoteNet train step")
+    require(all(np.isfinite(v) for v in losses + mious),
+            f"loss or miou not finite: {losses} {mious}")
+    # the single proposal's centre loss swings from step to step early on:
+    # the mean of the last five steps must lie below the first five's
+    require(np.mean(losses[-5:]) < min(np.mean(losses[:5]), first["loss"]),
+            f"MaskVoteNet loss did not fall on a repeated batch: {losses}")
+    ms = sorted(window_ms)[len(window_ms) // 2]
+    report = dict(batch=B, num_points=cfg.num_points,
+                  input_columns=int(host["point_clouds"].shape[-1]),
+                  sa_npoints=list(cfg.sa_npoints), lr=lr,
+                  bn_momentum=bn_momentum, steps_per_window=steps,
+                  window_ms_per_step=window_ms, ms_per_step=ms,
+                  ms_spread=max(window_ms) - min(window_ms),
+                  scenes_per_s=B / ms * 1e3, first_step_ms=first_ms,
+                  launches_per_step=per_step, launches=launches,
+                  step1=first, loss_by_step=losses, miou_by_step=mious,
+                  held_against_plain=held_report, cpu_reference=cpu_ref)
+    if card:
+        # device busy share: summed kernel time of one profiled step
+        profile = profile_step(lambda: step(batch, lr, bn_momentum),
+                               "MaskVoteNet training")
+        profile["busy_share_of_steady_step"] = profile["kernel_ms"] / ms
+        report.update(profile=profile,
+                      peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return report
+
+
+def mask_getitem_ms(np, data, train, num_points):
+    """ms per sample of the mask dataset's __getitem__ (augmented, numpy:
+    the JAX package's subclass has no native path)."""
+    from scan2cap_torch.data.dataset_maskvotenet import (
+        MaskScannetReferenceDataset)
+
+    with open(os.path.join(data, "ScanRefer_filtered_train.json")) as f:
+        entries = json.load(f)
+    ds = MaskScannetReferenceDataset(
+        entries, train,
+        scannet_data_dir=os.path.join(data, "scannet", "scannet_data"),
+        glove_path=os.path.join(data, "glove.p"), num_points=num_points,
+        use_height=True, use_normal=True, augment=True)
+    ds.__getitem__(0, np.random.RandomState(0))
+    n = min(16, len(ds))
+    t0 = time.perf_counter()
+    for i in range(n):
+        ds.__getitem__(i, np.random.RandomState(i))
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def mvn_cli(torch, np, card, dev="cuda", rehearse=False):
+    """``python -m scan2cap_torch.scripts.train_maskvotenet`` as a
+    subprocess on the CLI phase's ScanNet-layout fixture at B=16 with
+    --use_normal, two epochs: every loss finite, launches per step the
+    structure's, last.pt and its reference-layout export reloaded
+    bit-equal.  ``rehearse`` shrinks scenes and model for the CPU."""
+    import shutil
+    import tempfile
+
+    from scan2cap_torch import convert
+    from scan2cap_torch.models.mask_votenet import MaskVoteNet
+    from scan2cap_torch.scripts.train_maskvotenet import (
+        model_config_from_args)
+    from scan2cap_torch.train.checkpoints import CheckpointIO
+
+    root = tempfile.mkdtemp(prefix="scan2cap_mvn_")
+    logs = os.path.join(ROOT, "chiprun_out", "mvn")
+    os.makedirs(logs, exist_ok=True)
+    try:
+        data, train, _ = write_scannet_fixture(
+            np, root, points=3000 if rehearse else CLI_SCENE_POINTS)
+        num_points = 2048 if rehearse else 40000
+        getitem = mask_getitem_ms(np, data, train, num_points)
+        out = os.path.join(root, "outputs")
+        env = dict(os.environ, SCAN2CAP_DATA=data, SCAN2CAP_OUTPUT=out,
+                   PYTHONPATH=ROOT)
+        env.pop("SCAN2CAP_TEST_TINY", None)
+        args = ["--batch_size", str(MVN_BATCH), "--use_normal", "--epoch",
+                str(MVN_CLI_EPOCHS), "--verbose", "1", "--num_points",
+                str(num_points), "--tag", "smoke_mvn", "--device", dev]
+        if rehearse:
+            env["SCAN2CAP_TEST_TINY"] = "1"
+        _, wall = run_entry_point("scan2cap_torch.scripts.train_maskvotenet",
+                                  args, env, logs)
+        run = next(d for d in os.listdir(out) if d.endswith("_SMOKE_MVN"))
+        with open(os.path.join(out, run, "train_stats.json")) as f:
+            stats = json.load(f)
+        with open(os.path.join(out, run, "info.json")) as f:
+            info = json.load(f)
+        losses = [x for e in stats["epochs"] for x in e["losses"]]
+        steps = len(losses)
+        require(steps == stats["steps"] > 0 and all(np.isfinite(losses)),
+                f"MaskVoteNet CLI losses: {losses}")
+        per_step = per_call(stats["launches"], stats["steps"])
+        if not rehearse:
+            mvn_launches_right(per_step, "the MaskVoteNet entry point")
+
+        # last.pt into a fresh model on the card, and through the
+        # reference's layout, bit-equal
+        ckpt = CheckpointIO(os.path.join(out, run, "ckpt"))
+        last = ckpt.restore("last")["model"]
+        os.environ.update({k: env[k] for k in ("SCAN2CAP_TEST_TINY",)
+                           if k in env})
+        cfg = model_config_from_args(argparse.Namespace(**info))
+        os.environ.pop("SCAN2CAP_TEST_TINY", None)
+        model = MaskVoteNet(cfg, device=dev, seed=1)
+        model.load_state_dict(last, strict=True)
+        require(all(torch.equal(v.cpu(), last[k])
+                    for k, v in model.state_dict().items()),
+                "MaskVoteNet last.pt does not load bit-equal")
+        pth = os.path.join(root, "mask_votenet.pth")
+        torch.save(convert.reference_from_state_dict(last), pth)
+        require(convert.is_detection_only(convert.load_reference(pth)),
+                "a MaskVoteNet .pth must read as detection weights")
+        back = convert.state_dict_from_reference(pth)
+        require(set(back) == set(last) and all(
+            torch.equal(back[k], last[k]) for k in last),
+            "the MaskVoteNet reference-layout export does not reload "
+            "bit-equal")
+        resume = ckpt.restore("resume")
+        require(resume["epoch"] == MVN_CLI_EPOCHS - 1
+                and resume["step"] == steps,
+                f"MaskVoteNet resume bundle: epoch {resume['epoch']}, step "
+                f"{resume['step']}")
+        step_s = sorted(x for e in stats["epochs"] for x in e["step_s"][2:])
+        fetch = sorted(x for e in stats["epochs"] for x in e["fetch_s"])
+        return dict(
+            card=card, batch=MVN_BATCH, num_points=num_points,
+            num_train=info["num_train"], steps=steps,
+            ms_per_iteration=step_s[len(step_s) // 2] * 1e3,
+            step_ms_all=[x * 1e3 for e in stats["epochs"]
+                         for x in e["step_s"]],
+            fetch_s_median=fetch[len(fetch) // 2], fetch_s_max=fetch[-1],
+            getitem_ms=getitem, checkpoint_save_ms=[
+                x * 1e3 for x in stats["save_s"]],
+            losses=losses, launches_per_step=per_step,
+            launches=stats["launches"], entry_point_wall_s=wall)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def mvn_phase(torch, np, card):
+    """Phase 9: MaskVoteNet in process at full width, then its entry
+    point."""
+    t0 = time.perf_counter()
+    train = train_mask_votenet(torch, np)
+    print(f"  mvn: {train['ms_per_step']:.1f} ms per step at B={train['batch']} "
+          f"(spans {[round(x, 2) for x in train['window_ms_per_step']]}), "
+          f"first step {train['first_step_ms']:.0f} ms, kernels "
+          f"{train['profile']['kernel_ms']:.2f} ms per step (busy "
+          f"{train['profile']['busy_share_of_steady_step']:.3f}), launches "
+          f"per step {train['launches_per_step']}; step 2's "
+          f"{train['held_against_plain']['exact']} launches at "
+          f"B={train['batch']} equal to the plain versions "
+          f"({train['held_against_plain']['by_kernel']}); step-1 parity "
+          f"{train['cpu_reference']}", flush=True)
+    train["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = mvn_cli(torch, np, card)
+    cli["phase_s"] = time.perf_counter() - t0
+    print(f"  mvn cli: {cli['ms_per_iteration']:.1f} ms per iteration at "
+          f"B={cli['batch']}, fetch {cli['fetch_s_median']:.4f} s, "
+          f"__getitem__ {cli['getitem_ms']:.1f} ms, saves "
+          f"{[round(x) for x in cli['checkpoint_save_ms']]} ms, launches per "
+          f"step {cli['launches_per_step']}", flush=True)
+    launches = {k: train["launches"].get(k, 0) + cli["launches"].get(k, 0)
+                for k in train["launches"]}
+    return dict(train=train, cli=cli, launches=launches)
+
+
+# -------------------------------------------------------------------- phase 10
+# tests/test_benchmark_fixture.py's pinned values of benchmark_mini
+# (key path, value, tolerance); the METEOR ones hold for the built-in scorer
+BENCHMARK_MINI = os.path.join(ROOT, "tests", "fixtures", "benchmark_mini")
+BENCHMARK_PINS = (
+    (("detection", 0.25, "mAP"), 5 / 9, 1e-6),
+    (("detection", 0.5, "mAP"), 4 / 9, 1e-6),
+    (("detection", 0.25, "chair Average Precision"), 1.0, 1e-6),
+    (("detection", 0.5, "table Average Precision"), 0.0, 0.0),
+    (("detection", 0.25, "AR"), 1.0, 1e-6),
+    (("detection", 0.5, "AR"), 2 / 3, 1e-6),
+    (("captioning", 0, "f1-score", "cider"), 2.428363298459073, 1e-9),
+    (("captioning", 0, "f1-score", "bleu", 3), 0.28573063340795246, 1e-9),
+    (("captioning", 0, "f1-score", "rouge"), 0.6220915686765073, 1e-9),
+    (("captioning", 0.5, "f1-score", "cider"), 2.4089519423061985, 1e-9),
+    (("captioning", 0.5, "f1-score", "rouge"), 0.5, 1e-9),
+    (("captioning", 0.5, "precision", "bleu", 0), 0.4374999998975696, 1e-9),
+    (("captioning", 0.5, "recall", "cider"), 2.8104439326905646, 1e-9),
+)
+METEOR_PINS = (
+    (("captioning", 0, "f1-score", "meteor"), 0.5714853036874351, 1e-9),
+    (("captioning", 0.5, "f1-score", "meteor"), 0.4864111796982168, 1e-9),
+    (("densecap", "mAP"), 0.6, 1e-6),
+) + tuple((("densecap", "AP", iou, m), v, 1e-6)
+          for iou in (0.1, 0.2, 0.3, 0.4, 0.5)
+          for m, v in ((0.15, 2 / 3), (0.75, 1 / 3)))
+
+
+def _flat(d, prefix=()):
+    if isinstance(d, dict):
+        return {k: v for key, val in d.items()
+                for k, v in _flat(val, prefix + (key,)).items()}
+    if isinstance(d, (list, tuple)):
+        return {k: v for i, val in enumerate(d)
+                for k, v in _flat(val, prefix + (i,)).items()}
+    return {prefix: d}
+
+
+def benchmark_phase(torch, np, dev="cuda"):
+    """Phase 10: the offline scorer on benchmark_mini with NMS and the
+    rotated assignment on ``dev``: equal to the CPU's results within 1e-6
+    and to the pinned values; seconds per stage on ``dev``."""
+    from scan2cap_torch.eval import benchmark
+
+    with open(os.path.join(BENCHMARK_MINI, "pred.json")) as f:
+        pred = json.load(f)
+    with open(os.path.join(BENCHMARK_MINI, "gt_bbox.json")) as f:
+        gt = json.load(f)
+    report = dict(meteor_backend=benchmark.SENTENCE_METEOR_BACKEND)
+    predictions = benchmark.organize_prediction(pred)
+    gts = benchmark.organize_gt(gt)
+    stages = {}
+    for name, fn in (
+            ("assignment", lambda: benchmark.assign_pred_to_gt(
+                predictions, gts, False, dev)),
+            ("assignment_rotated", lambda: benchmark.assign_pred_to_gt(
+                predictions, gts, True, dev)),
+            ("captioning", lambda: benchmark.evaluate_captioning(
+                predictions, gts, device=dev)),
+            ("detection", lambda: benchmark.evaluate_detection(
+                predictions, gts, device=dev)),
+            ("densecap", lambda: benchmark.evaluate_dense_captioning(
+                predictions, gts))):
+        fn()                                   # first call: builds, caches
+        t0 = time.perf_counter()
+        fn()
+        stages[name] = time.perf_counter() - t0
+    report["stage_s"] = stages
+    for rotated in (False, True):
+        got = _flat(benchmark.evaluate(pred, gt, verbose=False,
+                                       rotated_boxes=rotated, device=dev))
+        want = _flat(benchmark.evaluate(pred, gt, verbose=False,
+                                        rotated_boxes=rotated, device="cpu"))
+        require(set(got) == set(want), "benchmark: result keys differ")
+        worst = max(abs(float(got[k]) - float(want[k]))
+                    for k in want if not isinstance(want[k], str))
+        require(worst <= 1e-6, f"benchmark (rotated={rotated}): {dev} and "
+                f"CPU results differ by {worst}")
+        report[f"max_abs_diff_vs_cpu{'_rotated' if rotated else ''}"] = worst
+        pins = BENCHMARK_PINS + (
+            METEOR_PINS if benchmark.SENTENCE_METEOR_BACKEND != "nltk-wordnet"
+            else ())
+        for path, value, tol in pins:
+            require(abs(float(got[path]) - value) <= tol,
+                    f"benchmark (rotated={rotated}): {path} {got[path]}, "
+                    f"pinned {value}")
+        report["pins_checked"] = len(pins)
+    report["detection_map"] = {str(t): got[("detection", t, "mAP")]
+                               for t in (0.25, 0.5)}
+    report["densecap_map"] = got[("densecap", "mAP")]
+    return report
 
 
 def print_eval(r):
@@ -1647,7 +2303,8 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phase 3)")
     ap.add_argument("--skip", nargs="+", default=[],
-                    choices=["serve", "train", "eval", "probes", "cli"],
+                    choices=["serve", "train", "eval", "probes", "cli",
+                             "mvn", "benchmark"],
                     help="leave out a path while bringing up another "
                          "(exit 3 by design: not a whole run)")
     args = ap.parse_args(argv)
@@ -1662,7 +2319,8 @@ def main(argv=None) -> int:
               "(scan2cap_torch/ not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from scan2cap_torch.kernels import _build
+    from scan2cap_torch.kernels import (_build, launch_counts,
+                                        reset_launch_counts)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1722,7 +2380,7 @@ def main(argv=None) -> int:
     # each path starts from launch counts of 0 and is read just after
     partial = args.kernels_only or args.skip
     paths = {}
-    serve = train = evaluation = probes = cli = None
+    serve = train = evaluation = probes = cli = mvn = bench = None
     if not args.kernels_only:
         if "serve" not in args.skip:
             t0 = time.perf_counter()
@@ -1759,6 +2417,22 @@ def main(argv=None) -> int:
                   f"saves {cli['checkpoint_save_ms']} ms, profile of a step "
                   f"{cli['profile']}", flush=True)
             print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        if "mvn" not in args.skip:
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            mvn = mvn_phase(torch, np, card)
+            paths["mvn"] = mvn["launches"]
+            print(f"mvn phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        if "benchmark" not in args.skip:
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            bench = benchmark_phase(torch, np)
+            bench["launches"] = launch_counts()
+            print(f"  benchmark: stages {bench['stage_s']} s, backend "
+                  f"{bench['meteor_backend']}, card vs CPU "
+                  f"{bench['max_abs_diff_vs_cpu']}", flush=True)
+            print(f"benchmark phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
 
     def launches(wrapper):
         return {path: run[wrapper] for path, run in paths.items()} or None
@@ -1814,6 +2488,10 @@ def main(argv=None) -> int:
         print(json.dumps({"eval": evaluation, "card": card}))
     if cli is not None:
         print(json.dumps({"cli": cli, "card": card}))
+    if mvn is not None:
+        print(json.dumps({"mvn": mvn, "card": card}))
+    if bench is not None:
+        print(json.dumps({"benchmark": bench, "card": card}))
     if partial:
         return 3
     print(card)

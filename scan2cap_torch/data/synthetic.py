@@ -11,6 +11,7 @@ caption with its embedding (whose first row is the sos embedding).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
@@ -171,6 +172,43 @@ def make_scene_batch(
         "ref_size_residual_label": ref_size_residual_label,
         "object_id": object_ids,
         "glove_emb_table": table,
+    }
+
+
+def make_mask_votenet_batch(cfg: ModelConfig, batch_size: int = 2,
+                            num_objects: int = 4,
+                            seed: int = 0) -> Dict[str, np.ndarray]:
+    """A MaskVoteNet batch with the keys of the port's mask dataset
+    (``data/dataset_maskvotenet.py``): the rooms of ``make_scene_batch``,
+    the mask of each scene's reference object appended as the last
+    channel, every point voting to the centre of that object's points, and
+    the labels of its one box."""
+    scene = make_scene_batch(dataclasses.replace(cfg, max_num_obj=num_objects),
+                             batch_size, num_objects, seed=seed)
+    N = cfg.num_points
+    per_obj = N // (2 * num_objects)             # make_scene_batch's layout
+    pc = scene["point_clouds"]
+    ref = scene["object_id"].astype(np.int64)
+    rows = np.arange(batch_size)
+    mask = np.zeros((batch_size, N, 1), np.float32)
+    vote_label = np.zeros((batch_size, N, 9), np.float32)
+    for b in range(batch_size):
+        mask[b, ref[b] * per_obj:(ref[b] + 1) * per_obj] = 1.0
+        pts = pc[b, mask[b, :, 0] == 1, :3]
+        center = 0.5 * (pts.min(0) + pts.max(0))
+        vote_label[b] = np.tile(center - pc[b, :, :3], (1, 3))
+    return {
+        "point_clouds": np.concatenate([pc, mask], -1),
+        "center_label": scene["center_label"][rows, ref][:, None],
+        "heading_class_label": np.zeros((batch_size, 1), np.int32),
+        "heading_residual_label": np.zeros((batch_size, 1), np.float32),
+        "size_class_label": scene["size_class_label"][rows, ref][:, None],
+        "size_residual_label": scene["size_residual_label"][rows, ref][:, None],
+        "sem_cls_label": scene["sem_cls_label"][rows, ref][:, None],
+        "box_label_mask": np.ones((batch_size, 1), np.float32),
+        "vote_label": vote_label,
+        "vote_label_mask": np.ones((batch_size, N), np.int32),
+        "bbox_corner_label": scene["ref_box_corner_label"],
     }
 
 

@@ -8,8 +8,6 @@ Flax paths joined by dots (``backbone_net.sa1.mlp.dense_0.weight``).
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 
@@ -19,7 +17,7 @@ from scan2cap_torch.models.backbone import Pointnet2Backbone
 from scan2cap_torch.models.caption import (SceneCaptionModule,
                                            TopDownSceneCaptionModule)
 from scan2cap_torch.models.graph import GraphModule
-from scan2cap_torch.models.layers import BatchNorm
+from scan2cap_torch.models.layers import seeded_init
 from scan2cap_torch.models.proposal import ProposalModule
 from scan2cap_torch.models.voting import VotingModule, l2_normalize_votes
 
@@ -60,23 +58,10 @@ class CapNet(nn.Module):
                 num_vocabs, emb_size=cfg.emb_size, feat_size=128,
                 max_des_len=cfg.max_des_len, min_iou=cfg.min_iou,
                 num_vocabs_padded=num_vocabs_padded)
-        self._init_weights(seed)
+        seeded_init(self, seed)
         self.device = dev           # the device the caller asked for
         self.to(dev)
         self.eval()
-
-    @torch.no_grad()
-    def _init_weights(self, seed: int) -> None:
-        g = torch.Generator().manual_seed(seed)
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features),
-                                 generator=g)
-                if m.bias is not None:
-                    m.bias.zero_()
-            elif isinstance(m, BatchNorm):
-                m.weight.fill_(1.0)
-                m.bias.zero_()
 
     def forward(self, data_dict: dict, use_tf: bool = False,
                 is_eval: bool = True, train: bool = False,

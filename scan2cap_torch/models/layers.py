@@ -8,6 +8,7 @@ mechanical rename.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -111,3 +112,19 @@ class GRUCell(nn.Module):
         z = torch.sigmoid(i_z + h_z)
         n = torch.tanh(i_n + r * h_n)
         return (1.0 - z) * n + z * h
+
+
+@torch.no_grad()
+def seeded_init(model: nn.Module, seed: int) -> None:
+    """Seeded random weights, the same on every device: drawn on the CPU
+    from ``torch.Generator().manual_seed(seed)``, Linear weights
+    N(0, 1/fan_in) and biases 0, BN scale 1 and shift 0."""
+    g = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features), generator=g)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()

@@ -15,6 +15,12 @@ import torch
 from scan2cap_torch.kernels import ballquery
 from scan2cap_torch.kernels.fps import _BY_SIZE, fps_variant
 
+# MaskVoteNet's vote aggregation (models/mask_votenet.py): one query of
+# radius 5 m and 512 samples over the 1,024 votes of each of the launch
+# script's 16 scenes, and the (1, 512) rows of width 128 it gathers
+MVN_BATCH, MVN_VOTES = 16, 1024
+MVN_RADIUS, MVN_NSAMPLE = 5.0, 512
+
 # the cluster variant of the flagship's first layer, forced onto scenes far
 # smaller than it, so that most of its blocks hold no point; and the
 # streaming variant of the largest scenes, forced onto small ones
@@ -31,6 +37,8 @@ FPS_EDGE_CASES = (
     "all_invalid_streamed",
     # scenes above what registers hold: 2,048 picks, as sa1 takes
     "large_n81921", "large_n100000", "large_n200000",
+    # MaskVoteNet's vote aggregation: one pick of 1,024 votes, B=16
+    "mvn_aggregation",
 ) + tuple(f"boundary_n{n}" for bound, _ in _BY_SIZE if bound is not None
           for n in (bound - 1, bound, bound + 1))
 
@@ -90,6 +98,8 @@ def fps_edge_case(name: str) -> Tuple[np.ndarray, int, Optional[int]]:
         return cloud(2, int(base[len("boundary_n"):])), 32, cluster
     if base.startswith("large_n"):
         return cloud(2, int(base[len("large_n"):])), 2048, cluster
+    if base == "mvn_aggregation":
+        return cloud(MVN_BATCH, MVN_VOTES), 1, cluster
     raise KeyError(name)
 
 
@@ -112,6 +122,7 @@ GATHER_EDGE_CASES = {
     "ragged_rows": (2, 900, 64, 37, 7, 0),         # 259 rows: no block's worth
     "ragged_rows_wide": (2, 900, 138, 37, 7, 0),
     "batch10": (10, 700, 256, 64, 16, 0),
+    "mvn_aggregation": (MVN_BATCH, MVN_VOTES, 128, 1, MVN_NSAMPLE, 0),
 }
 
 
@@ -158,6 +169,9 @@ BQ_EDGE_CASES = (
     # hit lists in device memory (nsample above what shared memory holds)
     "nsample257", "nsample512", "nsample1024",
     "nsample257_40000", "nsample512_40000", "nsample1024_40000",
+    # MaskVoteNet's aggregation: one query a scene over rooms of 7 to 16 m,
+    # so that some scenes fill their 512 slots and others pad short lists
+    "mvn_aggregation",
 ) + tuple(f"boundary_n{n}" for bound in _BQ_BOUNDS
           for n in (bound - 1, bound, bound + 1))
 
@@ -291,6 +305,11 @@ def bq_edge_case(name: str) -> BqCase:
     if name == "batch10_40000":
         p = mixed(10, 40000)
         return p, p[:, :64].copy(), 0.2, 64, None, 0
+    if name == "mvn_aggregation":
+        half = np.linspace(3.5, 8.0, MVN_BATCH)[:, None, None]
+        p = f32(rs.uniform(-1, 1, (MVN_BATCH, MVN_VOTES, 3)) * half
+                * np.float32([1, 1, 0.2]))
+        return p, p[:, :1].copy(), MVN_RADIUS, MVN_NSAMPLE, None, 0
     if base.startswith("view_off_"):     # N a multiple of 4: only the view
         offset = int(base.split("_")[2]) // 4       # moves the scenes
         p = mixed(2, 1000)

@@ -1,9 +1,13 @@
-"""Train and serving steps (counterpart of ``scan2cap_tpu/train/step.py``).
+"""Train and serving steps (counterpart of ``scan2cap_tpu/train/step.py``
+and of the MaskVoteNet step of ``scripts/train_maskvotenet.py:84-110``).
 
-``make_train_step`` returns the function that takes one optimisation step:
-forward (backbone -> voting -> proposal -> graph -> teacher-forced caption),
-loss, backward, Adam update, BN running-statistics update.  The optimizer
-is ``torch.optim.Adam(weight_decay=wd)``: L2 weight decay coupled into the
+``make_model_step`` returns the function that takes one optimisation step
+of a model: forward and loss (the caller's function), backward, Adam
+update, BN running-statistics update.  ``make_train_step`` builds it for
+CapNet (backbone -> voting -> proposal -> graph -> teacher-forced caption,
+``get_scene_cap_loss``), ``make_mask_votenet_step`` for MaskVoteNet
+(``get_mask_votenet_loss``).  The optimizer is
+``torch.optim.Adam(weight_decay=wd)``: L2 weight decay coupled into the
 gradient before the moments (scripts/train.py:135), which is what the JAX
 package builds from ``add_decayed_weights`` + ``scale_by_adam``; never
 ``AdamW``.  The learning rate and the BN momentum are call arguments, so
@@ -18,13 +22,13 @@ proposal-to-GT assignment, reduced to the keys the JAX eval step keeps.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from scan2cap_torch.config import ModelConfig
 from scan2cap_torch.losses import get_scene_cap_loss
-from scan2cap_torch.models.capnet import CapNet
+from scan2cap_torch.losses.mask_votenet import get_mask_votenet_loss
 
 KEEP_KEYS = (
     "lang_cap", "bbox_corner", "bbox_mask", "bbox_feature",
@@ -40,19 +44,26 @@ REPORT_KEYS = (
     "size_reg_loss", "sem_cls_loss", "cap_loss", "ori_loss", "dist_loss",
     "cap_acc", "ori_acc", "obj_acc", "pred_ious", "pos_ratio", "neg_ratio",
 )
+# what the MaskVoteNet step reports (scripts/train_maskvotenet.py:107-108)
+MVN_REPORT_KEYS = (
+    "loss", "vote_loss", "box_loss", "center_loss", "size_cls_loss",
+    "size_reg_loss", "sem_cls_loss", "sem_cls_acc", "miou",
+)
 DEFAULT_WD = 1e-5                                  # scripts/train.py:135
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and BN statistics), its optimizer, and the
-    number of steps taken."""
-    model: CapNet
+    number of steps taken.  The model is a ``CapNet`` or a
+    ``MaskVoteNet``: it carries its ``cfg`` and the ``device`` it was built
+    for."""
+    model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
 
 
-def _check_device(model: CapNet) -> None:
+def _check_device(model: torch.nn.Module) -> None:
     """The model must still lie on the device it was built for: CUDA unless
     the caller built it with ``device="cpu"``."""
     where = next(model.parameters()).device
@@ -69,7 +80,7 @@ def make_optimizer(params, wd: float = DEFAULT_WD) -> torch.optim.Adam:
                             weight_decay=wd)
 
 
-def create_train_state(cfg: ModelConfig, model: CapNet,
+def create_train_state(cfg: ModelConfig, model: torch.nn.Module,
                        wd: Optional[float] = None) -> TrainState:
     if cfg != model.cfg:
         raise ValueError("cfg differs from the config the model was built with")
@@ -78,33 +89,29 @@ def create_train_state(cfg: ModelConfig, model: CapNet,
         model.parameters(), DEFAULT_WD if wd is None else wd))
 
 
-def make_train_step(cfg: ModelConfig, state: TrainState,
-                    detection: bool = True, caption: bool = True,
-                    orientation: bool = False, distance: bool = False,
-                    use_tf: bool = True
+def make_model_step(cfg: ModelConfig, state: TrainState,
+                    forward_loss: Callable[[Dict, float], Dict],
+                    report_keys: Tuple[str, ...]
                     ) -> Callable[[Dict, float, float], Dict]:
-    """Returns ``train_step(batch, lr, bn_momentum) -> metrics`` over the
-    model's device; it updates ``state`` in place.
+    """Returns ``step(batch, lr, bn_momentum) -> metrics`` over the model's
+    device; it updates ``state`` in place.
 
-    ``batch`` maps the data-dict keys to tensors on the model's device
-    (``data.synthetic.to_device``).  ``metrics`` holds the ``REPORT_KEYS``
-    as 0-d tensors on that device (no host synchronisation)."""
+    ``forward_loss(batch, bn_momentum)`` runs the model in train mode and
+    its loss, and returns the data dict with ``"loss"``.  ``batch`` maps
+    the data-dict keys to tensors on the model's device
+    (``data.synthetic.to_device``).  ``metrics`` holds the
+    ``report_keys`` the dict has, as 0-d tensors on that device (no host
+    synchronisation)."""
     model, optimizer = state.model, state.optimizer
     if cfg != model.cfg:
         raise ValueError("cfg differs from the config the model was built with")
     _check_device(model)
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
-    def train_step(batch: Dict, lr: float, bn_momentum: float) -> Dict:
+    def step(batch: Dict, lr: float, bn_momentum: float) -> Dict:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        out = model(batch, use_tf=use_tf, is_eval=False, train=True,
-                    bn_momentum=bn_momentum)
-        out = get_scene_cap_loss(
-            out, detection=detection, caption=caption and not cfg.no_caption,
-            orientation=orientation, distance=distance, num_bins=cfg.num_bins,
-            num_heading_bin=cfg.num_heading_bin,
-            num_size_cluster=cfg.num_size_cluster)
+        out = forward_loss(batch, bn_momentum)
         out["loss"].backward()
         for p in params:
             # a parameter the loss does not reach still decays, as it does
@@ -115,12 +122,47 @@ def make_train_step(cfg: ModelConfig, state: TrainState,
             group["lr"] = float(lr)
         optimizer.step()
         state.step += 1
-        return {k: out[k].detach() for k in REPORT_KEYS if k in out}
+        return {k: out[k].detach() for k in report_keys if k in out}
 
-    return train_step
+    return step
 
 
-def make_eval_step(cfg: ModelConfig, model: CapNet,
+def make_train_step(cfg: ModelConfig, state: TrainState,
+                    detection: bool = True, caption: bool = True,
+                    orientation: bool = False, distance: bool = False,
+                    use_tf: bool = True
+                    ) -> Callable[[Dict, float, float], Dict]:
+    """The CapNet step (``make_model_step``): teacher-forced forward and
+    ``get_scene_cap_loss`` with the losses asked for; reports the
+    ``REPORT_KEYS``."""
+    model = state.model
+
+    def forward_loss(batch: Dict, bn_momentum: float) -> Dict:
+        out = model(batch, use_tf=use_tf, is_eval=False, train=True,
+                    bn_momentum=bn_momentum)
+        return get_scene_cap_loss(
+            out, detection=detection, caption=caption and not cfg.no_caption,
+            orientation=orientation, distance=distance, num_bins=cfg.num_bins,
+            num_heading_bin=cfg.num_heading_bin,
+            num_size_cluster=cfg.num_size_cluster)
+
+    return make_model_step(cfg, state, forward_loss, REPORT_KEYS)
+
+
+def make_mask_votenet_step(cfg: ModelConfig, state: TrainState
+                           ) -> Callable[[Dict, float, float], Dict]:
+    """The MaskVoteNet step (``make_model_step``): train-mode forward and
+    ``get_mask_votenet_loss``; reports the ``MVN_REPORT_KEYS``."""
+    model = state.model
+
+    def forward_loss(batch: Dict, bn_momentum: float) -> Dict:
+        out = model(batch, train=True, bn_momentum=bn_momentum)
+        return get_mask_votenet_loss(out, cfg.num_size_cluster)
+
+    return make_model_step(cfg, state, forward_loss, MVN_REPORT_KEYS)
+
+
+def make_eval_step(cfg: ModelConfig, model: torch.nn.Module,
                    detection_loss: bool = True,
                    keep_attn: bool = False) -> Callable[[Dict], Dict]:
     """Returns ``eval_step(batch) -> dict`` over the model's device.

@@ -343,6 +343,9 @@ def test_bq_constructed_cases_are_what_their_names_say():
         idx, total, s, _, N = rows(name)
         assert bq.lists_in_memory(s) and (total < s).any()   # some pad
         assert (total >= s).any() or s > N     # and some fill theirs
+    idx, total, s, _, N = rows("mvn_aggregation")       # one query a scene
+    assert idx.shape == (16, 1, 512) and bq.lists_in_memory(s)
+    assert (total < s).any() and (total >= s).any() and (total < N).all()
     idx, total, s, _, N = rows("nsample_above_n")
     assert s > N and (total <= N).all() and (total > 1).all()
     idx, total, s, _, _ = rows("dense_40000")
@@ -360,7 +363,7 @@ def test_bq_edge_case_names_are_complete():
         assert {f"boundary_n{bound + d}" for d in (-1, 0, 1)} <= names
     shapes = [cases.bq_edge_case(n) for n in cases.BQ_EDGE_CASES]
     assert {p.shape[1] for p, *_ in shapes} >= {1, 31, 33, 999, 39999, 40000}
-    assert max(p.shape[0] for p, *_ in shapes) == 10
+    assert {10, 16} <= {p.shape[0] for p, *_ in shapes}
     assert {o for *_, o in shapes} == {0, 1, 2, 3}
     tiles = {bq.VARIANTS[v][0] * bq.VARIANTS[v][1] for v in
              {bq.bq_variant(1), bq.bq_variant(40000)}}

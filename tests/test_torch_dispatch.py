@@ -228,7 +228,7 @@ def _fps_emulated(xyz, npoint, variant):
     ("boundary_n513", None), ("boundary_n2049", None),
     ("padding", (8, 128, 40)), ("padding", (8, 1024, 0)),
     ("ties", (8, 1024, 0)), ("n1", (8, 1024, 0)), ("n9", (8, 1024, 0)),
-    ("all_invalid", (8, 1024, 0))])
+    ("all_invalid", (8, 1024, 0)), ("mvn_aggregation", None)])
 def test_fps_kernel_arithmetic_emulated_matches_plain(case, variant):
     xyz, npoint, _ = cases.fps_edge_case(case)
     npoint = min(npoint, 24)
@@ -263,7 +263,8 @@ def _small(name):
 @pytest.mark.parametrize("case", ["ties_across_halves", "padding_tail",
                                   "all_invalid", "n1", "n5", "n9", "ties",
                                   "padding", "boundary_n511", "boundary_n512",
-                                  "boundary_n513", "boundary_n1025"])
+                                  "boundary_n513", "boundary_n1025",
+                                  "mvn_aggregation"])
 def test_fps_plain_at_the_edge_shapes_matches_jax(case):
     if case in cases.FPS_EDGE_CASES:
         xyz, npoint, _ = cases.fps_edge_case(case)

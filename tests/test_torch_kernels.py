@@ -316,3 +316,37 @@ def test_new_wrappers_check_their_inputs(card):
         kernels.group_points_cuda(x.transpose(1, 2), idx)
     with pytest.raises(ValueError):
         kernels.pack_probe_cuda(torch.zeros((1, 256, 256), device=card))
+
+
+def test_mask_votenet_forward_launches_the_lists_kernel(card):
+    """MaskVoteNet's forward on the card: 5 FPS, 5 first-k (the
+    aggregation's nsample 512 with its lists in device memory), 5 gathers
+    (sa1 gather-lean at 133 channels), and the port's CPU forward's
+    indices and boxes."""
+    from scan2cap_torch.config import ModelConfig
+    from scan2cap_torch.data import synthetic
+    from scan2cap_torch.models.mask_votenet import MaskVoteNet
+
+    cfg = ModelConfig(num_points=8192, num_proposals=1, max_num_obj=1,
+                      use_normal=True, use_multiview=True, no_caption=True)
+    host = synthetic.make_mask_votenet_batch(cfg, 4, num_objects=4, seed=1)
+    host["point_clouds"][..., 3:134] = np.random.RandomState(2).randn(
+        4, 8192, 131).astype(np.float32) * 0.1
+    outs, counts = {}, None
+    for dev in ("cpu", card):
+        model = MaskVoteNet(cfg, device=dev, seed=0)
+        before = kernels.launch_counts()
+        with torch.no_grad():
+            outs[str(dev)] = model(synthetic.to_device(host, dev))
+        after = kernels.launch_counts()
+        counts = {k: after[k] - before[k] for k in after}
+    assert counts["furthest_point_sample_cuda"] == 5
+    assert counts["ball_query_cuda"] == 5
+    assert counts["ball_query_lists_in_memory"] == 1
+    assert counts["group_points_cuda"] == 5
+    cpu, gpu = outs["cpu"], outs[str(card)]
+    for k in ("sa1_inds", "sa2_inds", "aggregated_vote_inds"):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+    for k in ("center", "size_scores", "sem_cls_scores"):
+        torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=0,
+                                   atol=1e-3 * float(cpu[k].abs().max()))
