@@ -9,23 +9,28 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
   3. each kernel against its plain PyTorch version on the card, at the
      main-path shapes (B=2) plus edge cases: FPS (every boundary between
      its variants, scenes smaller than a cluster, ties and padding across
-     the blocks of a cluster, ten clusters in flight, scenes of 81,921,
-     100,000 and 200,000 points through the streaming variant, which is
-     also forced onto small scenes), ball query, fused and pack (every
+     the blocks of a cluster, ten clusters in flight, scenes of 81,921
+     to 163,840 points in a cluster of 16 blocks (ties and padding across
+     its blocks, ten scenes of 100,000), of 200,000 in the shared-state
+     tier, the 16-block, shared-state and streaming variants forced onto
+     small scenes), ball query, fused and pack (every
      boundary between its variants, N no multiple of a word, of 4 or of a
      chunk, hits that end and start a range, padding from a later range,
      points on the radius at range and chunk ends, the largest nsample
-     held in shared memory, nsample 257, 512 and 1024 with the hit lists
-     in device memory, ten scenes of 40,000 points, views off a 16-byte
-     boundary), the row gather at its eight sites (odd and
+     held in shared memory, nsample 257, 512 and 1024 through the ordered
+     scan with the nsample-th hit at a chunk's end and start, hits only in
+     the last chunk and queries without hits, ten scenes of 40,000
+     points, views off a 16-byte boundary), the row gather at its eight
+     sites (odd and
      even widths, views off a 16-byte boundary, a ragged row count), and
      the two pack-tile probes; indices, words, counts and gathered rows
      must be equal; kernel, plain and library-call times and the bound at
      those shapes, and the kernels' own time on the device from a profiler
-     trace beside the event time; the same for the two variants above the
-     main path's shapes (FPS over 100,000 points, the ball query at
-     nsample 512); and each of FPS, the first-k (lists in device memory)
-     and the gather at MaskVoteNet's vote aggregation (B=16: one pick of
+     trace beside the event time; the same for the tiers above the main
+     path's shapes (FPS over 100,000, 150,000 and 200,000 points, and
+     streaming 400,001; the ordered first-k at sa1's shape with nsample
+     512 and 1024); and each of FPS, the first-k (the ordered scan) and
+     the gather at MaskVoteNet's vote aggregation (B=16: one pick of
      1,024 votes, one query of radius 5 m and 512 samples a scene, (1, 512)
      rows of width 128);
   4. serve the flagship CapNet (135 input channels over 40,000 points, 256
@@ -54,9 +59,12 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      three shrunk copies) whose duplicates NMS must remove, whose mAP must
      read 1 and whose captions become one candidate per GT object, the same
      on the card and the CPU; scoring seconds over those candidates;
-  7. the probes' entry points (``scan2cap_torch.probes``): every row right,
-     and the ops' entry points on a 100,000-point scene (FPS streams it
-     from device memory) and at nsample 512 (hit lists in device memory);
+  7. the probes' entry points (``scan2cap_torch.probes``): every row right;
+     the flagship's eval forward at 150,000 points (B=2, 10 requests: sa1's
+     FPS in a 16-block cluster, its indices exact against the plain
+     version, ms per batch); the ops' entry points on a 200,000-point scene
+     (FPS in the shared-state tier, the ordered first-k at nsample 512)
+     and on 400,001 points (FPS streamed);
   8. the port's command-line entry points as subprocesses on ScanNet-layout
      fixture data written here (6 train and 2 val scenes of 150,000
      points, 12 boxes each, a 3,433-word vocabulary): train one epoch of
@@ -78,7 +86,7 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      card; step 1 of a fresh model at B=4 against the port on the CPU
      (loss 1e-3, gradient norms 1e-2), the
      loss falls, miou finite, launches per step (5 FPS, 5 first-k of which
-     1 with its lists in device memory, 6 gathers), ms per step over three
+     1 through the ordered scan, 6 gathers), ms per step over three
      spans, kernel ms and busy share from a profiled step; then
      ``scan2cap_torch.scripts.train_maskvotenet`` as a subprocess on the
      fixture of 8 at B=16 with --use_normal for two epochs: the same
@@ -221,8 +229,8 @@ def device_only_ms(fn, iters):
 # --------------------------------------------------------------------- phase 3
 def check_fps_edges(torch):
     """Every FPS edge case: the kernel's indices equal the plain version's,
-    or the run fails; scenes above what registers hold go through the
-    streaming variant."""
+    or the run fails; scenes above what 8 blocks' registers hold go through
+    the 16-block, shared-state or streaming tier."""
     from scan2cap_torch.kernels import furthest_point_sample_cuda
     from scan2cap_torch.ops.sampling import furthest_point_sample_plain
     from scan2cap_torch.probes.cases import FPS_EDGE_CASES, fps_edge_case
@@ -243,7 +251,7 @@ def check_fps_edges(torch):
 def check_bq_edges(torch):
     """Every ball-query edge case through both entry points: indices, words
     and counts equal the plain versions', or the run fails (an nsample
-    above 256 keeps its hit lists in device memory)."""
+    above 256 takes the ordered scan)."""
     from scan2cap_torch.kernels import ball_query_cuda, ball_query_pack_cuda
     from scan2cap_torch.ops.grouping import (ball_query_pack_plain,
                                              ball_query_plain, radius_squared)
@@ -268,10 +276,8 @@ def check_bq_edges(torch):
 
 
 def check_kernels(torch, np, sm_clock_mhz):
-    from scan2cap_torch.kernels import (ball_query_cuda, ball_query_pack_cuda,
-                                        furthest_point_sample_cuda)
+    from scan2cap_torch.kernels import ball_query_cuda, ball_query_pack_cuda
     from scan2cap_torch.kernels import ballquery
-    from scan2cap_torch.kernels.fps import VARIANTS, fps_variant
     from scan2cap_torch.ops.grouping import (ball_query_pack_plain,
                                              ball_query_plain, radius_squared)
     from scan2cap_torch.ops.sampling import furthest_point_sample_plain
@@ -311,24 +317,8 @@ def check_kernels(torch, np, sm_clock_mhz):
     for name, N, npoint in FPS_SITES:
         x = fps_in[name]
         require(x.shape[1] == N, f"fps site {name}: N={x.shape[1]} != {N}")
-        got = furthest_point_sample_cuda(x, npoint)
-        want = furthest_point_sample_plain(x, npoint)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), f"fps site {name}: kernel != plain")
-        iters = 5 if N > 10000 else 20
-        ms = cuda_ms(torch, lambda: furthest_point_sample_cuda(x, npoint),
-                     iters=iters)
-        dms = device_only_ms(lambda: furthest_point_sample_cuda(x, npoint),
-                             iters)["ms"]
-        pms = cuda_ms(torch, lambda: furthest_point_sample_plain(x, npoint),
-                      iters=1)
-        b_ms, by = fps_bound_ms(B, N, npoint)
-        fps_sites.append(dict(site=name, shape=[B, N, npoint], ms=ms,
-                              device_ms=dms,
-                              us_per_step=ms * 1e3 / (npoint - 1),
-                              variant=list(VARIANTS[fps_variant(N)]),
-                              plain_ms=pms, bound_ms=b_ms, bound_by=by,
-                              max_abs_err=int((got - want).abs().max())))
+        fps_sites.append(fps_site(torch, x, npoint, name,
+                                  5 if N > 10000 else 20))
 
     for name, N, M, r, s in BQ_SITES:
         pts, q = bq_in[name]
@@ -379,95 +369,130 @@ def check_kernels(torch, np, sm_clock_mhz):
     # MaskVoteNet's vote aggregation: one more site of each kernel
     mvn = check_mvn_sites(torch, sm_clock_mhz)
     fps_sites.append(mvn["fps"])
-    variant_sites["ball_query_lists_in_memory"].append(
-        mvn["ball_query_lists_in_memory"])
+    variant_sites["ball_query_ordered"].insert(0, mvn["ball_query_ordered"])
     gather_sites.append(mvn["gather"])
     probe_sites = check_probes(torch, np)
     return (fps_sites, bq_sites, pack_sites, gather_sites, probe_sites,
             variant_sites)
 
 
-# (name, N, npoint) of FPS above what registers hold, and (name, N, M,
-# radius, nsample) of the first-k with its hit lists in device memory
-FPS_STREAM_SITE = ("room_100000", 100000, 2048)
-BQ_LISTS_SITE = ("sa1_nsample512", 40000, 2048, 0.4, 512)
+# (name, N, npoint, tier) of FPS above what 8 blocks' registers hold, and
+# (name, N, M, radius, nsample) of the ordered first-k at sa1's shape
+FPS_LARGE_SITES = (("room_100000", 100000, 2048, "cluster16"),
+                   ("room_150000", 150000, 2048, "cluster16"),
+                   ("room_200000", 200000, 2048, "shared_state"),
+                   ("room_400001", 400001, 256, "streamed"))
+BQ_ORDERED_SITES = (("sa1_nsample512", 40000, 2048, 0.4, 512),
+                    ("sa1_nsample1024", 40000, 2048, 0.4, 1024))
 
 
-def check_large_variants(torch, np, xyz0, q0, sm_clock_mhz):
-    """The two variants that lift the limits of the main path's shapes:
-    FPS streaming a 100,000-point room from device memory, and the first-k
-    ball query at nsample 512 (lists in device memory) at sa1's shape.
-    Exact against the plain versions; times as for the main-path sites."""
-    from scan2cap_torch.kernels import (ball_query_cuda,
-                                        furthest_point_sample_cuda)
-    from scan2cap_torch.kernels import ballquery, fps
-    from scan2cap_torch.ops.grouping import (ball_query_pack_plain,
-                                             ball_query_plain, radius_squared)
+def fps_site(torch, x, npoint, name, iters):
+    """One FPS site: exact against the plain version, ms by events and
+    on the device, the plain version's ms, the bound from this run."""
+    from scan2cap_torch.kernels import fps, furthest_point_sample_cuda
     from scan2cap_torch.ops.sampling import furthest_point_sample_plain
-    from scan2cap_torch.probes.bq_variants import room
 
-    dev = torch.device("cuda")
-    B = xyz0.shape[0]
-    name, N, npoint = FPS_STREAM_SITE
-    x = torch.from_numpy(room(np.random.RandomState(3), B, N)).to(dev)
-    require(fps.VARIANTS[fps.fps_variant(N)][2] == 0,
-            f"N={N} does not get the streaming FPS variant")
+    B, N, _ = x.shape
     got = furthest_point_sample_cuda(x, npoint)
     want = furthest_point_sample_plain(x, npoint)
     torch.cuda.synchronize()
     require(torch.equal(got, want), f"fps site {name}: kernel != plain")
-    ms = cuda_ms(torch, lambda: furthest_point_sample_cuda(x, npoint), iters=3)
-    dms = device_only_ms(lambda: furthest_point_sample_cuda(x, npoint), 3)["ms"]
+    ms = cuda_ms(torch, lambda: furthest_point_sample_cuda(x, npoint),
+                 iters=iters)
+    dms = device_only_ms(lambda: furthest_point_sample_cuda(x, npoint),
+                         iters)["ms"]
     pms = cuda_ms(torch, lambda: furthest_point_sample_plain(x, npoint),
                   iters=1)
     b_ms, by = fps_bound_ms(B, N, npoint)
-    fps_site = dict(site=name, shape=[B, N, npoint], ms=ms, device_ms=dms,
-                    us_per_step=ms * 1e3 / (npoint - 1),
-                    variant=list(fps.VARIANTS[fps.fps_variant(N)]),
-                    plain_ms=pms, bound_ms=b_ms, bound_by=by,
-                    max_abs_err=int((got - want).abs().max()))
+    return dict(site=name, shape=[B, N, npoint], ms=ms, device_ms=dms,
+                us_per_step=dms * 1e3 / (npoint - 1) if npoint > 1 else None,
+                variant=list(fps.VARIANTS[fps.fps_variant(N)]),
+                plain_ms=pms, bound_ms=b_ms, bound_by=by,
+                max_abs_err=int((got - want).abs().max()))
 
-    name, N, M, r, s = BQ_LISTS_SITE
-    require(xyz0.shape[1] == N and q0.shape[1] == M, "sa1 inputs")
-    require(ballquery.lists_in_memory(s), f"nsample {s} keeps its lists "
-            f"in shared memory")
+
+def first_k_site(torch, pts, q, r, s, name, sm_clock_mhz, iters=20):
+    """One first-k site: exact against the plain version, ms by events and
+    on the device, the plain version's ms, the bound from this run's hits,
+    and the bytes the call allocates (its output alone)."""
+    from scan2cap_torch.kernels import ball_query_cuda, ballquery
+    from scan2cap_torch.ops.grouping import (ball_query_pack_plain,
+                                             ball_query_plain, radius_squared)
+
+    B, N, _ = pts.shape
+    M = q.shape[1]
     r2 = radius_squared(r)
-    got = ball_query_cuda(xyz0, q0, r2, s)
-    want = ball_query_plain(xyz0, q0, r, s)
-    total = ball_query_pack_plain(xyz0, q0, r2)[1].sum(-1)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    got = ball_query_cuda(pts, q, r2, s)
+    allocated = torch.cuda.memory_allocated() - before
+    want = ball_query_plain(pts, q, r, s)
+    total = ball_query_pack_plain(pts, q, r2)[1].sum(-1)
     torch.cuda.synchronize()
     require(torch.equal(got, want), f"ball_query site {name}: kernel != plain")
+    # the caching allocator hands out blocks of 512 bytes: idx and no more
+    require(allocated == -(-got.numel() * 4 // 512) * 512,
+            f"ball_query site {name}: the call allocated {allocated} bytes "
+            f"for an output of {got.numel() * 4}")
     b_ms, by, pairs = first_k_bound_ms(torch, want, total, N, s)
-    ms = cuda_ms(torch, lambda: ball_query_cuda(xyz0, q0, r2, s), iters=20)
-    dms = device_only_ms(lambda: ball_query_cuda(xyz0, q0, r2, s), 20)["ms"]
-    pms = cuda_ms(torch, lambda: ball_query_plain(xyz0, q0, r, s), iters=2)
-    bq_site = dict(site=name, shape=[B, N, M, s], radius=r, ms=ms,
-                   device_ms=dms,
-                   variant=list(ballquery.VARIANTS[ballquery.bq_variant(N, M, s)]),
-                   plain_ms=pms, bound_ms=b_ms, bound_by=by,
-                   pairs_tested=pairs,
-                   queries_filled=float((total >= s).float().mean()),
-                   issue_floor_ms=issue_floor_ms(pairs, sm_clock_mhz),
-                   max_abs_err=int((got - want).abs().max()))
-    return dict(fps_streamed=[fps_site], ball_query_lists_in_memory=[bq_site])
+    v = ballquery.bq_variant(N, M, s)
+    return dict(site=name, shape=[B, N, M, s], radius=r,
+                ms=cuda_ms(torch, lambda: ball_query_cuda(pts, q, r2, s),
+                           iters=iters),
+                device_ms=device_only_ms(
+                    lambda: ball_query_cuda(pts, q, r2, s), iters)["ms"],
+                variant=list(ballquery.VARIANTS[v]),
+                plain_ms=cuda_ms(torch, lambda: ball_query_plain(
+                    pts, q, r, s), iters=2),
+                bound_ms=b_ms, bound_by=by, pairs_tested=pairs,
+                queries_filled=float((total >= s).float().mean()),
+                issue_floor_ms=issue_floor_ms(pairs, sm_clock_mhz),
+                allocated_bytes=allocated,
+                max_abs_err=int((got - want).abs().max()))
+
+
+def check_large_variants(torch, np, xyz0, q0, sm_clock_mhz):
+    """The tiers that lift the limits of the main path's shapes: FPS over
+    rooms of 100,000 and 150,000 points (a 16-block cluster's registers),
+    200,000 (the shared-state tier) and 400,001 (streamed), and the ordered
+    first-k at sa1's shape with nsample 512 and 1024.  Exact against the
+    plain versions; times as for the main-path sites."""
+    from scan2cap_torch.kernels import ballquery, fps
+    from scan2cap_torch.probes.bq_variants import room
+
+    dev = torch.device("cuda")
+    B = xyz0.shape[0]
+    sites = dict(fps_cluster16=[], fps_shared_state=[], fps_streamed=[],
+                 ball_query_ordered=[])
+    for i, (name, N, npoint, where) in enumerate(FPS_LARGE_SITES):
+        require(fps.tier(fps.fps_variant(N)) == where,
+                f"N={N} does not get the {where} FPS tier")
+        x = torch.from_numpy(room(np.random.RandomState(3 + i), B, N)).to(dev)
+        sites[f"fps_{where}"].append(fps_site(torch, x, npoint, name, 3))
+
+    for name, N, M, r, s in BQ_ORDERED_SITES:
+        require(xyz0.shape[1] == N and q0.shape[1] == M, "sa1 inputs")
+        require(ballquery.is_ordered(ballquery.bq_variant(N, M, s)),
+                f"nsample {s} does not take the ordered scan")
+        sites["ball_query_ordered"].append(
+            first_k_site(torch, xyz0, q0, r, s, name, sm_clock_mhz))
+    return sites
 
 
 def check_mvn_sites(torch, sm_clock_mhz):
     """The three kernels at MaskVoteNet's vote aggregation
     (``probes/cases.py`` ``mvn_aggregation``): FPS picking 1 of 1,024 votes,
-    the first-k at radius 5 m and nsample 512 (its hit lists in device
-    memory, one query a scene), the gather of (1, 512) rows of width 128;
+    the first-k at radius 5 m and nsample 512 (the ordered scan, one query
+    a scene, a block of its own), the gather of (1, 512) rows of width 128;
     B=16.  Exact against the plain versions; times as for the main-path
     sites."""
     from scan2cap_torch.kernels import (ball_query_cuda,
                                         furthest_point_sample_cuda,
                                         group_points_cuda)
-    from scan2cap_torch.kernels import ballquery, fps
-    from scan2cap_torch.ops.grouping import (ball_query_pack_plain,
-                                             ball_query_plain,
+    from scan2cap_torch.kernels import ballquery
+    from scan2cap_torch.ops.grouping import (ball_query_plain,
                                              group_points_plain,
                                              radius_squared)
-    from scan2cap_torch.ops.sampling import furthest_point_sample_plain
     from scan2cap_torch.probes import cases
 
     dev = torch.device("cuda")
@@ -475,57 +500,22 @@ def check_mvn_sites(torch, sm_clock_mhz):
     x, npoint, _ = cases.fps_edge_case(name)
     x = torch.from_numpy(x).to(dev)
     B, N, _ = x.shape
-    got = furthest_point_sample_cuda(x, npoint)
-    want = furthest_point_sample_plain(x, npoint)
-    torch.cuda.synchronize()
-    require(torch.equal(got, want) and bool((got == 0).all()),
-            "fps site mvn_aggregation: kernel != plain")
-    b_ms, by = fps_bound_ms(B, N, npoint)
-    fps_site = dict(site=name, shape=[B, N, npoint],
-                    ms=cuda_ms(torch, lambda: furthest_point_sample_cuda(
-                        x, npoint), iters=20),
-                    device_ms=device_only_ms(lambda: furthest_point_sample_cuda(
-                        x, npoint), 20)["ms"],
-                    us_per_step=None,
-                    variant=list(fps.VARIANTS[fps.fps_variant(N)]),
-                    plain_ms=cuda_ms(torch, lambda: furthest_point_sample_plain(
-                        x, npoint), iters=20),
-                    bound_ms=b_ms, bound_by=by,
-                    max_abs_err=int((got - want).abs().max()))
+    fps_row = fps_site(torch, x, npoint, name, 20)
+    require(bool((furthest_point_sample_cuda(x, npoint) == 0).all()),
+            "fps site mvn_aggregation: one pick must be index 0")
 
     pts, q, r, s, _, _ = cases.bq_edge_case(name)
     pts, q = torch.from_numpy(pts).to(dev), torch.from_numpy(q).to(dev)
-    M = q.shape[1]
-    require(ballquery.lists_in_memory(s), "the aggregation's lists fit in "
-            "shared memory")
-    r2 = radius_squared(r)
-    before = ball_query_cuda.lists_in_memory_launches
-    got = ball_query_cuda(pts, q, r2, s)
-    require(ball_query_cuda.lists_in_memory_launches == before + 1,
-            "the aggregation's first-k did not keep its lists in memory")
-    want = ball_query_plain(pts, q, r, s)
-    total = ball_query_pack_plain(pts, q, r2)[1].sum(-1)
-    torch.cuda.synchronize()
-    require(torch.equal(got, want), "ball_query site mvn_aggregation: "
-            "kernel != plain")
-    require(bool((total < s).any() and (total >= s).any()),
+    require(ballquery.is_ordered(ballquery.bq_variant(N, q.shape[1], s)),
+            "the aggregation's first-k does not take the ordered scan")
+    before = ball_query_cuda.ordered_launches
+    ball_query_cuda(pts, q, radius_squared(r), s)
+    require(ball_query_cuda.ordered_launches == before + 1,
+            "the aggregation's first-k did not launch the ordered scan")
+    bq_site = first_k_site(torch, pts, q, r, s, name, sm_clock_mhz)
+    require(0 < bq_site["queries_filled"] < 1,
             "the aggregation case must hold short and full lists")
-    b_ms, by, pairs = first_k_bound_ms(torch, want, total, N, s)
-    bq_site = dict(site=name, shape=[B, N, M, s], radius=r,
-                   ms=cuda_ms(torch, lambda: ball_query_cuda(pts, q, r2, s),
-                              iters=20),
-                   device_ms=device_only_ms(
-                       lambda: ball_query_cuda(pts, q, r2, s), 20)["ms"],
-                   variant=list(ballquery.VARIANTS[
-                       ballquery.bq_variant(N, M, s)]),
-                   plain_ms=cuda_ms(torch, lambda: ball_query_plain(
-                       pts, q, r, s), iters=5),
-                   bound_ms=b_ms, bound_by=by, pairs_tested=pairs,
-                   queries_filled=float((total >= s).float().mean()),
-                   issue_floor_ms=issue_floor_ms(pairs, sm_clock_mhz),
-                   workspace_ints=ballquery.list_workspace_ints(
-                       ballquery.bq_variant(N, M, s), B, M, s),
-                   max_abs_err=int((got - want).abs().max()))
+    want = ball_query_plain(pts, q, r, s)
 
     shape = cases.GATHER_EDGE_CASES[name]
     _, N, C, M, S, _ = shape
@@ -552,7 +542,7 @@ def check_mvn_sites(torch, sm_clock_mhz):
                            iters=20),
         bound_ms=b_ms, bound_by=by,
         max_abs_err=float((got - want).abs().max()))
-    return dict(fps=fps_site, ball_query_lists_in_memory=bq_site,
+    return dict(fps=fps_row, ball_query_ordered=bq_site,
                 gather=gather_site)
 
 
@@ -1422,30 +1412,92 @@ def run_probes(torch):
     g = gather.run("cuda", iters=20)
     require(g["equal"], "gather probe: kernel rows != torch.gather rows")
     report["gather"] = g
+    probes_launches = launch_counts()
     report["large"] = run_large_scene(torch)
-    report["launches"] = launch_counts()
+    report["launches"] = {k: v + report["large"]["launches"][k]
+                          for k, v in probes_launches.items()}
     return report
 
 
-def run_large_scene(torch):
-    """The ops' entry points above the main path's shapes: FPS of a scene
-    larger than registers hold and a ball query whose nsample puts its hit
-    lists in device memory, each held against its plain version."""
+# the flagship served on full-resolution rooms: sa1's FPS in a 16-block
+# cluster
+LARGE_SCENE_POINTS = 150000
+
+
+def run_large_scene(torch, requests=10):
+    """Above the main path's shapes: the flagship's eval forward at
+    LARGE_SCENE_POINTS points (B=2, ``requests`` after a warm-up), whose
+    sa1 FPS runs in a 16-block cluster, its indices held against the plain
+    version and ms per batch timed; then the ops' entry points on a
+    200,000-point room (FPS in the shared-state tier, the ordered first-k
+    at nsample 512) and on a 400,001-point room (FPS streamed), each held
+    against its plain version.  Returns the launches of both parts."""
     import numpy as np
+    from scan2cap_torch.config import flagship_config
+    from scan2cap_torch.data.synthetic import to_device
+    from scan2cap_torch.kernels import fps, launch_counts, reset_launch_counts
+    from scan2cap_torch.models import CapNet
     from scan2cap_torch.ops import grouping, sampling
     from scan2cap_torch.probes.bq_variants import room
+    from scan2cap_torch.train.step import make_eval_step
 
-    _, N, npoint = FPS_STREAM_SITE
-    x = torch.from_numpy(room(np.random.RandomState(4), 1, N)).to("cuda")
-    got = sampling.furthest_point_sample(x, npoint)
-    require(torch.equal(got, sampling.furthest_point_sample_plain(x, npoint)),
-            "large scene: FPS != plain")
-    q = torch.gather(x, 1, got[0, :256].long()[None, :, None].expand(-1, -1, 3))
-    _, _, _, r, s = BQ_LISTS_SITE
-    idx = grouping.ball_query(x, q.contiguous(), r, s)
-    require(torch.equal(idx, grouping.ball_query_plain(x, q.contiguous(), r, s)),
-            "large scene: ball query != plain")
-    return dict(num_points=N, npoint=npoint, queries=256, nsample=s)
+    cfg = flagship_config(num_points=LARGE_SCENE_POINTS)
+    require(fps.tier(fps.fps_variant(cfg.num_points)) == "cluster16",
+            f"{cfg.num_points} points do not get the 16-block FPS tier")
+    B = 2
+    host = flagship_batch(np, cfg, B)
+    model = CapNet(cfg, num_vocabs=NUM_VOCABS, device="cuda", seed=0)
+    step = make_eval_step(cfg, model)
+    batch = to_device(host, "cuda")
+    # the warm-up request holds each kernel launch against its plain
+    # version on the same inputs, sa1's FPS over all the points among them
+    with HeldAgainstPlain(torch) as held:
+        step(batch)
+    torch.cuda.synchronize()
+    require(["furthest_point_sample_cuda", [B, LARGE_SCENE_POINTS,
+                                            cfg.sa_npoints[0]]]
+            in [[k, shape] for k, shape in held.checked],
+            f"large scene: sa1's FPS was not held, {held.checked}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(requests):
+        out = step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / requests
+    served = launch_counts()
+    require(served["fps_cluster16"] == requests
+            and served["furthest_point_sample_cuda"] == 5 * requests,
+            f"large scene: launches {served}, want 5 FPS a forward, 1 of "
+            f"them in a 16-block cluster")
+    for k, v in out.items():
+        if v.is_floating_point():
+            require(bool(torch.isfinite(v).all()), f"large scene: {k} not "
+                    f"finite")
+    print(f"  large scene: {LARGE_SCENE_POINTS} points, B={B}: {ms:.2f} ms "
+          f"per batch over {requests} requests", flush=True)
+    del model, step, batch, out
+
+    reset_launch_counts()
+    x = torch.from_numpy(room(np.random.RandomState(4), 1, 200000)).to("cuda")
+    got = sampling.furthest_point_sample(x, 2048)
+    require(torch.equal(got, sampling.furthest_point_sample_plain(x, 2048)),
+            "200,000 points: FPS != plain")
+    q = torch.gather(x, 1, got[0, :256].long()[None, :, None].expand(
+        -1, -1, 3)).contiguous()
+    idx = grouping.ball_query(x, q, 0.4, 512)
+    require(torch.equal(idx, grouping.ball_query_plain(x, q, 0.4, 512)),
+            "200,000 points: ball query at nsample 512 != plain")
+    x = torch.from_numpy(room(np.random.RandomState(5), 1, 400001)).to("cuda")
+    got = sampling.furthest_point_sample(x, 256)
+    require(torch.equal(got, sampling.furthest_point_sample_plain(x, 256)),
+            "400,001 points: FPS != plain")
+    ops = launch_counts()
+    require(ops["fps_shared_state"] == 1 and ops["fps_streamed"] == 1
+            and ops["ball_query_ordered"] == 1,
+            f"large scenes through the ops: launches {ops}")
+    return dict(num_points=LARGE_SCENE_POINTS, batch=B, requests=requests,
+                ms_per_batch=ms, held_exact=len(held.checked),
+                launches={k: served[k] + ops[k] for k in served})
 
 
 # --------------------------------------------------------------------- phase 8
@@ -1833,10 +1885,10 @@ def mvn_batch(np, cfg, B, seed=0):
 
 
 def mvn_launches_right(per_step, where):
-    """5 FPS and 5 first-k per step, 1 of them with its hit lists in device
-    memory (the aggregation's nsample 512), 6 gathers."""
+    """5 FPS and 5 first-k per step, 1 of them through the ordered scan (the
+    aggregation's nsample 512), 6 gathers."""
     want = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
-                ball_query_lists_in_memory=1, group_points_cuda=6)
+                ball_query_ordered=1, group_points_cuda=6)
     for k, v in want.items():
         require(per_step.get(k) == v, f"{where}: {k} {per_step.get(k)} "
                 f"launches per step, want {v}")
@@ -1958,12 +2010,12 @@ def train_mask_votenet(torch, np, dev="cuda", cfg=None, B=MVN_BATCH,
         by_kernel = {}
         for kernel, _ in held.checked:
             by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
-        lists = sum(1 for k, shape in held.checked
-                    if k == "ball_query_cuda" and shape[-1] == 512)
+        ordered = sum(1 for k, shape in held.checked
+                      if k == "ball_query_cuda" and shape[-1] == 512)
         require(by_kernel == dict(furthest_point_sample_cuda=5,
                                   ball_query_cuda=5, group_points_cuda=6)
-                and lists == 1, f"MaskVoteNet step held against the plain "
-                f"versions: {by_kernel}, {lists} at nsample 512")
+                and ordered == 1, f"MaskVoteNet step held against the plain "
+                f"versions: {by_kernel}, {ordered} at nsample 512")
         held_report = dict(batch=B, exact=len(held.checked),
                            by_kernel=by_kernel,
                            shapes=[[k, shape] for k, shape in held.checked])
@@ -2350,27 +2402,28 @@ def main(argv=None) -> int:
     spilled = [k["name"] for k in resources["fps"]
                if k.get("spill_stores") or k.get("spill_loads")]
     require(not spilled, f"FPS kernel variants spill registers: {spilled}")
-    # the ball query's main-path variants must keep their queries in
-    # registers; another variant that spills is reported
+    # the ball query's variants on a path (the main path's, and the ordered
+    # scan's at sa1's shape and at MaskVoteNet's aggregation) must keep
+    # their queries in registers; another variant that spills is reported
     from scan2cap_torch.kernels import ballquery
-    on_path = {ballquery.bq_variant(N, M, s) for _, N, M, _, s in BQ_SITES}
+    from scan2cap_torch.probes import cases
+    on_path = {ballquery.bq_variant(N, M, s)
+               for _, N, M, _, s in BQ_SITES + BQ_ORDERED_SITES}
+    on_path.add(ballquery.bq_variant(cases.MVN_VOTES, 1, cases.MVN_NSAMPLE))
     built = {ballquery.kernel_of_name(k["name"]): k
              for k in resources["ballquery"]}
-    built.pop(None, None)        # the first-k kernels with lists in memory
+    built.pop(None, None)
     spilled = sorted(key for key, k in built.items()
                      if k.get("spill_stores") or k.get("spill_loads"))
-    lists_spilled = [k["name"][-40:] for k in resources["ballquery"]
-                     if "bq_lists_kernel" in k["name"]
-                     and (k.get("spill_stores") or k.get("spill_loads"))]
     print("ball query (variant, pack) kernels that spill: "
-          f"{spilled or 'none'}; with lists in device memory: "
-          f"{lists_spilled or 'none'}", flush=True)
+          f"{spilled or 'none'}", flush=True)
     for v in on_path:
         for pack in (False, True):
-            require((v, pack) in built, f"the build log holds no ball-query "
-                    f"kernel of variant {ballquery.VARIANTS[v]}")
-        require((v, False) not in spilled, f"the main-path ball query "
-                f"variant {ballquery.VARIANTS[v]} spills registers")
+            require((v, pack) in built or not ballquery.takes(v, 1, pack),
+                    f"the build log holds no ball-query kernel of variant "
+                    f"{ballquery.VARIANTS[v]}")
+        require((v, False) not in spilled, f"the ball query variant "
+                f"{ballquery.VARIANTS[v]} on a path spills registers")
 
     t0 = time.perf_counter()
     (fps_sites, bq_sites, pack_sites, gather_sites, probe_sites,
@@ -2461,15 +2514,16 @@ def main(argv=None) -> int:
         kernel_entry("shift_probe", probe_cu,
                      "scripts/micro_mxu_shift_probe.py:30",
                      probe_sites["shift_probe"], launches("shift_probe_cuda")),
-        # the variants above the main path's shapes, counted apart (their
+        # the tiers above the main path's shapes, counted apart (their
         # launches are also in fps's and ball_query's)
-        kernel_entry("fps_streamed", "scan2cap_torch/csrc/fps.cu",
-                     "scan2cap_tpu/ops/pallas/fps.py:117",
-                     variant_sites["fps_streamed"], launches("fps_streamed")),
-        kernel_entry("ball_query_lists_in_memory", bq,
+        *(kernel_entry(name, "scan2cap_torch/csrc/fps.cu",
+                       "scan2cap_tpu/ops/pallas/fps.py:117",
+                       variant_sites[name], launches(name))
+          for name in ("fps_cluster16", "fps_shared_state", "fps_streamed")),
+        kernel_entry("ball_query_ordered", bq,
                      "scan2cap_tpu/ops/pallas/ballquery.py:58",
-                     variant_sites["ball_query_lists_in_memory"],
-                     launches("ball_query_lists_in_memory")),
+                     variant_sites["ball_query_ordered"],
+                     launches("ball_query_ordered")),
     ]
     if not partial:
         for k in kernels:

@@ -32,9 +32,9 @@
 //     registers (arrays indexed by unrolled constants only).  The step's
 //     inner loop touches no memory.
 //   * A scene is spread over CS thread blocks of T threads: CS = 1 for the
-//     small sites, a thread-block cluster of CS = 8 blocks on neighbouring
-//     SMs where one SM's registers do not hold the scene (40,000 points x
-//     16 bytes = 640 KB).  Point j belongs to slot j / (CS*T) of global
+//     small sites, a thread-block cluster of CS = 8 or 16 blocks on
+//     neighbouring SMs where one SM's registers do not hold the scene
+//     (40,000 points x 16 bytes = 640 KB).  Point j belongs to slot j / (CS*T) of global
 //     thread j % (CS*T): loads are coalesced, every block gets the same
 //     share of a padded scene, and a thread scans its slots in ascending
 //     index order.
@@ -62,27 +62,51 @@
 //     it has every block's candidate of step k+1, which a block sends only
 //     after all its threads are through step k's wait (the __syncthreads
 //     of the block argmax stands between).  Block 0 writes out[k].
-//   * The coordinates of the pick never come from global memory: each block
-//     keeps a copy of its points in shared memory (16 bytes a point), read
-//     once per step at the winner's slot, because a register array cannot
-//     be indexed by a run-time slot number.
+//   * The coordinates of the pick never come from global memory: in the
+//     register tiers each block keeps a copy of its points in shared memory
+//     (16 bytes a point), read once per step at the winner's slot, because
+//     a register array cannot be indexed by a run-time slot number.
+//   * Above what 8 blocks' registers hold, a cluster of CS = 16 blocks, a
+//     non-portable cluster size that Hopper allows once the kernel's
+//     cudaFuncAttributeNonPortableClusterSizeAllowed is set: twice the
+//     registers and shared memory a scene can hold, the same deal, argmax
+//     and exchange (lanes 0..15 send, 16 x 20 bytes land on each barrier).
+//     Whether the card can place one such cluster of a variant is asked
+//     once (cudaOccupancyMaxActiveClusters); if it cannot, the launch
+//     fails, and no other variant is taken in its place.
+//   * Above what 16 blocks' registers hold (the shared-state tier, S > 0),
+//     slots P.. of a thread hold their points in shared memory as
+//     (x, y, z, key), 16 bytes a point, read once per step and written
+//     where the key fell; the thread scans its register slots, then its
+//     shared slots, so the slot order stays the index order.  The copy of
+//     the register points shrinks to three planes of floats (12 bytes a
+//     point), which leaves 26 slots of 256 threads' state beside it.  The
+//     winner's coordinates come from the copy or its shared slot, one load
+//     as in the register tiers.  Taking them from the winning thread's own
+//     registers instead (a select by slot in the winner's warp, then a
+//     shuffle), which would leave all of the shared memory for state and
+//     hold 393,216 points on chip, cost 0.29 us a step more on an H100
+//     even with no shared slot in use, about a third of a step (that
+//     design built and timed by probes/fps_variants.py).
 //
-// Variants (CS, T, P) are instantiated from one template below; which one a
-// scene gets is a function of N alone, made by kernels/fps.py
+// Variants (CS, T, P, S) are instantiated from one template below; which
+// one a scene gets is a function of N alone, made by kernels/fps.py
 // (fps_variant): no variant is a fallback of another.  On the flagship's
 // main path N = 512 gets 1 x 128 x 4, N = 1024 gets 1 x 256 x 4, N = 2048
 // gets 1 x 512 x 4 and N = 40000 gets 8 x 256 x 20: few warps with many
 // points each, because the argmax across warps costs more than the
-// arithmetic.  The largest scene in registers is 81,920 points (8 blocks x
-// 256 threads x 40 points: 160 registers of state per thread); what sets it
-// is the register file, then 16 bytes a point of shared memory (160 KB of
-// 227 KB there).  Above that, 8 x 1024 x 0 streams the scene from a
-// workspace in device memory (fps_stream_kernel): no limit but the
-// device's memory.
+// arithmetic.  8 blocks hold 81,920 points in registers (8 x 256 threads x
+// 40 points: 160 registers of state per thread); 16 blocks of the same
+// shape 163,840 (16 x 256 x 24 to 40); the shared-state tier 16 x 256 x 40
+// in registers and up to 26 slots in shared memory (the number of slots a
+// scene needs decided at the launch), 270,336 points on chip.  Above that,
+// a cluster of 1,024-thread blocks streams the scene from a workspace in
+// device memory (fps_stream_kernel): no limit but the device's memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 
 namespace cg = cooperative_groups;
@@ -230,15 +254,26 @@ __device__ __forceinline__ void block_arg_max(int2 (*s_warp)[W], int par,
   }
 }
 
-template <int CS, int T, int P>
+// CS blocks of T threads a scene, P points a thread in registers and, with
+// S > 0, up to S more in shared memory (`shared_slots` of them, what N
+// needs).  Dynamic shared memory: the copy of the register points, T * P
+// float4 (S == 0) or three planes of T * P floats (S > 0), then the shared
+// slots' state, T * shared_slots float4.
+template <int CS, int T, int P, int S>
 __global__ void __launch_bounds__(T, 1)
 fps_kernel(const float* __restrict__ xyz, int n, int npoint,
-           int* __restrict__ out) {
+           int* __restrict__ out, int shared_slots) {
   constexpr int W = T / 32;        // warps of a block
   constexpr int TT = CS * T;       // threads of a scene
   static_assert(T % 32 == 0 && W <= 32 && CS <= 32, "one warp reduces the slots");
   static_assert(CS == 1 || W > 1, "the cluster's exchange leans on __syncthreads");
-  extern __shared__ float4 s_xyz[];                 // [slot * T + thread]
+  static_assert(S == 0 || CS > 1, "the shared-state tier is a cluster's");
+  // S == 0: [slot * T + thread] (x, y, z) of the register slots; S > 0:
+  // planes x, y, z [slot * T + thread] of the register slots, then
+  // s_state [(slot - P) * T + thread] (x, y, z, key) of the shared slots
+  extern __shared__ float4 s_pts[];
+  float* s_copy = reinterpret_cast<float*>(s_pts);
+  float4* s_state = s_pts + 3 * P * T / 4;
   __shared__ int2 s_warp[2][W];                     // (key, index) per warp
   __shared__ Exchange<CS> s_x;
 
@@ -273,7 +308,28 @@ fps_kernel(const float* __restrict__ xyz, int n, int npoint,
     py[s] = y;
     pz[s] = z;
     key[s] = k;
-    s_xyz[s * T + tid] = make_float4(x, y, z, 0.0f);
+    if constexpr (S == 0) {
+      s_pts[s * T + tid] = make_float4(x, y, z, 0.0f);
+    } else {
+      s_copy[s * T + tid] = x;
+      s_copy[(P + s) * T + tid] = y;
+      s_copy[(2 * P + s) * T + tid] = z;
+    }
+  }
+  if constexpr (S > 0) {
+    for (int s = 0; s < shared_slots; ++s) {
+      const int j = (P + s) * TT + gt;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, __int_as_float(kUnused));
+      if (j < n) {
+        v.x = __ldg(p + 3 * j);
+        v.y = __ldg(p + 3 * j + 1);
+        v.z = __ldg(p + 3 * j + 2);
+        const float n2 =
+            __fmaf_rn(v.z, v.z, __fmaf_rn(v.y, v.y, __fmul_rn(v.x, v.x)));
+        v.w = __int_as_float(n2 > 1e-3f ? __float_as_int(1e10f) : kPadding);
+      }
+      s_state[s * T + tid] = v;
+    }
   }
   float lx = __ldg(p), ly = __ldg(p + 1), lz = __ldg(p + 2);   // pick 0
   if (gt == 0) o[0] = 0;
@@ -298,11 +354,27 @@ fps_kernel(const float* __restrict__ xyz, int n, int npoint,
         slot = s;
       }
     }
+    if constexpr (S > 0) {
+      // the shared slots come after the register slots in index order;
+      // four at a time, so that their loads are in flight together
+#pragma unroll 4
+      for (int s = 0; s < shared_slots; ++s) {
+        float4* q = s_state + s * T + tid;
+        const float4 w = *q;
+        const int was = __float_as_int(w.w);
+        const int m = min(was, __float_as_int(sq_dist(w.x, w.y, w.z, lx, ly, lz)));
+        if (m != was) q->w = __int_as_float(m);
+        if (m > best) {
+          best = m;
+          slot = P + s;
+        }
+      }
+    }
     int pick = slot * TT + gt;
     block_arg_max<W>(s_warp, par, warp, lane, best, pick);
     // (best, pick) is this block's winner, one of its own points
     if constexpr (CS == 1) {
-      const float4 w = s_xyz[pick];                 // TT == T: pick is the slot
+      const float4 w = s_pts[pick];                 // TT == T: pick is the slot
       lx = w.x;
       ly = w.y;
       lz = w.z;
@@ -311,8 +383,21 @@ fps_kernel(const float* __restrict__ xyz, int n, int npoint,
       pick = cluster_pick<CS, TT, T>(
           s_x, k, rank, warp, lane, tid, best, pick,
           [&](int i) {
-            const float4 w = s_xyz[(i / TT) * T + i % T];
-            return make_float3(w.x, w.y, w.z);
+            const int at = i / TT;                  // the winner's slot
+            const int t = i % T;                    // and thread
+            if constexpr (S == 0) {
+              const float4 w = s_pts[at * T + t];
+              return make_float3(w.x, w.y, w.z);
+            } else {
+              if (at < P)
+                return make_float3(s_copy[at * T + t],
+                                   s_copy[(P + at) * T + t],
+                                   s_copy[(2 * P + at) * T + t]);
+              // its coordinates, not the key its thread may be writing
+              const float* w =
+                  reinterpret_cast<const float*>(s_state + (at - P) * T + t);
+              return make_float3(w[0], w[1], w[2]);
+            }
           },
           lx, ly, lz);
       if (gt == 0) o[k] = pick;
@@ -398,7 +483,38 @@ fps_stream_kernel(const float* __restrict__ xyz, int n, int npoint,
 using Launcher = cudaError_t (*)(const float*, int, int, int, int*, float4*,
                                  cudaStream_t);
 
-template <int CS, int T, int P>
+// Whether the card places at least one cluster of `kernel` with `smem`
+// bytes of dynamic shared memory (a cluster of more than 8 blocks first
+// gets the attribute that allows it).
+template <int CS, typename Kernel>
+cudaError_t cluster_fits(Kernel kernel, int threads, size_t smem) {
+  cudaError_t err = cudaSuccess;
+  if constexpr (CS > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && smem > 0)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CS);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  return clusters >= 1 ? cudaSuccess : cudaErrorLaunchOutOfResources;
+}
+
+template <int CS, int T, int P, int S>
 cudaError_t launch(const float* xyz, int batch, int n, int npoint, int* out,
                    float4* work, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
@@ -415,37 +531,60 @@ cudaError_t launch(const float* xyz, int batch, int n, int npoint, int* out,
   cudaError_t err;
   if constexpr (P == 0) {
     if (work == nullptr) return cudaErrorInvalidValue;
-    err = cudaLaunchKernelEx(&cfg, fps_stream_kernel<CS, T>, xyz, n, npoint,
-                             out, work);
+    auto kernel = fps_stream_kernel<CS, T>;
+    if constexpr (CS > 8) {
+      static const cudaError_t placed = cluster_fits<CS>(kernel, T, 0);
+      if (placed != cudaSuccess) return placed;    // asked once per variant
+    }
+    err = cudaLaunchKernelEx(&cfg, kernel, xyz, n, npoint, out, work);
   } else {
-    auto kernel = fps_kernel<CS, T, P>;
-    const size_t smem = static_cast<size_t>(T) * P * sizeof(float4);
+    auto kernel = fps_kernel<CS, T, P, S>;
+    constexpr int TT = CS * T;
+    // the shared slots this scene needs beyond the register slots, and
+    // the bytes of the copy and of the slots
+    const int shared_slots = S == 0 ? 0 : std::max((n + TT - 1) / TT - P, 0);
+    const size_t copy = static_cast<size_t>(T) * P * (S == 0 ? 16 : 12);
+    const size_t smem = copy + static_cast<size_t>(T) * 16 * shared_slots;
+    if constexpr (CS > 8) {
+      // asked once per variant, at its largest shared memory
+      static const cudaError_t placed = cluster_fits<CS>(
+          kernel, T, copy + static_cast<size_t>(T) * 16 * S);
+      if (placed != cudaSuccess) return placed;
+    }
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     cfg.dynamicSmemBytes = smem;
-    err = cudaLaunchKernelEx(&cfg, kernel, xyz, n, npoint, out);
+    err = cudaLaunchKernelEx(&cfg, kernel, xyz, n, npoint, out, shared_slots);
   }
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 struct Variant {
-  int cluster, threads, points;
+  int cluster, threads, points, shared;
   Launcher launch;
 };
 
-#define FPS_VARIANT(cs, t, p) {cs, t, p, &launch<cs, t, p>}
+#define FPS_VARIANT(cs, t, p, s) {cs, t, p, s, &launch<cs, t, p, s>}
 // The same list, in the same order, as VARIANTS of kernels/fps.py.
 const Variant kVariants[] = {
-    FPS_VARIANT(1, 32, 16),   FPS_VARIANT(1, 128, 4),   FPS_VARIANT(1, 128, 8),
-    FPS_VARIANT(1, 256, 2),   FPS_VARIANT(1, 256, 4),   FPS_VARIANT(1, 256, 8),
-    FPS_VARIANT(1, 512, 2),   FPS_VARIANT(1, 512, 4),   FPS_VARIANT(1, 1024, 2),
-    FPS_VARIANT(8, 256, 4),   FPS_VARIANT(8, 256, 8),   FPS_VARIANT(8, 256, 12),
-    FPS_VARIANT(8, 256, 16),  FPS_VARIANT(8, 256, 20),  FPS_VARIANT(8, 256, 24),
-    FPS_VARIANT(8, 256, 32),  FPS_VARIANT(8, 256, 40),  FPS_VARIANT(8, 128, 40),
-    FPS_VARIANT(8, 512, 10),  FPS_VARIANT(8, 1024, 5),  FPS_VARIANT(8, 1024, 0),
+    FPS_VARIANT(1, 32, 16, 0),   FPS_VARIANT(1, 128, 4, 0),
+    FPS_VARIANT(1, 128, 8, 0),   FPS_VARIANT(1, 256, 2, 0),
+    FPS_VARIANT(1, 256, 4, 0),   FPS_VARIANT(1, 256, 8, 0),
+    FPS_VARIANT(1, 512, 2, 0),   FPS_VARIANT(1, 512, 4, 0),
+    FPS_VARIANT(1, 1024, 2, 0),  FPS_VARIANT(8, 256, 4, 0),
+    FPS_VARIANT(8, 256, 8, 0),   FPS_VARIANT(8, 256, 12, 0),
+    FPS_VARIANT(8, 256, 16, 0),  FPS_VARIANT(8, 256, 20, 0),
+    FPS_VARIANT(8, 256, 24, 0),  FPS_VARIANT(8, 256, 32, 0),
+    FPS_VARIANT(8, 256, 40, 0),  FPS_VARIANT(8, 128, 40, 0),
+    FPS_VARIANT(8, 512, 10, 0),  FPS_VARIANT(8, 1024, 5, 0),
+    FPS_VARIANT(16, 256, 24, 0), FPS_VARIANT(16, 256, 28, 0),
+    FPS_VARIANT(16, 256, 32, 0), FPS_VARIANT(16, 256, 36, 0),
+    FPS_VARIANT(16, 256, 40, 0), FPS_VARIANT(16, 512, 20, 0),
+    FPS_VARIANT(16, 256, 40, 26), FPS_VARIANT(16, 512, 20, 13),
+    FPS_VARIANT(8, 1024, 0, 0),  FPS_VARIANT(16, 1024, 0, 0),
 };
 #undef FPS_VARIANT
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
@@ -456,25 +595,29 @@ extern "C" {
 
 int fps_num_variants() { return kNumVariants; }
 
-// (cluster size, threads per block, points per thread) of variant `v`.
-int fps_variant_info(int v, int* cluster, int* threads, int* points) {
+// (cluster size, threads per block, points per thread in registers, most
+// points per thread in shared memory) of variant `v`.
+int fps_variant_info(int v, int* cluster, int* threads, int* points,
+                     int* shared) {
   if (v < 0 || v >= kNumVariants) return 1;
   *cluster = kVariants[v].cluster;
   *threads = kVariants[v].threads;
   *points = kVariants[v].points;
+  *shared = kVariants[v].shared;
   return 0;
 }
 
 // xyz: (B, N, 3) float32, contiguous, on the device; out: (B, npoint) int32.
 // `variant` indexes the list above and must hold N points (points 0: any
 // N, with `work` a (B, N) float4 workspace on the device; null otherwise).
-// Returns the launch's cudaError_t (0 on success); a refused launch is an
-// error, no other kernel is tried.
+// Returns the launch's cudaError_t (0 on success); a refused launch, or a
+// cluster the card cannot place, is an error, no other kernel is tried.
 int fps_launch(const float* xyz, int batch, int n, int npoint, int* out,
                int variant, void* work, void* stream) {
   if (variant < 0 || variant >= kNumVariants) return cudaErrorInvalidValue;
   const Variant& v = kVariants[variant];
-  if (n < 1 || (v.points > 0 && n > v.cluster * v.threads * v.points))
+  if (n < 1 || (v.points > 0
+                && n > v.cluster * v.threads * (v.points + v.shared)))
     return cudaErrorInvalidValue;
   if (batch == 0 || npoint == 0) return 0;
   return static_cast<int>(v.launch(xyz, batch, n, npoint, out,

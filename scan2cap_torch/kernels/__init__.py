@@ -8,7 +8,7 @@ tensors here and CPU tensors to their plain PyTorch versions.
 """
 
 from scan2cap_torch.kernels.ballquery import ball_query_cuda, ball_query_pack_cuda
-from scan2cap_torch.kernels.fps import furthest_point_sample_cuda
+from scan2cap_torch.kernels.fps import TIERS, furthest_point_sample_cuda
 from scan2cap_torch.kernels.gather import group_points_cuda
 from scan2cap_torch.kernels.pack_probe import pack_probe_cuda, shift_probe_cuda
 
@@ -19,16 +19,20 @@ WRAPPERS = (furthest_point_sample_cuda, ball_query_cuda, ball_query_pack_cuda,
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
-    furthest_point_sample_cuda.streamed_launches = 0
-    ball_query_cuda.lists_in_memory_launches = 0
+    for t in TIERS:
+        setattr(furthest_point_sample_cuda, f"{t}_launches", 0)
+    ball_query_cuda.ordered_launches = 0
 
 
 def launch_counts() -> dict:
-    """Every wrapper's count by its name, and the two variant counts."""
+    """Every wrapper's count by its name, and the counts of the large-shape
+    tiers: FPS in a 16-block cluster's registers, with shared-memory state,
+    streamed; the ordered first-k (nsample above 256)."""
     counts = {w.__name__: w.launches for w in WRAPPERS}
-    counts["fps_streamed"] = furthest_point_sample_cuda.streamed_launches
-    counts["ball_query_lists_in_memory"] = \
-        ball_query_cuda.lists_in_memory_launches
+    for t in TIERS:
+        counts[f"fps_{t}"] = getattr(furthest_point_sample_cuda,
+                                     f"{t}_launches")
+    counts["ball_query_ordered"] = ball_query_cuda.ordered_launches
     return counts
 
 

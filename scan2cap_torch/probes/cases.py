@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from scan2cap_torch.kernels import ballquery
-from scan2cap_torch.kernels.fps import _BY_SIZE, fps_variant
+from scan2cap_torch.kernels.fps import (_BY_SIZE, ON_CHIP_POINTS,
+                                        REGISTER_POINTS, fps_variant)
 
 # MaskVoteNet's vote aggregation (models/mask_votenet.py): one query of
 # radius 5 m and 512 samples over the 1,024 votes of each of the launch
@@ -22,21 +23,34 @@ MVN_BATCH, MVN_VOTES = 16, 1024
 MVN_RADIUS, MVN_NSAMPLE = 5.0, 512
 
 # the cluster variant of the flagship's first layer, forced onto scenes far
-# smaller than it, so that most of its blocks hold no point; and the
-# streaming variant of the largest scenes, forced onto small ones
+# smaller than it, so that most of its blocks hold no point; the 16-block
+# register and shared-state variants and the streaming variant of the
+# largest scenes, forced onto small ones
 _CLUSTER_N = 40000
-_STREAMED_N = _BY_SIZE[-2][0] + 1
-_FORCED = (("_in_a_cluster", _CLUSTER_N), ("_streamed", _STREAMED_N))
+_CLUSTER16_N = 100000
+_SHARED_STATE_N = REGISTER_POINTS + 1
+_STREAMED_N = ON_CHIP_POINTS + 1
+_FORCED = (("_in_a_cluster", _CLUSTER_N), ("_in_16_blocks", _CLUSTER16_N),
+           ("_in_shared_state", _SHARED_STATE_N), ("_streamed", _STREAMED_N))
 
 FPS_EDGE_CASES = (
     "padding", "all_invalid", "ties", "ties_in_a_cluster", "batch10",
     "n1", "n1_in_a_cluster", "n5", "n5_in_a_cluster", "n9", "n9_in_a_cluster",
     "n39999", "ties_across_blocks", "padding_30000_of_40000",
     "all_invalid_40000", "batch10_40000",
+    "n1_in_16_blocks", "n9_in_16_blocks", "ties_in_16_blocks",
+    "padding_in_16_blocks", "all_invalid_in_16_blocks",
+    "n1_in_shared_state", "n9_in_shared_state", "ties_in_shared_state",
+    "padding_in_shared_state", "all_invalid_in_shared_state",
     "n1_streamed", "n9_streamed", "ties_streamed", "padding_streamed",
     "all_invalid_streamed",
-    # scenes above what registers hold: 2,048 picks, as sa1 takes
-    "large_n81921", "large_n100000", "large_n200000",
+    # a 16-block cluster: ties and padding across its blocks, ten scenes
+    # (more clusters than the card places at once)
+    "ties_across_blocks_100000", "padding_70000_of_100000", "batch10_100000",
+    # the shared-state tier: the second copy of each point in shared slots
+    "ties_across_slots_200000",
+    # scenes above what 8 blocks' registers hold: 2,048 picks, as sa1 takes
+    "large_n81921", "large_n100000", "large_n150000", "large_n200000",
     # MaskVoteNet's vote aggregation: one pick of 1,024 votes, B=16
     "mvn_aggregation",
 ) + tuple(f"boundary_n{n}" for bound, _ in _BY_SIZE if bound is not None
@@ -83,6 +97,20 @@ def fps_edge_case(name: str) -> Tuple[np.ndarray, int, Optional[int]]:
     if base == "ties_across_blocks":     # the two copies lie in different blocks
         x = grid(2, 40000)
         x[:, 20000:] = x[:, :20000]
+        return x, 256, cluster
+    if base == "ties_across_blocks_100000":
+        x = grid(2, 100000)
+        x[:, 50000:] = x[:, :50000]
+        return x, 256, cluster
+    if base == "padding_70000_of_100000":
+        x = cloud(2, 100000, 3.0)
+        x[:, 30000:] = 0.0
+        return x, 128, cluster
+    if base == "batch10_100000":
+        return cloud(10, 100000), 64, cluster
+    if base == "ties_across_slots_200000":   # copies in register and shared slots
+        x = grid(2, 200000)
+        x[:, 100000:] = x[:, :100000]
         return x, 256, cluster
     if base == "padding_30000_of_40000":
         x = cloud(2, 40000, 3.0)
@@ -166,16 +194,35 @@ BQ_EDGE_CASES = (
     "on_radius_at_boundaries", "on_radius_at_boundaries_40000",
     "dense_40000", "batch10_40000",
     "view_off_4_bytes", "view_off_8_bytes", "view_off_12_bytes",
-    # hit lists in device memory (nsample above what shared memory holds)
+    # the ordered scan (nsample above what the ranges' lists hold in
+    # shared memory)
     "nsample257", "nsample512", "nsample1024",
     "nsample257_40000", "nsample512_40000", "nsample1024_40000",
     # MaskVoteNet's aggregation: one query a scene over rooms of 7 to 16 m,
     # so that some scenes fill their 512 slots and others pad short lists
     "mvn_aggregation",
+    # the ordered scan's chunks: the nsample-th hit as a chunk's last point
+    # and as the next one's first, hits only in the last chunk, no hit at
+    # all; 19 queries a scene share a block, 1 has a block of its own
+    "ordered_nsample_th_hit_ends_a_chunk", "ordered_nsample_th_hit_starts_a_chunk",
+    "ordered_hits_in_last_chunk", "ordered_no_hits",
+    "ordered_nsample_th_hit_ends_a_chunk_m1",
+    "ordered_nsample_th_hit_starts_a_chunk_m1",
+    "ordered_hits_in_last_chunk_m1", "ordered_no_hits_m1",
 ) + tuple(f"boundary_n{n}" for bound in _BQ_BOUNDS
           for n in (bound - 1, bound, bound + 1))
 
 BqCase = Tuple[np.ndarray, np.ndarray, float, int, Optional[int], int]
+
+
+# the ordered scan's constructed cases: nsample 300 (512 for the queries
+# without hits) over four chunks and a part of one
+_ORDERED_NSAMPLE = 300
+
+
+def bq_chunk_points(n: int, m: int, nsample: int) -> int:
+    """Points of one chunk of the variant a call of this shape gets."""
+    return ballquery.VARIANTS[ballquery.bq_variant(n, m, nsample)][3]
 
 
 def bq_range_points(n: int, variant: Optional[int]) -> int:
@@ -225,6 +272,28 @@ def bq_edge_case(name: str) -> BqCase:
     ranges = -(-N // L)
     M = 19
 
+    if base.startswith("ordered_"):
+        one = base.endswith("_m1")
+        kind = base[len("ordered_"):len(base) - 3 * one]
+        M, S = (1 if one else 19), _ORDERED_NSAMPLE
+        C = bq_chunk_points(1, M, S)                   # M decides
+        N = 4 * C + 100
+        if kind == "nsample_th_hit_ends_a_chunk":      # the S-th is 2C - 1
+            at = list(rs.choice(2 * C - 1, S - 1, replace=False)) + [
+                2 * C - 1, 2 * C, 2 * C + 1, 3 * C + 3]
+        elif kind == "nsample_th_hit_starts_a_chunk":  # the S-th is 2C
+            at = list(rs.choice(2 * C, S - 1, replace=False)) + [
+                2 * C, 2 * C + 1, N - 1]
+        elif kind == "hits_in_last_chunk":             # 40 hits: padding
+            last = (N - 1) // C * C
+            at = last + rs.choice(N - last, 40, replace=False)
+        elif kind == "no_hits":              # every other query far away
+            x, q = sparse(2, N, M, rs.choice(N, 700, replace=False))
+            q[:, ::2] += np.float32(50.0)
+            return x, q, 0.2, 512, None, 0
+        else:
+            raise KeyError(name)
+        return (*sparse(2, N, M, at), 0.2, S, None, 0)
     if base == "on_radius":
         p = lattice(2, 1000)
         return p, p[:, :100].copy(), 0.3, 64, None, 0

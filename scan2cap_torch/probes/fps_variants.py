@@ -1,8 +1,10 @@
 """Times every variant of the FPS kernel (``csrc/fps.cu``) at the five FPS
-sites of one flagship forward and at a scene above what registers hold
-(100,000 points), B=2, on seeded room-scale points.
+sites of one flagship forward and at scenes above what 8 blocks' registers
+hold (100,000, 150,000, 200,000 and 400,001 points), B=2, on seeded
+room-scale points.
 
-A variant is (cluster size, threads per block, points per thread); every
+A variant is (cluster size, threads per block, points per thread in
+registers, most points per thread in shared memory); every
 variant that holds a site's N is run, held against the variant the wrapper
 chooses for that N (indices equal or the probe fails), and timed with CUDA
 events.  The table is what ``kernels/fps.py`` ``_BY_SIZE`` was chosen from.
@@ -28,7 +30,8 @@ from scan2cap_torch.probes.timing import event_ms
 
 SITES = (("sa1", 40000, 2048), ("sa2", 2048, 1024), ("sa3", 1024, 512),
          ("sa4", 512, 256), ("vote_aggregation", 1024, 256),
-         ("large", 100000, 2048))
+         ("large", 100000, 2048), ("large", 150000, 2048),
+         ("large", 200000, 2048), ("large", 400001, 256))
 
 
 def run(device: str | torch.device = "cuda", batch: int = 2,
@@ -74,11 +77,11 @@ def main(argv=None) -> int:
     for r in rows:
         mark = "*" if r["chosen"] else " "
         if "error" in r:
-            print(f"{r['site']:>17} N={r['n']:<6}{mark}{str(r['variant']):<15} "
+            print(f"{r['site']:>17} N={r['n']:<6}{mark}{str(r['variant']):<18} "
                   f"{r['error']}")
             bad += r["chosen"]
             continue
-        print(f"{r['site']:>17} N={r['n']:<6}{mark}{str(r['variant']):<15} "
+        print(f"{r['site']:>17} N={r['n']:<6}{mark}{str(r['variant']):<18} "
               f"{r['ms']:8.4f} ms  {r['us_per_step']:6.3f} us/step  "
               f"{'equal' if r['equal'] else 'DIFFERS'}")
         bad += not r["equal"]

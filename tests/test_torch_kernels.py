@@ -93,11 +93,20 @@ def test_fps_every_variant_gives_the_same_indices(card):
 
 
 def test_fps_streams_a_scene_above_the_register_limit(card):
-    x = torch.randn((1, fps_wrapper.REGISTER_POINTS + 1, 3), device=card)
-    before = kernels.furthest_point_sample_cuda.streamed_launches
-    got = sampling.furthest_point_sample(x, 64)
-    assert kernels.furthest_point_sample_cuda.streamed_launches == before + 1
-    assert torch.equal(got, sampling.furthest_point_sample_plain(x, 64))
+    """Above what 8 blocks' registers hold a 16-block cluster, above what
+    16 blocks' registers hold the shared-state tier, above what it holds
+    on chip the scene streams: each launch counted by its tier."""
+    for n, where in ((81921, "cluster16"),
+                     (fps_wrapper.REGISTER_POINTS + 1, "shared_state"),
+                     (fps_wrapper.ON_CHIP_POINTS + 1, "streamed")):
+        x = torch.randn((1, n, 3), device=card)
+        before = kernels.launch_counts()
+        got = sampling.furthest_point_sample(x, 64)
+        after = kernels.launch_counts()
+        assert {k: after[k] - before[k] for k in after
+                if after[k] != before[k]} == {
+                    "furthest_point_sample_cuda": 1, f"fps_{where}": 1}
+        assert torch.equal(got, sampling.furthest_point_sample_plain(x, 64))
     with pytest.raises(ValueError):
         kernels.furthest_point_sample_cuda(
             torch.zeros((1, 0, 3), device=card), 4)
@@ -178,23 +187,32 @@ def test_ball_query_every_variant_gives_the_same_indices(card, case):
     want = grouping.ball_query_plain(pt, qt, radius, nsample)
     pw, pc = grouping.ball_query_pack_plain(pt, qt, r2)
     for v, shape in enumerate(bq_wrapper.VARIANTS):
-        got = kernels.ball_query_cuda(pt, qt, r2, nsample, variant=v)
-        assert torch.equal(got, want), shape
-        words, counts = kernels.ball_query_pack_cuda(pt, qt, r2, variant=v)
-        assert torch.equal(words.view(torch.int32), pw.view(torch.int32)), shape
-        assert torch.equal(counts, pc), shape
+        if bq_wrapper.takes(v, nsample):
+            got = kernels.ball_query_cuda(pt, qt, r2, nsample, variant=v)
+            assert torch.equal(got, want), shape
+        if bq_wrapper.takes(v, nsample, pack=True):
+            words, counts = kernels.ball_query_pack_cuda(pt, qt, r2, variant=v)
+            assert torch.equal(words.view(torch.int32),
+                               pw.view(torch.int32)), shape
+            assert torch.equal(counts, pc), shape
 
 
 def test_ball_query_lists_go_to_memory_above_the_shared_limit(card):
+    """Above the ranges' shared lists the ordered scan takes the first-k,
+    and no call allocates more than its output."""
     x = torch.zeros((1, 64, 3), device=card)
     with pytest.raises(ValueError):
         kernels.ball_query_cuda(x, x, 0.04, 0)
     for nsample in (bq_wrapper.BQ_SHARED_NSAMPLE,
                     bq_wrapper.BQ_SHARED_NSAMPLE + 1, 1024):
-        before = kernels.ball_query_cuda.lists_in_memory_launches
+        before = kernels.ball_query_cuda.ordered_launches
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
         got = kernels.ball_query_cuda(x, x, 0.04, nsample)
-        assert (kernels.ball_query_cuda.lists_in_memory_launches - before
-                == int(bq_wrapper.lists_in_memory(nsample)))
+        assert torch.cuda.memory_allocated() - held == -(-got.numel() * 4
+                                                         // 512) * 512
+        assert (kernels.ball_query_cuda.ordered_launches - before
+                == int(bq_wrapper.ordered_scan(nsample)))
         assert got.shape == (1, 64, nsample)
         assert (got[0, :, :64] == torch.arange(64, device=card)).all()
         assert (got[0, :, 64:] == 0).all()          # padding: the first hit
@@ -320,7 +338,7 @@ def test_new_wrappers_check_their_inputs(card):
 
 def test_mask_votenet_forward_launches_the_lists_kernel(card):
     """MaskVoteNet's forward on the card: 5 FPS, 5 first-k (the
-    aggregation's nsample 512 with its lists in device memory), 5 gathers
+    aggregation's nsample 512 through the ordered scan), 5 gathers
     (sa1 gather-lean at 133 channels), and the port's CPU forward's
     indices and boxes."""
     from scan2cap_torch.config import ModelConfig
@@ -342,7 +360,7 @@ def test_mask_votenet_forward_launches_the_lists_kernel(card):
         counts = {k: after[k] - before[k] for k in after}
     assert counts["furthest_point_sample_cuda"] == 5
     assert counts["ball_query_cuda"] == 5
-    assert counts["ball_query_lists_in_memory"] == 1
+    assert counts["ball_query_ordered"] == 1
     assert counts["group_points_cuda"] == 5
     cpu, gpu = outs["cpu"], outs[str(card)]
     for k in ("sa1_inds", "sa2_inds", "aggregated_vote_inds"):
