@@ -23,7 +23,10 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      points, views off a 16-byte boundary), the row gather at its eight
      sites (odd and
      even widths, views off a 16-byte boundary, a ragged row count), and
-     the two pack-tile probes; indices, words, counts and gathered rows
+     the two pack-tile probes (eight tiles, from all zeros to all ones;
+     HGMMA in their library's SASS, no spill; an empty launch of their
+     grid timed beside them); indices, words, counts
+     and gathered rows
      must be equal; kernel, plain and library-call times and the bound at
      those shapes, and the kernels' own time on the device from a profiler
      trace beside the event time; the same for the tiers above the main
@@ -371,7 +374,7 @@ def check_kernels(torch, np, sm_clock_mhz):
     fps_sites.append(mvn["fps"])
     variant_sites["ball_query_ordered"].insert(0, mvn["ball_query_ordered"])
     gather_sites.append(mvn["gather"])
-    probe_sites = check_probes(torch, np)
+    probe_sites = check_probes(torch)
     return (fps_sites, bq_sites, pack_sites, gather_sites, probe_sites,
             variant_sites)
 
@@ -595,25 +598,42 @@ def check_gather(torch, bq_idx):
     return sites
 
 
-def check_probes(torch, np):
+def check_probes(torch):
     """The two pack-tile probe kernels against their plain versions on
-    crafted, random and all-ones tiles: every float and every word equal."""
-    from scan2cap_torch.kernels import pack_probe_cuda, shift_probe_cuda
+    every tile of ``probes.pack.probe_tiles`` (crafted; densities 0.3, 0.05
+    and 0.5; all ones; all zeros; a random 32-bit pattern in every word;
+    rows of lo = hi = 65535): every float and every word equal.  The
+    product must be on the tensor cores (HGMMA in the library's SASS).
+    Times beside the device time of an empty launch of the same grid."""
+    from scan2cap_torch.kernels import _build
+    from scan2cap_torch.kernels import pack_probe as probe_kernels
     from scan2cap_torch.probes import pack, shift
 
+    sass = _build.sass("pack_probe")
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    require(hgmma > 0, "csrc/pack_probe.cu: no HGMMA in the library's SASS, "
+            "the product is not on the tensor cores")
     dev = torch.device("cuda")
-    rs = np.random.RandomState(5)
-    tiles = [("crafted", pack.crafted_hits(), shift.crafted_ints()),
-             ("random", (rs.rand(1, 256, 512) < 0.3).astype(np.float32),
-              rs.randint(0, 65536, (1, 256, 128)).astype(np.int32)),
-             ("all_ones", np.ones((1, 256, 512), np.float32),
-              np.full((1, 256, 128), 65535, np.int32))]
+    # views off the kernels' boundaries raise before a launch
+    for call in (lambda x: probe_kernels.pack_probe_cuda(x),
+                 lambda x: probe_kernels.shift_probe_cuda(
+                     x, torch.zeros((1, 256, 128), dtype=torch.int32,
+                                    device=dev))):
+        off = torch.zeros(256 * 512 + 1, device=dev)[1:].view(1, 256, 512)
+        try:
+            call(off)
+        except ValueError:
+            continue
+        raise PhaseError("a pack probe took a hit tile off a 16-byte "
+                         "boundary")
     err = {"pack_probe": 0.0, "shift_probe": 0.0}
+    tiles = pack.probe_tiles()
     for name, hit, ints in tiles:
         h, i = torch.from_numpy(hit).to(dev), torch.from_numpy(ints).to(dev)
-        raw, word = pack_probe_cuda(h)
         praw, pword = pack.pack_probe_plain(h)
-        outs, pouts = shift_probe_cuda(h, i), shift.shift_probe_plain(h, i)
+        pouts = shift.shift_probe_plain(h, i)
+        raw, word = probe_kernels.pack_probe_cuda(h)
+        outs = probe_kernels.shift_probe_cuda(h, i)
         torch.cuda.synchronize()
         require(torch.equal(raw, praw) and torch.equal(word, pword),
                 f"pack probe tile {name}: kernel != plain")
@@ -625,7 +645,7 @@ def check_probes(torch, np):
         err["shift_probe"] = max([err["shift_probe"]] + [
             float((a - b).abs().max()) for a, b in zip(outs, pouts)])
 
-    h = torch.from_numpy(tiles[1][1]).to(dev)
+    h = torch.from_numpy(tiles[1][1]).to(dev)          # density 0.3
     i = torch.from_numpy(tiles[1][2]).to(dev)
     P = pack.pack_matrix(dev)
 
@@ -640,23 +660,33 @@ def check_probes(torch, np):
         return (lo | (hi << 16), lo | (hi * 65536), lo + (hi << 16),
                 lo | ((hi << 8) << 8), i[0, :, :16] << 16, lo | (hi << 16))
 
+    empty_ms = device_only_ms(lambda: probe_kernels.empty_launch_cuda(dev),
+                              50)["ms"]
     flops = 2 * 256 * 48 * 512
     tile, out = 256 * 512 * 4, 256 * 128 * 4
     sites = {}
     for name, kern, plain, lib, nbytes in (
-            ("pack_probe", lambda: pack_probe_cuda(h),
+            ("pack_probe", lambda: probe_kernels.pack_probe_cuda(h),
              lambda: pack.pack_probe_plain(h), lib_pack, tile + 2 * out),
-            ("shift_probe", lambda: shift_probe_cuda(h, i),
+            ("shift_probe", lambda: probe_kernels.shift_probe_cuda(h, i),
              lambda: shift.shift_probe_plain(h, i), lib_shift,
              tile + out + 6 * out)):
         b_ms, by = bound_ms(nbytes, flops)
         sites[name] = [dict(site="tile", shape=[1, 256, 512],
+                            split=probe_kernels.SPLIT,
                             ms=cuda_ms(torch, kern, iters=50),
                             device_ms=device_only_ms(kern, 50)["ms"],
+                            empty_launch_device_ms=empty_ms,
                             plain_ms=cuda_ms(torch, plain, iters=50),
                             library_ms=cuda_ms(torch, lib, iters=50),
                             bound_ms=b_ms, bound_by=by,
-                            max_abs_err=err[name])]
+                            max_abs_err=err[name], tiles=len(tiles),
+                            hgmma_in_sass=hgmma)]
+        print(f"  {name}: {sites[name][0]['device_ms']:.5f} ms on the "
+              f"device (empty launch {empty_ms:.5f}), split "
+              f"{probe_kernels.SPLIT}, {len(tiles)} tiles exact, "
+              f"{hgmma} HGMMA",
+              flush=True)
     return sites
 
 
@@ -2402,6 +2432,14 @@ def main(argv=None) -> int:
     spilled = [k["name"] for k in resources["fps"]
                if k.get("spill_stores") or k.get("spill_loads")]
     require(not spilled, f"FPS kernel variants spill registers: {spilled}")
+    # the probes' product is on the tensor cores, its accumulator in
+    # registers: a spill would put it in memory
+    probe_built = [k for k in resources["pack_probe"]
+                   if "probe_kernel" in k["name"]]
+    require(probe_built, "the build log holds no pack probe kernel")
+    spilled = [k["name"] for k in probe_built
+               if k.get("spill_stores") or k.get("spill_loads")]
+    require(not spilled, f"pack probe kernels spill registers: {spilled}")
     # the ball query's variants on a path (the main path's, and the ordered
     # scan's at sa1's shape and at MaskVoteNet's aggregation) must keep
     # their queries in registers; another variant that spills is reported

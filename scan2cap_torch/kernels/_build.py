@@ -135,6 +135,14 @@ def kernel_resources(log: str) -> List[Dict]:
     return kernels
 
 
+def sass(name: str) -> str:
+    """The SASS of the built library of ``csrc/<name>.cu``, as ``cuobjdump
+    -sass`` (beside nvcc) prints it."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", _paths(name)[1]], check=True,
+                          capture_output=True, text=True).stdout
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     with _lock:

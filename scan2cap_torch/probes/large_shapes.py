@@ -17,18 +17,18 @@ version once.
 Run from any directory:
   python scan2cap_torch/probes/large_shapes.py [--root CHECKOUT] [--json PATH]
 ``--root`` names the checkout whose ``scan2cap_torch`` is timed (default:
-the one this file lies in).  Needs the card.
+the one this file lies in).  Needs the card.  The runner is
+``checkout.py``.
 """
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+if __package__:
+    from scan2cap_torch.probes import checkout
+else:           # run as a file, before --root's package is imported
+    import checkout
 
 # (name, N, npoint) and (name, B, N, M, radius, nsample)
 FPS_SITES = (("room_100000", 100000, 2048), ("room_150000", 150000, 2048),
@@ -52,23 +52,16 @@ def room(np, rs, batch, n):
     return xyz
 
 
-def run(root):
-    sys.path.insert(0, root)
+def run():
     import numpy as np
     import torch
 
-    import scan2cap_torch
     from scan2cap_torch.kernels import (ball_query_cuda, ballquery, fps,
                                         furthest_point_sample_cuda)
     from scan2cap_torch.ops.grouping import ball_query_plain, radius_squared
     from scan2cap_torch.ops.sampling import furthest_point_sample_plain
     from scan2cap_torch.probes.timing import device_ms, event_ms
 
-    if not torch.cuda.is_available():
-        raise SystemExit("large_shapes: needs the card")
-    package = os.path.dirname(os.path.abspath(scan2cap_torch.__file__))
-    if os.path.dirname(package) != os.path.abspath(root):
-        raise SystemExit(f"large_shapes: imported {package}, not {root}")
     dev = torch.device("cuda")
     rows = []
     for i, (name, n, npoint) in enumerate(FPS_SITES):
@@ -107,32 +100,14 @@ def run(root):
                          radius=r, variant=list(ballquery.VARIANTS[v]),
                          device_ms=device_ms(call, 20)["ms"],
                          ms=event_ms(call, 20), equal=equal))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    return dict(root=os.path.abspath(root), card=smi.stdout.strip(),
-                rows=rows)
+    return dict(rows=rows)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
-                    help="the checkout whose kernels are timed")
-    ap.add_argument("--json", metavar="PATH",
-                    help="append the result there as one JSON line")
-    args = ap.parse_args(argv)
-    result = run(os.path.abspath(args.root))
-    for r in result["rows"]:
-        print(f"{r['kernel']:>8} {r['site']:>16} {str(r['variant']):<18} "
-              f"dev {r['device_ms']:8.4f} ms  events {r['ms']:8.4f} ms  "
-              f"{'equal' if r['equal'] else 'DIFFERS'}")
-    line = json.dumps(result)
-    if args.json:
-        with open(args.json, "a") as f:
-            f.write(line + "\n")
-    print(line)
-    return 0 if all(r["equal"] for r in result["rows"]) else 1
+def show(r) -> str:
+    return (f"{r['kernel']:>8} {r['site']:>16} {str(r['variant']):<18} "
+            f"dev {r['device_ms']:8.4f} ms  events {r['ms']:8.4f} ms  "
+            f"{'equal' if r['equal'] else 'DIFFERS'}")
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(checkout.main(__file__, __doc__, run, show))

@@ -89,6 +89,51 @@ def crafted_hits(vals=VALS) -> np.ndarray:
     return hit
 
 
+def word_bits(words: np.ndarray) -> np.ndarray:
+    """(MQ, 16) uint32 words -> the (1, MQ, NC) float32 0/1 hit tile whose
+    point 32k + b is bit b of word k."""
+    shifts = np.arange(32, dtype=np.uint64)
+    bits = (words.astype(np.uint64)[..., None] >> shifts) & 1
+    return bits.reshape(1, MQ, NC).astype(np.float32)
+
+
+def probe_tiles(seed: int = 5):
+    """The tiles both probe kernels are held to against their plain
+    versions, as (name, hit (1, MQ, NC) float32 0/1, ints (1, MQ, OUT)
+    int32): the crafted rows; hits at densities 0.3 (the TPU probes'
+    random tile), 0.05 and 0.5; all ones and all zeros; every row a
+    different random 32-bit pattern in each of its 16 words; and every
+    other row with lo = hi = 65535 in all 16 words (bit 31 set) between
+    rows of random patterns."""
+    from scan2cap_torch.probes.shift import crafted_ints
+    rs = np.random.RandomState(seed)
+
+    def ints():
+        return rs.randint(0, 65536, (1, MQ, OUT)).astype(np.int32)
+
+    def density(p):
+        return (rs.rand(1, MQ, NC) < p).astype(np.float32)
+
+    def patterns():
+        return rs.randint(0, 1 << 32, (MQ, 16), dtype=np.uint64)
+
+    def full_rows():
+        words = patterns()
+        words[::2] = 0xFFFFFFFF
+        return word_bits(words)
+
+    return [("crafted", crafted_hits(), crafted_ints()),
+            ("random", density(0.3), ints()),
+            ("all_ones", np.ones((1, MQ, NC), np.float32),
+             np.full((1, MQ, OUT), 65535, np.int32)),
+            ("zeros", np.zeros((1, MQ, NC), np.float32), ints()),
+            ("density_0.05", density(0.05), ints()),
+            ("density_0.5", density(0.5), ints()),
+            ("patterns_32bit", word_bits(patterns()), ints()),
+            ("lo_hi_65535_rows", full_rows(),
+             np.full((1, MQ, OUT), 65535, np.int32))]
+
+
 def production_words(hit: torch.Tensor) -> torch.Tensor:
     """The tile's hit pattern as geometry through the production pack
     (``ball_query_pack``): word 0 of each row, (MQ,) int64."""

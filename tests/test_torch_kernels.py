@@ -303,26 +303,41 @@ def test_leaf_projection_uses_the_kernel_twice(card):
 
 
 def test_probe_kernels_match_plain(card):
+    """Both probe kernels on every tile of ``probes.pack.probe_tiles``
+    against the plain versions bitwise."""
     from scan2cap_torch.probes import pack, shift
-    rs = np.random.RandomState(5)
-    for hit in (pack.crafted_hits(),
-                (rs.rand(1, 256, 512) < 0.3).astype(np.float32),
-                np.ones((1, 256, 512), np.float32)):
+    for name, hit, ints in pack.probe_tiles():
         ht = torch.from_numpy(hit).to(card)
-        ints = torch.from_numpy(rs.randint(0, 65536, (1, 256, 128)).astype(
-            np.int32)).to(card)
+        it = torch.from_numpy(ints).to(card)
+        praw, pword = pack.pack_probe_plain(ht)
+        pouts = shift.shift_probe_plain(ht, it)
         before = (kernels.pack_probe_cuda.launches,
                   kernels.shift_probe_cuda.launches)
         raw, word = pack.pack_probe(ht)
-        outs = shift.shift_probe(ht, ints)
+        outs = shift.shift_probe(ht, it)
         assert (kernels.pack_probe_cuda.launches,
                 kernels.shift_probe_cuda.launches) == (before[0] + 1,
                                                        before[1] + 1)
-        praw, pword = pack.pack_probe_plain(ht)
-        assert torch.equal(raw, praw) and torch.equal(word, pword)
-        for got, want in zip(outs, shift.shift_probe_plain(ht, ints)):
-            assert torch.equal(got, want)
+        assert torch.equal(raw, praw) and torch.equal(word, pword), name
+        for got, want in zip(outs, pouts):
+            assert torch.equal(got, want), name
     assert pack.run(card)[1] == 0 and shift.run(card)[1] == 0
+
+
+def test_probe_kernels_refuse_misaligned_views(card):
+    """Views off the kernels' boundaries raise before a launch, and the
+    card's context stays usable."""
+    buf = torch.zeros(256 * 512 + 4, dtype=torch.float32, device=card)
+    hit = buf[1:1 + 256 * 512].view(1, 256, 512)
+    ibuf = torch.zeros(256 * 128 + 2, dtype=torch.int32, device=card)
+    ints = ibuf[1:1 + 256 * 128].view(1, 256, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        kernels.pack_probe_cuda(hit)
+    with pytest.raises(ValueError, match="8-byte"):
+        kernels.shift_probe_cuda(buf[:256 * 512].view(1, 256, 512), ints)
+    raw, _ = kernels.pack_probe_cuda(buf[4:].view(1, 256, 512))
+    torch.cuda.synchronize()
+    assert raw.shape == (1, 256, 128)
 
 
 def test_new_wrappers_check_their_inputs(card):
