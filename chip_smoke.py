@@ -98,11 +98,31 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
  10. the offline scorer on tests/fixtures/benchmark_mini with NMS and the
      rotated assignment on the card: equal to the CPU's results within
      1e-6 and to the pinned values, seconds per stage;
- 11. the JSON lines: kernels, serving, training, eval, cli, mvn,
-     benchmark, and last the device line.
-Launch counts are set to 0 just before each of the paths 4-7 and 9 and
-read just after; the entry points of 8 and 9 count their own (their stats
-files).
+ 11. the pretrained track (``launch/extract_and_train_pretrained.sh``):
+     the caption-only CapNet in gt mode at full width (128 GT boxes, 2
+     graph steps, 10 locals, top-down with relation and orientation, 3,433
+     words, B=32) on a repeated batch, step 1 against the CPU (loss 1e-3,
+     gradient norms 1e-2), the loss falls, its greedy decode of every box
+     against the CPU's (tokens >= 99% equal); votenet mode's eval (256
+     proposals) and its IoU-gated candidates against the CPU's; then the
+     entry points as subprocesses on the CLI fixture with a multiview
+     store (the port's .npz) beside it: train_maskvotenet --use_multiview
+     --use_normal (B=16, one epoch), extract_gt_features on train (two
+     augmented passes) and val, train_pretrained (gt, the launch script's
+     flags, an in-training eval), eval_pretrained, extract_votenet_features
+     from a multiview detector's run folder, train_pretrained and
+     eval_pretrained in votenet mode; every loss finite and every store key
+     present, launches per extraction forward (MaskVoteNet 5 FPS, 5
+     first-k of which 1 ordered, 5 gathers; the detector 5, 5, 5), one
+     forward of each extractor held launch by launch against the plain
+     versions and traced, MaskVoteNet's features equal to the stored ones,
+     and the object encoder on the fixture's crops (one by one and two
+     scenes of 128 crops in one launch a layer) held the same way;
+ 12. the JSON lines: kernels, serving, training, eval, cli, mvn,
+     benchmark, pretrained, and last the device line.
+Launch counts are set to 0 just before each of the paths 4-7, 9 and 11
+and read just after; the entry points of 8, 9 and 11 count their own (their
+stats files and output).
 ``--kernels-only`` stops after phase 3 (a short first check of a new
 kernel).  Imports nothing of JAX.
 """
@@ -2355,6 +2375,735 @@ def benchmark_phase(torch, np, dev="cuda"):
     return report
 
 
+# -------------------------------------------------------------------- phase 11
+# the pretrained track (launch/extract_and_train_pretrained.sh): the
+# caption-only CapNet's flags, its CLI batch, and the card-vs-CPU decode's
+# batch in votenet mode (256 boxes a scene)
+PRE_FLAGS = ("--use_topdown", "--use_relation", "--num_graph_steps", "2",
+             "--num_locals", "10")
+PRE_BATCH = 32
+PRE_VOTENET_EVAL_BATCH = 8
+# the object encoder: the reference's 1,024-point crops, a batch of them
+# one by one and two scenes of 128 crops whole
+ENCODER_POINTS = 1024
+ENCODER_BATCH = 32
+ENCODER_SCENES = 2
+# launches of one extraction forward, MaskVoteNet's (one first-k through
+# the ordered scan, its aggregation) and the multiview detector's alike
+# (sa1 gather-lean at 136 and 135 columns); the encoder's sa1 (height and
+# mask) gathers xyz and features apart
+EXTRACT_FORWARD = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
+                       group_points_cuda=5)
+ENCODER_FORWARD = dict(furthest_point_sample_cuda=4, ball_query_cuda=4,
+                       group_points_cuda=5)
+
+
+def pretrained_config(mode, **overrides):
+    from scan2cap_torch.config import ModelConfig
+    base = dict(num_proposals=128 if mode == "gt" else 256,
+                num_graph_steps=2, num_locals=10, use_topdown=True,
+                use_relation=True, use_orientation=True)
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
+def condition_graph(torch, model):
+    """The graph's sum-aggregated messages of a fresh model reach the
+    hundreds, where float32 keeps 5 digits: shrink the message layers to a
+    trained model's range (as ``condition_weights`` does for CapNet)."""
+    with torch.no_grad():
+        for layer in (model.graph.gc_0, model.graph.gc_1,
+                      model.graph.edge_layer):
+            layer.map_edge_1.weight.mul_(0.1)
+
+
+def train_pretrained_inprocess(torch, np, dev="cuda", sizes=None,
+                               B=PRE_BATCH, num_vocabs=NUM_VOCABS, warmup=2,
+                               steps=5, windows=3, lr=1e-3):
+    """CapNetPretrained in gt mode at the launch script's width (128 GT
+    boxes, 2 graph steps, 10 locals, top-down with relation and
+    orientation, 3,433 words, B=32) on a repeated synthetic batch: step 1
+    against the port on the CPU (loss 1e-3, gradient norms 1e-2), the loss
+    falls, ms per step over ``windows`` spans, and the greedy decode of
+    every box against the CPU's."""
+    from scan2cap_torch.data.synthetic import (make_pretrained_batch,
+                                               make_vocab, to_device)
+    from scan2cap_torch.models.capnet_pretrained import CapNetPretrained
+    from scan2cap_torch.train.step import (PRETRAINED_REPORT_KEYS,
+                                           create_train_state, make_eval_step,
+                                           make_pretrained_step)
+
+    card = dev != "cpu"
+    cfg = pretrained_config("gt", **(sizes or {}))
+    vocab = make_vocab(num_vocabs, cfg.emb_size)
+    host = make_pretrained_batch(cfg, "gt", B, vocab, seed=0)
+    batch = to_device(host, dev)
+
+    def build(device):
+        model = CapNetPretrained(cfg, "gt", num_vocabs, device=device, seed=0)
+        condition_graph(torch, model)
+        state = create_train_state(cfg, model)
+        return model, make_pretrained_step(cfg, state, "gt", orientation=True)
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    model, step = build(dev)
+    t0 = time.perf_counter()
+    first = {k: float(v) for k, v in step(batch, lr, 0.1).items()}
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    require(set(first) == set(PRETRAINED_REPORT_KEYS), f"metrics {first}")
+    require(all(np.isfinite(v) for v in first.values())
+            and first["cap_loss"] > 0 and first["ori_loss"] > 0,
+            f"pretrained step 1: {first}")
+    cpu_ref = None
+    if card:
+        norms = grad_norms(model)
+        cpu_model, cpu_step = build("cpu")
+        t0 = time.perf_counter()
+        cpu_first = {k: float(v) for k, v in
+                     cpu_step(to_device(host, "cpu"), lr, 0.1).items()}
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        loss_rel, worst_name, worst_rel = step1_parity(
+            np, first, cpu_first, norms, grad_norms(cpu_model),
+            "CapNetPretrained")
+        del cpu_model, cpu_step
+        cpu_ref = dict(ms=cpu_ms, loss=cpu_first["loss"],
+                       loss_rel_err=loss_rel, worst_grad_norm_rel_err=worst_rel,
+                       worst_grad_norm_tensor=worst_name)
+    for _ in range(warmup - 1):
+        step(batch, lr, 0.1)
+    sync()
+    window_ms, losses = [], []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        span = [step(batch, lr, 0.1) for _ in range(steps)]
+        sync()
+        window_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+        losses += [float(m["loss"]) for m in span]
+    require(all(np.isfinite(losses)) and np.mean(losses[-steps:]) < first["loss"],
+            f"the pretrained loss did not fall on a repeated batch: "
+            f"{first['loss']} then {losses}")
+
+    # the greedy decode of every box, card against the CPU on the trained
+    # weights
+    eval_step = make_eval_step(cfg, model, detection_loss=False)
+    sync()
+    t0 = time.perf_counter()
+    tokens = eval_step(batch)["lang_cap"]
+    sync()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    cpu_model = CapNetPretrained(cfg, "gt", num_vocabs, device="cpu", seed=1)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()}, strict=True)
+    cpu_tokens = make_eval_step(cfg, cpu_model, detection_loss=False)(
+        to_device(host, "cpu"))["lang_cap"]
+    # a decode over 3,433 words on two devices may flip a near-tied argmax:
+    # the serving phase's gate, 99%
+    agree = float((tokens.cpu() == cpu_tokens).float().mean())
+    if card:
+        require(agree >= 0.99, f"pretrained greedy decode: {agree:.4f} of "
+                f"the tokens equal card vs CPU")
+    ms = sorted(window_ms)[len(window_ms) // 2]
+    return dict(batch=B, boxes=cfg.num_proposals, num_vocabs=num_vocabs,
+                hidden=cfg.hidden_size, first_step_ms=first_ms,
+                window_ms_per_step=window_ms, ms_per_step=ms,
+                samples_per_s=B / ms * 1e3, step1=first, loss_by_step=losses,
+                cpu_reference=cpu_ref, eval_ms_per_batch=eval_ms,
+                decode_tokens=int(np.asarray(cpu_tokens).size),
+                decode_tokens_equal_share=agree)
+
+
+def votenet_eval_inprocess(torch, np, dev="cuda", sizes=None,
+                           B=PRE_VOTENET_EVAL_BATCH, num_vocabs=NUM_VOCABS):
+    """CapNetPretrained in votenet mode (256 stored proposals) at full
+    width: the eval forward and ``feed_pretrained_cap`` on the card and on
+    the CPU with the same weights; the IoU gate (bitwise box IoU) keeps the
+    same boxes, and the captions agree."""
+    from scan2cap_torch.data.synthetic import make_pretrained_batch, make_vocab
+    from scan2cap_torch.eval.eval_pretrained import feed_pretrained_cap
+    from scan2cap_torch.models.capnet_pretrained import CapNetPretrained
+    from scan2cap_torch.train.step import make_eval_step
+
+    cfg = pretrained_config("votenet", **(sizes or {}))
+    vocab = make_vocab(num_vocabs, cfg.emb_size)
+    host = make_pretrained_batch(cfg, "votenet", B, vocab, seed=1)
+    # a few proposals overlap the reference box: copies of the target's box
+    # at growing offsets
+    target = host["object_id"]
+    for b in range(B):
+        for j, dx in enumerate((0.05, 0.15, 0.3, 0.6)):
+            k = cfg.num_proposals - 1 - j
+            host["bbox_corner"][b, k] = host["bbox_corner"][b, target[b]] + dx
+            host["bbox_mask"][b, k] = 1
+            host["scene_object_ids"][b, k] = target[b]
+    scanrefer = [{"scene_id": f"scene{b:04d}_00"} for b in range(B)]
+    organized = {s["scene_id"]: {str(o): {"0": {"object_name": "chair"}}
+                                 for o in range(cfg.num_proposals)}
+                 for s in scanrefer}
+    dataset = EvalDataset(vocab, scanrefer)
+    found = {}
+    for device in (dev, "cpu"):
+        model = CapNetPretrained(cfg, "votenet", num_vocabs, device=device,
+                                 seed=0)
+        condition_graph(torch, model)
+        step = make_eval_step(cfg, model, detection_loss=False)
+        t0 = time.perf_counter()
+        found[device] = feed_pretrained_cap(step, dataset, [host], organized,
+                                            mode="votenet", min_iou=0.5,
+                                            device=device)
+        found[device + "_ms"] = (time.perf_counter() - t0) * 1e3
+    got, want = found[dev], found["cpu"]
+    require(set(got) == set(want) and 0 < len(got) < B * cfg.num_proposals,
+            f"votenet candidates: card {len(got)}, CPU {len(want)}, "
+            f"{sorted(set(got) ^ set(want))[:4]}")
+    same = sum(got[k] == want[k] for k in want) / len(want)
+    if dev != "cpu":
+        require(same >= 0.99, f"votenet captions: {same:.4f} equal card vs "
+                f"CPU")
+    return dict(batch=B, boxes=cfg.num_proposals, candidates=len(got),
+                captions_equal_share=same, feed_ms=found[dev + "_ms"],
+                cpu_feed_ms=found["cpu_ms"])
+
+
+def write_multiview_store(np, data, scenes, points, seed=0):
+    """The multiview features of the fixture's scenes as the port's store
+    (one seeded (P, 128) float32 array a scene); returns (path, bytes)."""
+    from scan2cap_torch.data.feature_store import FeatureStoreWriter
+    rng = np.random.default_rng(seed)
+    path = os.path.join(data, "scannet", "scannet_data",
+                        "enet_feats_maxpool.npz")
+    with FeatureStoreWriter(path) as db:
+        for sid in scenes:
+            db[sid] = rng.standard_normal((points, 128), np.float32) * 0.1
+    return path, os.path.getsize(path)
+
+
+def held_forward(torch, fn, want, what):
+    """fn() with every kernel launch held against its plain version on the
+    card; the launches must be ``want`` (and one first-k through the ordered
+    scan when the forward has MaskVoteNet's aggregation)."""
+    with HeldAgainstPlain(torch) as held:
+        out = fn()
+    torch.cuda.synchronize()
+    by_kernel = {}
+    for kernel, _ in held.checked:
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+    require(by_kernel == want, f"{what} held against the plain versions: "
+            f"{by_kernel}, want {want}")
+    return out, dict(exact=len(held.checked), by_kernel=by_kernel,
+                     ordered=sum(1 for k, s in held.checked
+                                 if k == "ball_query_cuda" and s[-1] > 256),
+                     shapes=[[k, s] for k, s in held.checked])
+
+
+def encoder_on_card(torch, np, data, train_scenes, card, rehearse):
+    """The object encoder on fixture crops (``ScannetObjectDataset``): a
+    batch of single 1,024-point crops (sa1 samples 2,048 points of each)
+    and two whole scenes of 128 crops in one launch a layer; every launch
+    held against its plain version, invalid crops zero."""
+    from scan2cap_torch.data.dataset import Loader
+    from scan2cap_torch.data.dataset_object import ScannetObjectDataset
+    from scan2cap_torch.data.synthetic import to_device
+    from scan2cap_torch.models.encoder import PointnetEncoder
+
+    dev = "cuda" if card else "cpu"
+    with open(os.path.join(data, "ScanRefer_filtered_train.json")) as f:
+        entries = json.load(f)
+    common = dict(scannet_data_dir=os.path.join(data, "scannet",
+                                                "scannet_data"),
+                  glove_path=os.path.join(data, "glove.p"),
+                  num_points=256 if rehearse else ENCODER_POINTS,
+                  use_height=True)
+    sa = (512, 256, 128, 64) if rehearse else (2048, 1024, 512, 256)
+    single = ScannetObjectDataset(entries, train_scenes, **common)
+    whole = ScannetObjectDataset(entries, train_scenes, whole_scene=True,
+                                 is_eval=True, **common)
+    report = {}
+    for name, ds, B in (("per_object", single, ENCODER_BATCH),
+                        ("whole_scene", whole, ENCODER_SCENES)):
+        loader = Loader(ds, B, shuffle=False, drop_last=True)
+        host = next(iter(loader))
+        loader.close()
+        batch = to_device(host, dev)
+        model = PointnetEncoder(input_feature_dim=2,
+                                whole_scene=name == "whole_scene",
+                                sa_npoints=sa, device=dev, seed=0)
+
+        def forward():
+            with torch.inference_mode():
+                return model(batch, train=False)
+
+        if card:
+            out, held = held_forward(torch, forward, ENCODER_FORWARD,
+                                     f"the encoder ({name})")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        else:
+            out, held, ms = forward(), None, None
+        feats = out["enc_features"].cpu().numpy()
+        require(np.isfinite(feats).all(), f"encoder ({name}) not finite")
+        if name == "whole_scene":
+            masks = host["target_masks"]
+            require(masks.sum() > 0 and (feats[masks == 0] == 0).all()
+                    and (np.abs(feats[masks == 1]).max(-1) > 0).all(),
+                    "whole-scene encoder: invalid crops must be zero")
+        report[name] = dict(batch=B, crops=int(np.prod(
+            host["point_clouds"].shape[:-2])), crop_points=common[
+            "num_points"], sa_npoints=list(sa), ms=ms, held=held)
+    return report
+
+
+def extraction_check(torch, card, forward, loader_batch, want, what):
+    """One extraction forward in process on a batch of the fixture, each
+    launch held against its plain version and the forward's kernel time
+    from a trace.  Returns (report, the forward's output)."""
+    from scan2cap_torch.data.synthetic import to_device
+    batch = to_device(loader_batch, "cuda" if card else "cpu")
+    if not card:
+        return None, forward(batch)
+    out, held = held_forward(torch, lambda: forward(batch), want, what)
+    return dict(held=held, profile=profile_step(lambda: forward(batch),
+                                                what)), out
+
+
+def pretrained_cli(torch, np, dev="cuda", rehearse=False):
+    """The pretrained track through the port's entry points as subprocesses
+    on the CLI fixture with a multiview store beside it: MaskVoteNet at the
+    launch script's flags (--use_multiview --use_normal, B=16, one epoch),
+    extract_gt_features on train (2 augmented passes) and val,
+    train_pretrained (gt) with the launch script's flags and an in-training
+    eval, eval_pretrained; then extract_votenet_features from a multiview
+    detector's run folder, train_pretrained and eval_pretrained in votenet
+    mode.  Every loss finite and every store key present; launches per
+    extraction forward; one forward of each extractor and the encoder
+    held against the plain versions in process.  ``rehearse`` shrinks
+    scenes and models for the CPU (``SCAN2CAP_TEST_TINY``)."""
+    import shutil
+    import tempfile
+
+    from scan2cap_torch.data.dataset import Loader, ScannetReferenceDataset
+    from scan2cap_torch.data.dataset_maskvotenet import (
+        MaskScannetReferenceDataset)
+    from scan2cap_torch.data.dataset_pretrained import (
+        PretrainedGTDataset, PretrainedVoteNetDataset)
+    from scan2cap_torch.data.feature_store import open_feature_store
+    from scan2cap_torch.data.synthetic import to_device
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.models.mask_votenet import MaskVoteNet
+    from scan2cap_torch.scripts.train import model_config_from_info
+    from scan2cap_torch.scripts.train_maskvotenet import (
+        model_config_from_args)
+    from scan2cap_torch.train.checkpoints import CheckpointIO, model_bundle
+    from scan2cap_torch.train.step import make_eval_step
+
+    on_card = dev != "cpu"
+    root = tempfile.mkdtemp(prefix="scan2cap_pre_")
+    logs = os.path.join(ROOT, "chiprun_out", "pretrained")
+    os.makedirs(logs, exist_ok=True)
+    report = {}
+    try:
+        t0 = time.perf_counter()
+        points = 3000 if rehearse else CLI_SCENE_POINTS
+        num_points = 2048 if rehearse else 40000
+        data, train, val = write_scannet_fixture(np, root, points=points)
+        mv_path, mv_bytes = write_multiview_store(np, data, train + val,
+                                                  points)
+        report["fixture_s"] = time.perf_counter() - t0
+        out = os.path.join(root, "outputs")
+        env = dict(os.environ, SCAN2CAP_DATA=data, SCAN2CAP_OUTPUT=out,
+                   PYTHONPATH=ROOT)
+        env.pop("SCAN2CAP_TEST_TINY", None)
+        if rehearse:
+            env["SCAN2CAP_TEST_TINY"] = "1"
+        scannet = os.path.join(data, "scannet", "scannet_data")
+        glove = os.path.join(data, "glove.p")
+
+        def run(module, args, tag=None):
+            text, wall = run_entry_point(
+                f"scan2cap_torch.scripts.{module}",
+                [*args, "--device", dev], env, logs)
+            report.setdefault("wall_s", {})[tag or module] = wall
+            return text
+
+        def run_folder(tag):
+            return next(d for d in os.listdir(out)
+                        if d.endswith("_" + tag.upper()))
+
+        def train_stats(run_name):
+            with open(os.path.join(out, run_name, "train_stats.json")) as f:
+                stats = json.load(f)
+            losses = [x for e in stats["epochs"] for x in e["losses"]]
+            require(len(losses) == stats["steps"] > 0
+                    and all(np.isfinite(losses)),
+                    f"{run_name} losses: {losses}")
+            step_s = sorted(x for e in stats["epochs"]
+                            for x in e["step_s"][1:]) or [float("nan")]
+            return stats, losses, step_s[len(step_s) // 2] * 1e3
+
+        def extract_stats(text, batches, want, what):
+            line = next(l for l in text.splitlines()[::-1]
+                        if l.startswith("extract_stats "))
+            stats = json.loads(line[len("extract_stats "):])
+            require(stats["batches"] == batches, f"{what}: {stats['batches']} "
+                    f"batches, want {batches}")
+            per = per_call(stats["launches"], stats["batches"])
+            if not rehearse:
+                for k, v in want.items():
+                    require(per.get(k) == v, f"{what}: {k} {per.get(k)} "
+                            f"launches per forward, want {v}")
+                if what.startswith("extract_gt"):
+                    require(per.get("ball_query_ordered") == 1,
+                            f"{what}: {per.get('ball_query_ordered')} ordered "
+                            f"first-k per forward, want 1")
+            warm = sorted(stats["forward_ms"][1:] or stats["forward_ms"])
+            stats.update(launches_per_forward=per,
+                         forward_ms_per_batch=warm[len(warm) // 2],
+                         wall_ms_per_batch=stats["seconds"] * 1e3
+                         / stats["batches"],
+                         descriptions_per_s=stats["samples"]
+                         / stats["seconds"])
+            return stats
+
+        def keys_present(path, want_keys, what):
+            with open_feature_store(path) as db:
+                missing = sorted(set(want_keys) - set(db.keys()))
+                require(not missing, f"{what}: keys missing {missing[:4]}")
+                return len(db), os.path.getsize(path)
+
+        # multiview reads: the store alone, and a MaskVoteNet item
+        with open(os.path.join(data, "ScanRefer_filtered_train.json")) as f:
+            train_entries = json.load(f)
+        mask_ds = MaskScannetReferenceDataset(
+            train_entries, train, scannet_data_dir=scannet, glove_path=glove,
+            num_points=num_points, use_height=True, use_normal=True,
+            use_multiview=True, multiview_path=mv_path, augment=True)
+        with open_feature_store(mv_path) as db:
+            buf = np.empty(db.shape(train[0]), np.float32)
+            t0 = time.perf_counter()
+            for sid in train:
+                db.read_into(sid, buf)
+            report["multiview_read_ms"] = (
+                (time.perf_counter() - t0) * 1e3 / len(train))
+        mask_ds.__getitem__(0, np.random.RandomState(0))
+        t0 = time.perf_counter()
+        for i in range(8):
+            mask_ds.__getitem__(i, np.random.RandomState(i))
+        report["multiview_getitem_ms"] = (time.perf_counter() - t0) * 1e3 / 8
+        report["multiview_store_bytes"] = mv_bytes
+
+        # 1. MaskVoteNet at the launch script's flags
+        run("train_maskvotenet", [
+            "--batch_size", str(MVN_BATCH), "--use_normal", "--use_multiview",
+            "--epoch", "1", "--verbose", "1", "--num_points", str(num_points),
+            "--tag", "smoke_pre_mvn"])
+        mvn_run = run_folder("smoke_pre_mvn")
+        stats, losses, step_ms = train_stats(mvn_run)
+        per_step = per_call(stats["launches"], stats["steps"])
+        if not rehearse:
+            mvn_launches_right(per_step, "MaskVoteNet with multiview")
+        report["mask_votenet"] = dict(steps=stats["steps"], losses=losses,
+                                      ms_per_step=step_ms,
+                                      launches_per_step=per_step,
+                                      launches=stats["launches"])
+
+        # 2. GT features: train (2 augmented passes) and val
+        pairs = len(mask_ds)
+        with open(os.path.join(data, "ScanRefer_filtered_val.json")) as f:
+            val_pairs = len({(e["scene_id"], e["object_id"])
+                             for e in json.load(f)})
+        batches = 2 * -(-pairs // MVN_BATCH)              # two passes
+        text = run("extract_gt_features", [
+            "--folder", mvn_run, "--split", "train", "--epoch", "2",
+            "--batch_size", str(MVN_BATCH)], "extract_gt_train")
+        gt_train = extract_stats(text, batches, EXTRACT_FORWARD,
+                                 "extract_gt_features (train)")
+        text = run("extract_gt_features", [
+            "--folder", mvn_run, "--split", "val", "--batch_size",
+            str(MVN_BATCH)], "extract_gt_val")
+        gt_val = extract_stats(text, -(-val_pairs // MVN_BATCH),
+                               EXTRACT_FORWARD, "extract_gt_features (val)")
+        gt_store = os.path.join(data, "gt_ScanRefer_features_train.npz")
+        suffixes = ("_gt_ids", "_features", "_bbox_corners", "_gt_corners")
+        gt_train["keys"], gt_train["bytes"] = keys_present(
+            gt_store, [f"{e}|{s}{x}" for e in range(2) for s in train
+                       for x in suffixes], "the GT train store")
+        gt_val["keys"], gt_val["bytes"] = keys_present(
+            os.path.join(data, "gt_ScanRefer_features_val.npz"),
+            [f"0|{s}{x}" for s in val for x in suffixes], "the GT val store")
+        report["extract_gt"] = dict(train=gt_train, val=gt_val)
+
+        # one MaskVoteNet extraction forward in process: held, traced, and
+        # equal to what the entry point stored for its first batch
+        with open(os.path.join(out, mvn_run, "info.json")) as f:
+            info = json.load(f)
+        os.environ.update({k: env[k] for k in ("SCAN2CAP_TEST_TINY",)
+                           if k in env})
+        mcfg = model_config_from_args(argparse.Namespace(**info))
+        os.environ.pop("SCAN2CAP_TEST_TINY", None)
+        extract_ds = MaskScannetReferenceDataset(
+            train_entries, train, scannet_data_dir=scannet, glove_path=glove,
+            num_points=num_points, use_height=True, use_normal=True,
+            use_multiview=True, multiview_path=mv_path, augment=True)
+        loader = Loader(extract_ds, MVN_BATCH, shuffle=False, seed=42,
+                        drop_last=False)
+        first_batch = next(iter(loader))
+        loader.close()
+
+        mvn = MaskVoteNet(mcfg, device=dev, seed=1)
+        mvn.load_state_dict(CheckpointIO(os.path.join(
+            out, mvn_run, "ckpt")).restore("last")["model"], strict=True)
+
+        def mvn_forward(batch):
+            with torch.inference_mode():
+                return mvn(batch, train=False)
+
+        check, mvn_out = extraction_check(torch, on_card, mvn_forward,
+                                          first_batch, EXTRACT_FORWARD,
+                                          "MaskVoteNet extraction")
+        if on_card:
+            require(check["held"]["ordered"] == 1, "MaskVoteNet extraction: "
+                    "the aggregation's first-k must go through the ordered "
+                    "scan")
+        # the entry point stored each scene's rows in loader order: the
+        # first batch's sample b is row (its scene's count among samples
+        # 0..b-1) of its scene
+        feats = mvn_out["aggregated_vote_features"][:, 0].cpu().numpy()
+        seen = {}
+        with open_feature_store(gt_store) as db:
+            for b, i in enumerate(first_batch["dataset_idx"]):
+                sid = extract_ds.scanrefer[int(i)]["scene_id"]
+                row = seen.get(sid, 0)
+                seen[sid] = row + 1
+                stored = db[f"0|{sid}_features"][row]
+                require(np.abs(stored - feats[b]).max()
+                        <= 1e-5 * max(np.abs(feats[b]).max(), 1.0),
+                        f"the stored feature of {sid} row {row} is not the "
+                        f"in-process forward's")
+        report["extract_gt"]["forward"] = check
+
+        # __getitem__ of the pretrained datasets over the written stores
+        gt_ds = PretrainedGTDataset(train_entries, gt_store, split="train",
+                                    glove=mask_ds.glove)
+        t0 = time.perf_counter()
+        for i in range(16):
+            gt_ds.__getitem__(i, np.random.RandomState(i))
+        report["gt_getitem_ms"] = (time.perf_counter() - t0) * 1e3 / 16
+        require(gt_ds.num_preset_epochs == 2, f"the GT dataset draws from "
+                f"{gt_ds.num_preset_epochs} stored passes, want 2")
+
+        # 3. train_pretrained (gt) with an in-training eval, 4. eval
+        pre_steps = len(train_entries) // PRE_BATCH
+        run("train_pretrained", [
+            "--mode", "gt", *PRE_FLAGS, "--batch_size", str(PRE_BATCH),
+            "--epoch", "1", "--verbose", "1", "--val_step", str(pre_steps),
+            "--tag", "smoke_pre_gt"], "train_pretrained_gt")
+        gt_run = run_folder("smoke_pre_gt")
+        stats, losses, step_ms = train_stats(gt_run)
+        with open(os.path.join(out, gt_run, "log.txt")) as f:
+            require("[eval @ iter" in f.read(), "train_pretrained (gt): the "
+                    "in-training eval did not fire")
+        report["train_pretrained_gt"] = dict(steps=stats["steps"],
+                                             losses=losses,
+                                             ms_per_step=step_ms)
+        text = run("eval_pretrained", ["--folder", gt_run, "--batch_size",
+                                       str(PRE_BATCH)], "eval_pretrained_gt")
+        report["eval_pretrained_gt"] = eval_report(text, out, gt_run)
+
+        # 5. the votenet leg: a multiview detector's run folder (seeded,
+        # its voting head conditioned so that some proposals are objects)
+        det_info = dict(num_points=num_points, num_proposals=256,
+                        num_locals=-1, num_graph_steps=0, query_mode="center",
+                        graph_mode="edge_conv", graph_aggr="add",
+                        use_relation=False, use_orientation=False,
+                        use_distance=False, use_topdown=False,
+                        use_color=False, use_normal=True, use_multiview=True,
+                        no_height=False, no_caption=True)
+        os.environ.update({k: env[k] for k in ("SCAN2CAP_TEST_TINY",)
+                           if k in env})
+        det_cfg = model_config_from_info(det_info)
+        os.environ.pop("SCAN2CAP_TEST_TINY", None)
+        det_run = "smoke_pre_detector"
+        detector = CapNet(det_cfg, num_vocabs=NUM_VOCABS, device=dev, seed=0)
+        det_ds = ScannetReferenceDataset(
+            [next(e for e in train_entries if e["scene_id"] == s)
+             for s in train], train, scannet_data_dir=scannet,
+            glove_path=glove, num_points=num_points, use_height=True,
+            use_normal=True, use_multiview=True, multiview_path=mv_path)
+        loader = Loader(det_ds, 8, shuffle=False, drop_last=False)
+        det_batch = next(iter(loader))
+        loader.close()
+        with torch.no_grad():
+            # votes and boxes near the seeds, with their class's mean size
+            # (a fresh head throws them metres away), so that some stored
+            # proposals overlap the described object
+            detector.vgen.conv3.weight.mul_(0.02)
+            detector.proposal.conv3.weight.mul_(0.02)
+            # and it calls every proposal background: move the objectness
+            # bias by the median margin, so that about half are objects
+            scores = make_eval_step(det_cfg, detector, detection_loss=False)(
+                to_device(det_batch, dev))["objectness_scores"]
+            detector.proposal.conv3.bias[1] += torch.median(
+                scores[..., 0] - scores[..., 1])
+        os.makedirs(os.path.join(out, det_run))
+        CheckpointIO(os.path.join(out, det_run, "ckpt")).save(
+            "last", model_bundle(detector))
+        with open(os.path.join(out, det_run, "info.json"), "w") as f:
+            json.dump(det_info, f)
+        vn = {}
+        for split in ("train", "val"):
+            text = run("extract_votenet_features", [
+                "--folder", det_run, "--split", split, "--batch_size", "8"],
+                f"extract_votenet_{split}")
+            vn[split] = extract_stats(
+                text, 1, EXTRACT_FORWARD,
+                f"extract_votenet_features ({split})")
+            vn[split]["keys"], vn[split]["bytes"] = keys_present(
+                os.path.join(data, f"votenet_ScanRefer_predictions_{split}"
+                                   f".npz"),
+                [f"0|{s}{x}" for s in (train if split == "train" else val)
+                 for x in ("_object_ids", "_features", "_bbox_corners",
+                           "_gt_ids", "_gt_corners")],
+                f"the VoteNet {split} store")
+        vn_store = os.path.join(data, "votenet_ScanRefer_predictions_train"
+                                      ".npz")
+        with open_feature_store(vn_store) as db:
+            vn["proposals_kept"] = {s: int(db.shape(f"0|{s}_object_ids")[0])
+                                    for s in train}
+        require(sum(vn["proposals_kept"].values()) > 0, "the detector kept "
+                "no proposal in any scene")
+
+        # one detector forward in process, held and traced
+        vn["forward"], _ = extraction_check(torch, on_card,
+                                            make_eval_step(det_cfg, detector),
+                                            det_batch, EXTRACT_FORWARD,
+                                            "detector extraction")
+        vn_ds = PretrainedVoteNetDataset(train_entries, vn_store,
+                                         split="train", glove=mask_ds.glove)
+        t0 = time.perf_counter()
+        for i in range(16):
+            vn_ds.__getitem__(i)
+        report["votenet_getitem_ms"] = (time.perf_counter() - t0) * 1e3 / 16
+        report["extract_votenet"] = vn
+
+        run("train_pretrained", [
+            "--mode", "votenet", *PRE_FLAGS, "--batch_size", str(PRE_BATCH),
+            "--epoch", "1", "--verbose", "1", "--val_step", str(pre_steps),
+            "--tag", "smoke_pre_vn"], "train_pretrained_votenet")
+        vn_run = run_folder("smoke_pre_vn")
+        stats, losses, step_ms = train_stats(vn_run)
+        # the IoU gate found a target in some batch: the captions trained
+        require(max(losses) > 0, f"train_pretrained (votenet): no stored "
+                f"proposal passed the IoU gate in any batch: {losses}")
+        report["train_pretrained_votenet"] = dict(
+            steps=stats["steps"], losses=losses, ms_per_step=step_ms)
+        text = run("eval_pretrained", ["--folder", vn_run, "--batch_size",
+                                       str(PRE_BATCH)],
+                   "eval_pretrained_votenet")
+        report["eval_pretrained_votenet"] = eval_report(text, out, vn_run)
+
+        # the object encoder on the fixture's crops
+        report["encoder"] = encoder_on_card(torch, np, data, train, on_card,
+                                            rehearse)
+        report["launches"] = sum_launches(
+            report["mask_votenet"]["launches"],
+            *(x["launches"] for x in (gt_train, gt_val, vn["train"],
+                                      vn["val"])),
+            report["eval_pretrained_gt"]["launches"],
+            report["eval_pretrained_votenet"]["launches"])
+        report["store_bytes_written"] = (
+            mv_bytes + gt_train["bytes"] + gt_val["bytes"]
+            + vn["train"]["bytes"] + vn["val"]["bytes"])
+        return report
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def sum_launches(*counts):
+    keys = {k for c in counts for k in c}
+    return {k: sum(c.get(k, 0) for c in counts) for k in sorted(keys)}
+
+
+def eval_report(text, out, run_name):
+    """eval_pretrained's printed metrics and its eval_stats.json."""
+    metrics = {}
+    for tag in ("BLEU-4", "CIDEr", "ROUGE", "METEOR"):
+        line = next((l for l in text.splitlines()
+                     if l.startswith(f"[{tag}]")), None)
+        require(line is not None, f"eval_pretrained printed no [{tag}]")
+        metrics[tag] = float(line.split()[-1])
+    with open(os.path.join(out, run_name, "eval_stats.json")) as f:
+        stats = json.load(f)
+    cap = stats["caption"]
+    return dict(metrics=metrics, batches=cap["batches"],
+                ms_per_batch=cap["s"] * 1e3 / cap["batches"],
+                candidates=stats["candidates"], launches=cap["launches"])
+
+
+def pretrained_phase(torch, np, dev="cuda", rehearse=False):
+    """Phase 11: the pretrained track in process at full width (gt mode's
+    train step and decode against the CPU, votenet mode's eval and
+    candidates against the CPU), then through its entry points."""
+    sizes = (dict(hidden_size=64, emb_size=32) if rehearse else None)
+    words = 40 if rehearse else NUM_VOCABS
+    t0 = time.perf_counter()
+    train = train_pretrained_inprocess(torch, np, dev=dev, sizes=sizes,
+                                       num_vocabs=words,
+                                       B=4 if rehearse else PRE_BATCH)
+    votenet = votenet_eval_inprocess(torch, np, dev=dev, sizes=sizes,
+                                     num_vocabs=words,
+                                     B=2 if rehearse else
+                                     PRE_VOTENET_EVAL_BATCH)
+    inprocess_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = pretrained_cli(torch, np, dev=dev, rehearse=rehearse)
+    # the stores are the port's: nothing here read HDF5
+    require("h5py" not in sys.modules, "the pretrained phase imported h5py")
+    return dict(train=train, votenet_eval=votenet, cli=cli,
+                inprocess_s=inprocess_s, cli_s=time.perf_counter() - t0)
+
+
+def print_pretrained(r):
+    """The pretrained phase's readings, one line each."""
+    t, v, c = r["train"], r["votenet_eval"], r["cli"]
+    spans = [round(x, 2) for x in t["window_ms_per_step"]]
+    print(f"  pretrained: {t['ms_per_step']:.2f} ms per step at "
+          f"B={t['batch']} (spans {spans}), "
+          f"step-1 parity {t['cpu_reference']}, decode "
+          f"{t['eval_ms_per_batch']:.1f} ms, tokens equal to the CPU's "
+          f"{t['decode_tokens_equal_share']:.5f}; votenet "
+          f"{v['candidates']} candidates, captions equal "
+          f"{v['captions_equal_share']:.3f}", flush=True)
+    for leg in ("extract_gt", "extract_votenet"):
+        for split in ("train", "val"):
+            x = c[leg][split]
+            print(f"  {leg} {split}: {x['batches']} batches, "
+                  f"{x['forward_ms_per_batch']:.1f} ms per forward, "
+                  f"{x['descriptions_per_s']:.1f} descriptions/s, "
+                  f"{x['bytes']} bytes, launches per forward "
+                  f"{x['launches_per_forward']}", flush=True)
+        fwd = c[leg]["forward"]
+        print(f"  {leg} forward held: {fwd['held']['by_kernel']}, kernels "
+              f"{fwd['profile']['kernel_ms']:.2f} ms", flush=True)
+    print(f"  pretrained cli: mvn {c['mask_votenet']['ms_per_step']:.1f} ms "
+          f"per step, train gt {c['train_pretrained_gt']['ms_per_step']:.1f} "
+          f"ms, votenet {c['train_pretrained_votenet']['ms_per_step']:.1f} "
+          f"ms; eval {c['eval_pretrained_gt']['ms_per_batch']:.1f} and "
+          f"{c['eval_pretrained_votenet']['ms_per_batch']:.1f} ms per batch; "
+          f"__getitem__ gt {c['gt_getitem_ms']:.2f}, votenet "
+          f"{c['votenet_getitem_ms']:.2f}, multiview "
+          f"{c['multiview_getitem_ms']:.1f} ms (store read "
+          f"{c['multiview_read_ms']:.1f} ms); stores "
+          f"{c['store_bytes_written']} bytes; encoder "
+          f"{ {k: e['ms'] for k, e in c['encoder'].items()} } ms; wall "
+          f"{c['wall_s']}", flush=True)
+
+
 def print_eval(r):
     """The eval phase's readings, one line each."""
     for i, c in enumerate(r["counts"]):
@@ -2386,7 +3135,7 @@ def main(argv=None) -> int:
                     help="stop after the kernel checks (phase 3)")
     ap.add_argument("--skip", nargs="+", default=[],
                     choices=["serve", "train", "eval", "probes", "cli",
-                             "mvn", "benchmark"],
+                             "mvn", "benchmark", "pretrained"],
                     help="leave out a path while bringing up another "
                          "(exit 3 by design: not a whole run)")
     args = ap.parse_args(argv)
@@ -2471,7 +3220,7 @@ def main(argv=None) -> int:
     # each path starts from launch counts of 0 and is read just after
     partial = args.kernels_only or args.skip
     paths = {}
-    serve = train = evaluation = probes = cli = mvn = bench = None
+    serve = train = evaluation = probes = cli = mvn = bench = pre = None
     if not args.kernels_only:
         if "serve" not in args.skip:
             t0 = time.perf_counter()
@@ -2523,6 +3272,18 @@ def main(argv=None) -> int:
                   f"{bench['meteor_backend']}, card vs CPU "
                   f"{bench['max_abs_diff_vs_cpu']}", flush=True)
             print(f"benchmark phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        if "pretrained" not in args.skip:
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            pre = pretrained_phase(torch, np)
+            # in process (the held extraction forwards, the encoder) and
+            # the entry points' own counts
+            pre["launches"] = sum_launches(launch_counts(),
+                                           pre["cli"]["launches"])
+            paths["pretrained"] = pre["launches"]
+            print_pretrained(pre)
+            print(f"pretrained phase: {time.perf_counter() - t0:.1f} s",
                   flush=True)
 
     def launches(wrapper):
@@ -2584,6 +3345,8 @@ def main(argv=None) -> int:
         print(json.dumps({"mvn": mvn, "card": card}))
     if bench is not None:
         print(json.dumps({"benchmark": bench, "card": card}))
+    if pre is not None:
+        print(json.dumps({"pretrained": pre, "card": card}))
     if partial:
         return 3
     print(card)

@@ -7,9 +7,11 @@ has an obvious counterpart.  Ported: CapNet with both caption decoders
 the caption metrics and detection AP on the host), the ScanRefer dataset
 and its native host data plane (``data``, ``native``), the solver and its
 ``torch.save`` checkpoints (``train``), the reference's ``.pth`` layout
-both ways (``convert``), and the command-line entry points
-``python -m scan2cap_torch.scripts.train``, ``scan2cap_torch.scripts.eval``
-and ``scan2cap_torch.benchmark.predict``.  It imports torch and numpy only
+both ways (``convert``), MaskVoteNet, the pretrained-feature track
+(``models.capnet_pretrained``, ``data.dataset_pretrained``, the object
+encoder and dataset) over a feature store that numpy alone reads
+(``data.feature_store``), and the command-line entry points under
+``scan2cap_torch.scripts`` and ``scan2cap_torch.benchmark``.  It imports torch and numpy only
 — never JAX, Flax or anything of ``scan2cap_tpu``; what it needs from there
 it keeps as its own copy.  The TPU kernels of the JAX repository (furthest-point
 sampling, the exact ball query, the row gather of ``group_points`` and the

@@ -152,6 +152,12 @@ class PathConfig:
 
     @property
     def multiview(self) -> str:
+        """The multiview features: the port's store
+        (``enet_feats_maxpool.npz``, ``data/feature_store.py``) where it
+        exists, else the JAX package's HDF5 file, which needs ``h5py``."""
+        store = os.path.join(self.scannet_data, "enet_feats_maxpool.npz")
+        if os.path.exists(store):
+            return store
         return os.path.join(self.scannet_data, "enet_feats_maxpool.hdf5")
 
     @property

@@ -4,7 +4,7 @@
 Host-side rebuild of lib/dataset.py (ScannetReferenceDataset).  Per-sample
 pipeline order preserved exactly (lib/dataset.py:333-540):
   feature assembly (color normalized (rgb-MEAN)/256, normals, 128-d multiview
-  from HDF5, height = z - 0.99-percentile floor) → random_sampling to
+  from the feature store, height = z - 0.99-percentile floor) → random_sampling to
   num_points → augmentation (YZ/XZ flips p=0.5, ±5° rotations about x/y/z,
   ±0.5 m translation) → vote labels computed AFTER augmentation (per-instance
   AABB center offsets, tiled ×3) → padded box labels to MAX_NUM_OBJ →
@@ -38,6 +38,7 @@ from scan2cap_torch.config import (
     MEAN_COLOR_RGB, SCANNET_MEAN_SIZE_ARR, SCANNET_NYU40IDS,
     SCANNET_TYPE2CLASS, param2obb_batch,
 )
+from scan2cap_torch.data.feature_store import LazyStore
 from scan2cap_torch.data.vocab import (
     build_embedding_table, build_vocabulary, encode_caption, load_glove,
 )
@@ -139,8 +140,7 @@ class ScannetReferenceDataset:
         self.weights = np.ones((self.num_vocabs,), np.float64)
 
         self._load_scenes()
-        self._multiview_db = None
-        self._db_lock = threading.Lock()
+        self._multiview_db = LazyStore(multiview_path)
         self._mv_local = threading.local()
 
     # ------------------------------------------------------------------
@@ -157,26 +157,20 @@ class ScannetReferenceDataset:
             }
 
     def _multiview(self, scene_id: str) -> np.ndarray:
-        import h5py
-        if self._multiview_db is None:
-            # Loader worker THREADS race through here; double-checked lock
-            # so only one handle is ever opened (the loser would leak)
-            with self._db_lock:
-                if self._multiview_db is None:
-                    self._multiview_db = h5py.File(
-                        self.multiview_path, "r", libver="latest", swmr=True)
-        dset = self._multiview_db[scene_id]
+        # one store handle, opened by the first of the Loader's worker
+        # threads under a lock (data/feature_store.py)
+        db = self._multiview_db.get()
         # read into a reusable per-thread buffer: a fresh ~25 MB allocation
         # per sample is pure page-fault churn (the buffer's pages are hot
         # after the first scene)
-        P, C = dset.shape
+        P, C = db.shape(scene_id)
+        dtype = db.dtype(scene_id)
         buf = getattr(self._mv_local, "buf", None)
-        if buf is None or buf.shape[0] < P or buf.shape[1] != C:
-            buf = np.empty((max(P, 51200), C), dset.dtype)
+        if (buf is None or buf.shape[0] < P or buf.shape[1] != C
+                or buf.dtype != dtype):
+            buf = np.empty((max(P, 51200), C), dtype)
             self._mv_local.buf = buf
-        out = buf[:P]
-        dset.read_direct(out)
-        return out
+        return db.read_into(scene_id, buf[:P])
 
     def __len__(self):
         return len(self.scanrefer)

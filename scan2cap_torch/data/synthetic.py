@@ -212,6 +212,102 @@ def make_mask_votenet_batch(cfg: ModelConfig, batch_size: int = 2,
     }
 
 
+def make_pretrained_batch(cfg: ModelConfig, mode: str = "gt",
+                          batch_size: int = 2, vocab: Optional[Dict] = None,
+                          num_boxes: Optional[int] = None, max_gt: int = 128,
+                          seed: int = 0) -> Dict[str, np.ndarray]:
+    """A batch of the pretrained datasets' keys
+    (``data/dataset_pretrained.py``): ``cfg.num_proposals`` stored boxes a
+    sample, the first ``num_boxes`` real (three quarters by default) with
+    seeded features and axis-aligned corners in a room, the rest padding;
+    Scan2CAD-style rotations about z on half of the real boxes, the boxes'
+    centres, a random-token caption and a reference box that overlaps the
+    target box (which the plain caption head selects by, in both modes).
+    "gt" mode adds the oracle target ``bbox_idx``; "votenet" mode the
+    near-one-hot objectness and the GT boxes."""
+    rs = np.random.RandomState(seed)
+    if vocab is None:
+        vocab = make_vocab(emb_size=cfg.emb_size)
+    V = len(vocab["word2idx"])
+    B, K, T = batch_size, cfg.num_proposals, cfg.max_des_len + 2
+    n = num_boxes if num_boxes is not None else 3 * K // 4
+    table = vocab["emb_table"]
+    sos_id, eos_id = vocab["word2idx"]["sos"], vocab["word2idx"]["eos"]
+    sx = np.array([1, 1, -1, -1, 1, 1, -1, -1], np.float32)
+    sy = np.array([1, -1, -1, 1, 1, -1, -1, 1], np.float32)
+    sz = np.array([1, 1, 1, 1, -1, -1, -1, -1], np.float32)
+
+    feature = np.zeros((B, K, 128), np.float32)
+    corner = np.zeros((B, K, 8, 3), np.float32)
+    mask = np.zeros((B, K), np.int32)
+    center = np.zeros((B, K, 3), np.float32)
+    ids = np.zeros((B, K), np.int32)
+    rot = np.zeros((B, K, 3, 3), np.float32)
+    rot_mask = np.zeros((B, K), np.int32)
+    target = np.zeros((B,), np.int32)
+    lang_feat = np.zeros((B, T, cfg.emb_size), np.float32)
+    lang_ids = np.zeros((B, T), np.int32)
+    lang_len = np.zeros((B,), np.int32)
+    for b in range(B):
+        c = np.stack([rs.uniform(-4, 4, n), rs.uniform(-4, 4, n),
+                      rs.uniform(0.2, 1.5, n)], 1).astype(np.float32)
+        size = rs.uniform(0.3, 1.5, (n, 3)).astype(np.float32)
+        center[b, :n] = c
+        corner[b, :n] = np.stack([sx * size[:, :1] / 2, sy * size[:, 1:2] / 2,
+                                  sz * size[:, 2:3] / 2], -1) + c[:, None]
+        feature[b, :n] = rs.randn(n, 128).astype(np.float32) * 0.5
+        mask[b, :n] = 1
+        ids[b, :n] = np.arange(n)
+        theta = rs.randint(0, 8, n) * np.pi / 8
+        cos, sin = np.cos(theta), np.sin(theta)
+        rot[b, :n, 0, 0], rot[b, :n, 0, 1] = cos, -sin
+        rot[b, :n, 1, 0], rot[b, :n, 1, 1] = sin, cos
+        rot[b, :n, 2, 2] = 1.0
+        rot_mask[b, :n] = rs.rand(n) < 0.5
+        target[b] = rs.randint(0, n)
+        k = rs.randint(3, cfg.max_des_len)
+        words = [sos_id] + list(rs.randint(4, V, k)) + [eos_id]
+        lang_ids[b, :len(words)] = words
+        lang_len[b] = len(words)
+        lang_feat[b, :len(words)] = table[words]
+
+    out = {
+        "bbox_feature": feature,
+        "bbox_corner": corner,
+        "bbox_mask": mask,
+        "scene_object_ids": ids,
+        "scene_object_rotations": rot,
+        "scene_object_rotation_masks": rot_mask,
+        "center_label": center,
+        "lang_feat": lang_feat,
+        "lang_len": lang_len,
+        "lang_ids": lang_ids,
+        "object_id": target.copy(),
+        "dataset_idx": np.arange(B, dtype=np.int32),
+        "glove_emb_table": table,
+    }
+    # the reference box: the target's, shifted by up to a tenth of a metre
+    rows = np.arange(B)
+    shift = rs.uniform(-0.1, 0.1, (B, 1, 3)).astype(np.float32)
+    out["ref_box_corner_label"] = corner[rows, target] + shift
+    if mode == "gt":
+        out["bbox_idx"] = target
+    else:
+        objectness = np.full((B, K, 2), 1e-8, np.float32)
+        objectness[:, :n, 1] = 1.0 - 1e-8
+        m = min(n, max_gt)
+        gt = np.zeros((B, max_gt, 8, 3), np.float32)
+        gt[:, :m] = corner[:, :m]
+        gt_masks = np.zeros((B, max_gt), np.int32)
+        gt_masks[:, :m] = 1
+        gt_ids = np.zeros((B, max_gt), np.int32)
+        gt_ids[:, :m] = np.arange(m)
+        out.update(objectness_scores=objectness,
+                   gt_box_corner_label=gt, gt_box_masks=gt_masks,
+                   gt_box_object_ids=gt_ids)
+    return out
+
+
 def to_device(batch: Dict[str, np.ndarray],
               device: str | torch.device = "cuda") -> Dict[str, torch.Tensor]:
     """numpy batch -> tensors on ``device`` (CUDA unless asked otherwise).

@@ -5,6 +5,7 @@ loss = 10 * (vote + 0.5*objectness + box + 0.1*sem_cls) [+ cap]
        [+ 0.1*orientation] [+ 0.1*distance]
 where box = center + 0.1*heading_cls + heading_reg + 0.1*size_cls + size_reg.
 Without detection, loss = cap [+ 0.1*ori] [+ 0.1*dist].
+The object-centric track's loss is cls + cap (``get_object_cap_loss``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import torch
 from scan2cap_torch.losses.caption import (compute_cap_loss,
                                            compute_node_distance_loss,
                                            compute_node_orientation_loss)
-from scan2cap_torch.losses.detection import (compute_box_and_sem_cls_loss,
+from scan2cap_torch.losses.detection import (_ce_logits,
+                                             compute_box_and_sem_cls_loss,
                                              compute_objectness_loss,
                                              compute_vote_loss)
 
@@ -86,4 +88,41 @@ def get_scene_cap_loss(data_dict: dict, detection: bool = True,
         loss = loss + 0.1 * d["dist_loss"]
 
     d["loss"] = loss
+    return d
+
+
+def compute_object_cls_loss(data_dict: dict, weights=None):
+    """Object classification loss of the object-centric track
+    (loss_helper.py:357-379): CE of ``enc_preds`` against ``object_cat``,
+    weighted by class when ``weights`` is given.  Returns (loss, acc)."""
+    preds = data_dict["enc_preds"]                  # (B, num_cls)
+    targets = data_dict["object_cat"].long()
+    ce = _ce_logits(preds, targets)
+    if weights is not None:
+        w = torch.as_tensor(weights, dtype=preds.dtype,
+                            device=preds.device)[targets]
+        cls_loss = torch.sum(ce * w) / torch.sum(w)
+    else:
+        cls_loss = torch.mean(ce)
+    acc = torch.mean((torch.argmax(preds.detach(), -1) == targets).to(
+        torch.float32))
+    return cls_loss, acc
+
+
+def get_object_cap_loss(data_dict: dict, weights=None, classify: bool = True,
+                        caption: bool = True) -> dict:
+    """Object-centric total loss (loss_helper.py:493-532):
+    loss = cls + cap."""
+    d = dict(data_dict)
+    zero = torch.zeros((), dtype=torch.float32, device=d[
+        "enc_preds" if classify else "lang_cap"].device)
+    if classify:
+        d["cls_loss"], d["cls_acc"] = compute_object_cls_loss(d, weights)
+    else:
+        d["cls_loss"], d["cls_acc"] = zero, zero
+    if caption:
+        d["cap_loss"], d["cap_acc"] = compute_cap_loss(d)
+    else:
+        d["cap_loss"], d["cap_acc"] = zero, zero
+    d["loss"] = d["cls_loss"] + d["cap_loss"]
     return d

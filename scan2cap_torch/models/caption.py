@@ -8,7 +8,8 @@ the target proposal's projected feature is the GRU's first hidden state.
 (caption_module.py:202-592).
 
 ``forward_sample_batch`` is the training path of both: one target proposal
-per sample (the argmax-IoU proposal against the GT reference box), decoded
+per sample (the argmax-IoU proposal against the GT reference box, or with
+the top-down decoder's ``use_oracle`` the batch's ``bbox_idx``), decoded
 teacher-forced for ``max_des_len + 1`` steps; the top-down decoder attends
 over all K proposals, masked to the target's ``num_locals`` locals.
 
@@ -216,12 +217,16 @@ class TopDownSceneCaptionModule(nn.Module):
                  num_locals: int = -1, query_mode: str = "center",
                  use_relation: bool = False, max_des_len: int = 30,
                  min_iou: float = 0.25, overlay_threshold: float = 0.5,
-                 eval_chunk: int = 32, num_vocabs_padded: int = 0):
+                 eval_chunk: int = 32, num_vocabs_padded: int = 0,
+                 use_oracle: bool = False):
         super().__init__()
         if num_vocabs_padded and num_vocabs_padded < num_vocabs:
             raise ValueError(f"num_vocabs_padded={num_vocabs_padded} < "
                              f"num_vocabs={num_vocabs}")
         self.num_vocabs = num_vocabs
+        # the pretrained track's GT boxes: the target is the batch's
+        # bbox_idx, its IoU 1 (caption.py:349-351)
+        self.use_oracle = use_oracle
         self.hidden_size = hidden_size
         self.num_locals = num_locals
         self.query_mode = query_mode
@@ -280,7 +285,12 @@ class TopDownSceneCaptionModule(nn.Module):
         word_embs = d["lang_feat"]                               # (B,T,emb)
         obj_feats = d["bbox_feature"]                            # (B,K,C)
         object_masks = d["bbox_mask"].to(torch.float32)
-        target_ids, target_ious = select_target(d)
+        if self.use_oracle:
+            target_ids = d["bbox_idx"].to(torch.int32)
+            target_ious = torch.ones(target_ids.shape, dtype=torch.float32,
+                                     device=target_ids.device)
+        else:
+            target_ids, target_ious = select_target(d)
         target_feats = _gather_targets(obj_feats, target_ids)
         if self.num_locals == -1:
             valid_masks = object_masks

@@ -6,7 +6,8 @@ of a model: forward and loss (the caller's function), backward, Adam
 update, BN running-statistics update.  ``make_train_step`` builds it for
 CapNet (backbone -> voting -> proposal -> graph -> teacher-forced caption,
 ``get_scene_cap_loss``), ``make_mask_votenet_step`` for MaskVoteNet
-(``get_mask_votenet_loss``).  The optimizer is
+(``get_mask_votenet_loss``), ``make_pretrained_step`` for the caption-only
+``CapNetPretrained`` (``get_pretrained_loss``).  The optimizer is
 ``torch.optim.Adam(weight_decay=wd)``: L2 weight decay coupled into the
 gradient before the moments (scripts/train.py:135), which is what the JAX
 package builds from ``add_decayed_weights`` + ``scale_by_adam``; never
@@ -29,6 +30,7 @@ import torch
 from scan2cap_torch.config import ModelConfig
 from scan2cap_torch.losses import get_scene_cap_loss
 from scan2cap_torch.losses.mask_votenet import get_mask_votenet_loss
+from scan2cap_torch.losses.pretrained import get_pretrained_loss
 
 KEEP_KEYS = (
     "lang_cap", "bbox_corner", "bbox_mask", "bbox_feature",
@@ -49,15 +51,18 @@ MVN_REPORT_KEYS = (
     "loss", "vote_loss", "box_loss", "center_loss", "size_cls_loss",
     "size_reg_loss", "sem_cls_loss", "sem_cls_acc", "miou",
 )
+# what the pretrained step reports (scripts/train_pretrained.py:120-121)
+PRETRAINED_REPORT_KEYS = ("loss", "cap_loss", "cap_acc", "ori_loss",
+                          "ori_acc", "dist_loss")
 DEFAULT_WD = 1e-5                                  # scripts/train.py:135
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and BN statistics), its optimizer, and the
-    number of steps taken.  The model is a ``CapNet`` or a
-    ``MaskVoteNet``: it carries its ``cfg`` and the ``device`` it was built
-    for."""
+    number of steps taken.  The model is a ``CapNet``, a ``MaskVoteNet``
+    or a ``CapNetPretrained``: it carries its ``cfg`` and the ``device`` it
+    was built for."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
@@ -160,6 +165,23 @@ def make_mask_votenet_step(cfg: ModelConfig, state: TrainState
         return get_mask_votenet_loss(out, cfg.num_size_cluster)
 
     return make_model_step(cfg, state, forward_loss, MVN_REPORT_KEYS)
+
+
+def make_pretrained_step(cfg: ModelConfig, state: TrainState, mode: str,
+                         orientation: bool = False, distance: bool = False
+                         ) -> Callable[[Dict, float, float], Dict]:
+    """The caption-only step of the pretrained track
+    (``make_model_step``): the teacher-forced forward of
+    ``CapNetPretrained`` and ``get_pretrained_loss`` in ``mode`` ("gt" or
+    "votenet"); reports the ``PRETRAINED_REPORT_KEYS``."""
+    model = state.model
+
+    def forward_loss(batch: Dict, bn_momentum: float) -> Dict:
+        out = model(batch, use_tf=True, is_eval=False, train=True)
+        return get_pretrained_loss(out, mode=mode, orientation=orientation,
+                                   distance=distance, num_bins=cfg.num_bins)
+
+    return make_model_step(cfg, state, forward_loss, PRETRAINED_REPORT_KEYS)
 
 
 def make_eval_step(cfg: ModelConfig, model: torch.nn.Module,
