@@ -118,11 +118,31 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      versions and traced, MaskVoteNet's features equal to the stored ones,
      and the object encoder on the fixture's crops (one by one and two
      scenes of 128 crops in one launch a layer) held the same way;
- 12. the JSON lines: kernels, serving, training, eval, cli, mvn,
-     benchmark, pretrained, and last the device line.
-Launch counts are set to 0 just before each of the paths 4-7, 9 and 11
-and read just after; the entry points of 8, 9 and 11 count their own (their
-stats files and output).
+ 12. the flagship's training-quality trajectory
+     (``scan2cap_torch.scripts.quality_trajectory``): one train step of its
+     model at B=8 (40,000 points, 256 proposals) with every FPS, first-k
+     and gather launch held exactly against its plain version on the card
+     (5, 5 and 6 a step); the entry point as a subprocess for 100 steps
+     with an evaluation every 50 over one held-out batch (every loss
+     finite, the loss at step 100 below step 50's, 5, 5 and 6 launches a
+     step; the curve printed); ``demo_synthetic_train`` for 30
+     detection-only steps (the loss and the box loss fall);
+ 13. multiview features from frames: ScanNet-layout frames for 2 of the
+     CLI fixture's scenes (200 poses each inside the room looking at its
+     points, PNG colour at 328 x 256, 16-bit PNG depth at 41 x 32 rendered
+     from the scene's points with a z-buffer), ``compute_multiview_features``
+     on the card (a few frames' features against the port's ENet on the
+     CPU, 1e-4 of the largest value), ``project_multiview_features
+     --maxpool`` (its store bitwise, key for key, against a second run of
+     the script in process), ``project_multiview_labels`` on one scene, and
+     two iterations of ``scan2cap_torch.scripts.train --use_multiview``
+     reading the store; ENet frames/s and ms per batch of 64, projection ms
+     per frame, points covered, store bytes;
+ 14. the JSON lines: kernels, serving, training, eval, cli, mvn,
+     benchmark, pretrained, quality, multiview, and last the device line.
+Launch counts are set to 0 just before each of the paths 4-7, 9 and 11-13
+and read just after; the entry points of 8, 9 and 11-13 count their own
+(their stats files and output).
 ``--kernels-only`` stops after phase 3 (a short first check of a new
 kernel).  Imports nothing of JAX.
 """
@@ -3129,13 +3149,389 @@ def print_eval(r):
               f"{d['profile']}", flush=True)
 
 
+# ------------------------------------------------------------- phases 12, 13
+# scan2cap_torch.scripts.quality_trajectory: the flagship's trajectory at
+# full width (its own batches, 40,000 points, 256 proposals, B=8), cut to
+# 100 steps with an evaluation every 50 over one held-out batch
+QUALITY_STEPS = 100
+QUALITY_EVAL_EVERY = 50
+DEMO_STEPS = 30
+# multiview features from frames: 200 poses a scene for 2 of the CLI
+# fixture's scenes, colour 328 x 256 PNG, depth 41 x 32 16-bit PNG; ENet at
+# the CLI's batch of 64; every 20th frame projected
+MV_SCENES = 2
+MV_FRAMES = 200
+MV_CPU_FRAMES = 4
+# the ENet tolerance of tests/test_torch_enet.py: 1e-4 of the largest value
+ENET_TOL = 1e-4
+
+
+def quality_phase(torch, np, card, dev="cuda", rehearse=False):
+    """The trajectory's path: one flagship train step at B=8 with every FPS,
+    first-k and gather launch held against its plain version on the card
+    (5, 5, 6 a step); the trajectory entry point for ``QUALITY_STEPS``
+    steps (every loss finite, the loss at the second evaluation below the
+    first's); the demo entry point for ``DEMO_STEPS`` detection-only steps
+    (the loss and the box loss fall).  ``rehearse`` runs both entry points
+    at the trajectory's tiny size on the CPU."""
+    import shutil
+    import tempfile
+
+    from scan2cap_torch.data.synthetic import (make_scene_batch, make_vocab,
+                                               to_device)
+    from scan2cap_torch.kernels import launch_counts, reset_launch_counts
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.scripts import quality_trajectory as qt
+    from scan2cap_torch.train.step import create_train_state, make_train_step
+
+    logs = os.path.join(ROOT, "chiprun_out", "quality")
+    os.makedirs(logs, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    report = dict(card=card)
+    if not rehearse:
+        # one step of the trajectory's model on its first batch, held
+        args = qt.build_parser().parse_args([])
+        cfg = qt.make_config(args)
+        vocab = make_vocab(num_vocabs=qt.NUM_VOCABS, emb_size=cfg.emb_size)
+        host = make_scene_batch(cfg, batch_size=args.batch_size,
+                                num_objects=6, vocab=vocab, seed=0)
+        model = CapNet(cfg, num_vocabs=qt.NUM_VOCABS, device=dev,
+                       seed=args.seed)
+        step = make_train_step(cfg, create_train_state(cfg, model),
+                               detection=True, caption=True, orientation=True)
+        batch = to_device(host, dev)
+        reset_launch_counts()
+        with HeldAgainstPlain(torch) as held:
+            metrics = step(batch, args.lr, 0.1)
+        torch.cuda.synchronize()
+        per_step = {k: v for k, v in launch_counts().items() if v}
+        by_kernel = {}
+        for kernel, _ in held.checked:
+            by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+        want = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
+                    group_points_cuda=6)
+        require(by_kernel == want and per_step == want,
+                f"the trajectory's train step: held {by_kernel}, launched "
+                f"{per_step}, want {want}")
+        require(np.isfinite(float(metrics["loss"])), "held step's loss")
+        report["held_step"] = dict(batch=args.batch_size, exact=len(
+            held.checked), by_kernel=by_kernel, launches=per_step,
+            loss=float(metrics["loss"]),
+            shapes=[[k, s] for k, s in held.checked])
+        del model, step, batch, metrics
+    release_card(torch)
+
+    tmp = tempfile.mkdtemp(prefix="scan2cap_quality_")
+    try:
+        out = os.path.join(tmp, "trajectory.json")
+        size = (["--tiny", "--steps", "4", "--eval_every", "2",
+                 "--batch_size", "2", "--num_batches", "1", "--num_points",
+                 "512"] if rehearse else
+                ["--steps", str(QUALITY_STEPS), "--eval_every",
+                 str(QUALITY_EVAL_EVERY)])
+        _, wall = run_entry_point(
+            "scan2cap_torch.scripts.quality_trajectory",
+            [*size, "--eval_batches", "1", "--out", out, "--device", dev],
+            env, logs)
+        with open(out) as f:
+            traj = json.load(f)
+        curve = traj["curve"]
+        losses = [x for x in curve["loss"] if x is not None]
+        require(len(losses) == 2 and all(np.isfinite(losses)),
+                f"trajectory losses {curve['loss']}")
+        require(losses[1] < losses[0], f"the trajectory's loss did not "
+                f"fall from step {curve['step'][1]} to {curve['step'][2]}: "
+                f"{losses}")
+        per = traj["launches_per_step"]
+        require(rehearse or per == dict(furthest_point_sample_cuda=5,
+                                        ball_query_cuda=5,
+                                        group_points_cuda=6),
+                f"the trajectory's launches per step {per}")
+        report["trajectory"] = dict(
+            wall_s=wall, steps=traj["config"]["steps"], curve=curve,
+            ms_per_step=traj["ms_per_step"],
+            scenes_per_s=traj["step_scenes_per_sec"],
+            eval_s_per_record=traj["eval_s_per_record"],
+            launches_per_step=per, eval_launches=traj["eval_launches"],
+            card=traj["card"])
+        steps = traj["config"]["steps"]
+        launches = {k: v * steps for k, v in per.items()}
+        for k, v in traj["eval_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+        demo_size = (["--steps", "3", "--batch_size", "2", "--num_points",
+                      "2048", "--num_batches", "1"] if rehearse
+                     else ["--steps", str(DEMO_STEPS)])
+        text, wall = run_entry_point(
+            "scan2cap_torch.scripts.demo_synthetic_train",
+            [*demo_size, "--device", dev], env, logs)
+        demo = json.loads(next(l for l in text.splitlines()[::-1]
+                               if l.startswith('{"demo"')))["demo"]
+        first, last = demo["first"], demo["last"]
+        require(last["loss"] < first["loss"]
+                and last["box_loss"] < first["box_loss"],
+                f"the demo's losses did not fall: {first} -> {last}")
+        report["demo"] = dict(wall_s=wall, steps=demo["steps"],
+                              logged=demo["logged"], map25=demo["map25"],
+                              ar25=demo["ar25"],
+                              scenes_per_s=demo["scenes_per_sec"])
+        report["launches"] = launches
+        return report
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def release_card(torch):
+    """Release this process's cached device memory, so that an entry point
+    started next as a subprocess finds the card free (the
+    plain versions held against the kernels above take tens of GB)."""
+    import gc
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def look_at(np, eye, target):
+    """The camera-to-world pose of a camera at ``eye`` looking at
+    ``target``, z up: camera x right, y down, z forward (ScanNet's)."""
+    fwd = target - eye
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, [0.0, 0.0, 1.0])
+    right /= np.linalg.norm(right)
+    pose = np.eye(4)
+    pose[:3, 0], pose[:3, 1], pose[:3, 2] = right, np.cross(fwd, right), fwd
+    pose[:3, 3] = eye
+    return pose
+
+
+def write_frames(np, root, scene_id, points, frames, seed=0,
+                 color_size=(328, 256)):
+    """ScanNet-layout frames of one scene under ``root/scene_id``: ``frames``
+    poses inside the room, each looking at one of its points
+    (``pose/<i>.txt``), a seeded PNG colour frame of ``color_size``
+    (``color/<i>.png``) and a 16-bit PNG depth frame at the projector's 41 x
+    32 (``depth/<i>.png``, millimetres) rendered from the scene's own points
+    with a z-buffer: each pixel holds its nearest point's depth, so those
+    points pass the projection's depth check."""
+    from PIL import Image
+
+    from scan2cap_torch.data.projection import (
+        DEPTH_MAX, DEPTH_MIN, PROJECTOR_IMAGE_DIMS, SCANNET_INTRINSICS)
+
+    rs = np.random.RandomState(seed)
+    base = os.path.join(root, scene_id)
+    for d in ("color", "depth", "pose"):
+        os.makedirs(os.path.join(base, d))
+    xyz = np.asarray(points[:, :3], np.float64)
+    lo, hi = xyz.min(0), xyz.max(0)
+    coords = np.concatenate([xyz.T, np.ones((1, len(xyz)))])
+    w, h = PROJECTOR_IMAGE_DIMS
+    K = SCANNET_INTRINSICS
+    cw, ch = color_size
+    ramp = np.add.outer(np.arange(ch), np.arange(cw))
+    for i in range(frames):
+        eye = np.array([*rs.uniform(lo[:2] * 0.8, hi[:2] * 0.8),
+                        rs.uniform(1.2, 1.8)])
+        pose = look_at(np, eye, xyz[rs.randint(len(xyz))])
+        cam = np.linalg.inv(pose) @ coords
+        z = cam[2]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u = np.round(cam[0] * K[0][0] / z + K[0][2])
+            v = np.round(cam[1] * K[1][1] / z + K[1][2])
+        ok = ((z >= DEPTH_MIN) & (z <= DEPTH_MAX) & (u >= 0) & (u < w)
+              & (v >= 0) & (v < h))
+        depth = np.full(h * w, np.inf)
+        np.minimum.at(depth, (v[ok] * w + u[ok]).astype(np.int64), z[ok])
+        depth_mm = np.where(np.isfinite(depth), np.round(depth * 1000), 0)
+        name = f"{i:06d}"
+        Image.fromarray(depth_mm.reshape(h, w).astype(np.uint16)).save(
+            os.path.join(base, "depth", name + ".png"))
+        colour = (ramp[..., None] * (i % 7 + 1) + rs.randint(0, 24, (ch, cw, 3))
+                  ) % 256
+        Image.fromarray(colour.astype(np.uint8)).save(
+            os.path.join(base, "color", name + ".png"))
+        np.savetxt(os.path.join(base, "pose", name + ".txt"), pose)
+
+
+def multiview_phase(torch, np, card, dev="cuda", rehearse=False):
+    """Multiview features from frames through the port's entry points as
+    subprocesses: frames for ``MV_SCENES`` of the CLI fixture's scenes,
+    ``compute_multiview_features`` on ``dev`` (a few frames held against
+    the port's ENet on the CPU), ``project_multiview_features --maxpool``
+    (held bitwise, key for key, against a run of the same script in this
+    process), ``project_multiview_labels`` on one scene, and two training
+    iterations of ``scripts.train --use_multiview`` that read the store.
+    ``rehearse`` shrinks scenes and frames for the CPU."""
+    import shutil
+    import tempfile
+
+    from scan2cap_torch.data.feature_store import open_feature_store
+    from scan2cap_torch.data.frames import load_image
+    from scan2cap_torch.models.enet import ENetEncoder
+    from scan2cap_torch.scripts import project_multiview_features
+
+    t_phase = time.perf_counter()
+    release_card(torch)
+    root = tempfile.mkdtemp(prefix="scan2cap_mv_")
+    logs = os.path.join(ROOT, "chiprun_out", "multiview")
+    os.makedirs(logs, exist_ok=True)
+    report = dict(card=card)
+    try:
+        t0 = time.perf_counter()
+        points = 3000 if rehearse else CLI_SCENE_POINTS
+        frames = 8 if rehearse else MV_FRAMES
+        data, train, _ = write_scannet_fixture(np, root, points=points)
+        scannet = os.path.join(data, "scannet", "scannet_data")
+        frames_root = os.path.join(root, "frames")
+        scenes = train[:MV_SCENES]
+        for k, sid in enumerate(scenes):
+            verts = np.load(os.path.join(scannet, sid + "_aligned_vert.npy"))
+            write_frames(np, frames_root, sid, verts, frames, seed=k)
+        report["fixture_s"] = time.perf_counter() - t0
+        env = dict(os.environ, SCAN2CAP_DATA=data, PYTHONPATH=ROOT,
+                   SCAN2CAP_OUTPUT=os.path.join(root, "outputs"))
+        env.pop("SCAN2CAP_TEST_TINY", None)
+        if rehearse:
+            env["SCAN2CAP_TEST_TINY"] = "1"
+        walls = {}
+
+        def run(module, args):
+            text, walls[module] = run_entry_point(
+                f"scan2cap_torch.scripts.{module}", args, env, logs)
+            return text
+
+        def stats(text, key):
+            line = next(l for l in text.splitlines()[::-1]
+                        if l.startswith('{"' + key))
+            return json.loads(line)[key]
+
+        feats = os.path.join(root, "feats")
+        enet = stats(run("compute_multiview_features",
+                         ["--frames_root", frames_root, "--out_root", feats,
+                          "--device", dev]), "compute_multiview_features")
+        require(enet["frames"] == MV_SCENES * frames,
+                f"ENet ran {enet['frames']} frames")
+        # a few frames again through the port's ENet on the CPU
+        cpu = ENetEncoder(device="cpu")
+        color = os.path.join(frames_root, scenes[0], "color")
+        names = sorted(os.listdir(color))[:MV_CPU_FRAMES]
+        x = np.stack([load_image(os.path.join(color, f)) for f in names])
+        with torch.inference_mode():
+            want = cpu(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
+        got = np.stack([np.load(os.path.join(feats, scenes[0],
+                                             f[:-4] + ".npy"))
+                        for f in names])
+        require(got.shape == (len(names), 128, 32, 41),
+                f"ENet features of shape {got.shape}")
+        enet_err = float(np.abs(got - want).max() / np.abs(want).max())
+        require(enet_err <= ENET_TOL, f"ENet on {dev} vs the CPU: "
+                f"{enet_err} of the largest value")
+
+        store = os.path.join(scannet, "enet_feats_maxpool.npz")
+        proj_args = ["--scannet_data", scannet, "--frames_root", frames_root,
+                     "--features_root", feats, "--maxpool"]
+        proj = stats(run("project_multiview_features",
+                         [*proj_args, "--out", store]),
+                     "project_multiview_features")
+        again = os.path.join(root, "again.npz")
+        project_multiview_features.main([*proj_args, "--out", again])
+        with open_feature_store(store) as a, open_feature_store(again) as b:
+            keys = sorted(a.keys())
+            require(keys == sorted(b.keys()) and all(
+                a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+                and a[k].tobytes() == b[k].tobytes() for k in keys),
+                "the projection's store differs from a second run")
+            covered = {k: int((np.abs(a[k]).max(-1) > 0).sum()) for k in keys}
+        require(keys == sorted(scenes) and all(
+            covered[s] > 0 for s in scenes), f"store keys {keys}, points "
+            f"with a feature {covered}")
+
+        labels = os.path.join(root, "labels", scenes[0])
+        os.makedirs(labels)
+        rs = np.random.RandomState(7)
+        for f in sorted(os.listdir(os.path.join(frames_root, scenes[0],
+                                                "pose"))):
+            np.save(os.path.join(labels, f[:-4] + ".npy"),
+                    rs.randint(0, 41, (32, 41)))
+        ply = os.path.join(root, "labels.ply")
+        text = run("project_multiview_labels",
+                   ["--scannet_data", scannet, "--frames_root", frames_root,
+                    "--labels_root", os.path.join(root, "labels"),
+                    "--scene_id", scenes[0], "--out", ply])
+        labelled = int(text.rsplit("(", 1)[1].split("/")[0])
+        require(os.path.getsize(ply) > 0 and labelled > 0,
+                f"labels: {text[-300:]}")
+
+        # the loop closed: the flagship's flags with multiview read the
+        # store; --debug takes one batch of the first scene's entry, so two
+        # epochs are two iterations
+        run("train", [*CLI_FLAGS, "--use_multiview", "--num_scenes",
+                      str(MV_SCENES), "--debug", "--epoch", "2",
+                      "--batch_size", str(CLI_BATCH), "--device", dev,
+                      *(["--num_points", "1024", "--num_proposals", "32"]
+                        if rehearse else []), "--tag", "mv"])
+        out = env["SCAN2CAP_OUTPUT"]
+        run_name = next(d for d in os.listdir(out) if d.endswith("_MV"))
+        with open(os.path.join(out, run_name, "train_stats.json")) as f:
+            tstats = json.load(f)
+        losses = [x for e in tstats["epochs"] for x in e["losses"]]
+        require(tstats["steps"] == 2 and all(np.isfinite(losses)),
+                f"multiview training: {tstats['steps']} steps, {losses}")
+        report.update(
+            scenes=scenes, scene_points=points, frames_per_scene=frames,
+            enet=enet, enet_frames_per_s=enet["frames"] / enet["enet_s"],
+            enet_ms_per_batch=enet["enet_s"] * 1e3 / enet["batches"],
+            # the first batch pays cuDNN's first call
+            enet_ms_per_warm_batch=float(np.median(
+                enet["enet_s_per_batch"][1:] or [np.nan])) * 1e3,
+            enet_cpu_frames=len(names), enet_max_rel_err=enet_err,
+            projection=proj, projection_ms_per_frame=proj[
+                "projection_ms_per_frame"],
+            points_covered=covered, store_bytes=proj["store_bytes"],
+            labelled_points=labelled, train_losses=losses,
+            launches=tstats["launches"], entry_point_wall_s=walls,
+            phase_s=time.perf_counter() - t_phase)
+        return report
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+
+def print_quality(r):
+    t, d = r["trajectory"], r["demo"]
+    print(f"  quality: held step {r['held_step']['by_kernel']} exact; "
+          f"trajectory {t['steps']} steps, {t['ms_per_step']} ms per step "
+          f"({t['scenes_per_s']} scenes/s), eval s per record "
+          f"{t['eval_s_per_record']}, launches per step "
+          f"{t['launches_per_step']}, {t['wall_s']:.1f} s", flush=True)
+    for key in ("step", "loss", "map25", "ar25", "cider_train"):
+        print(f"    {key}: {t['curve'][key]}", flush=True)
+    print(f"  demo: {d['steps']} steps, {d['logged']}, mAP@0.25 "
+          f"{d['map25']:.4f}, {d['scenes_per_s']:.2f} scenes/s, "
+          f"{d['wall_s']:.1f} s", flush=True)
+
+
+def print_multiview(r):
+    print(f"  multiview: {r['enet']['frames']} frames, ENet "
+          f"{r['enet_frames_per_s']:.1f} frames/s, "
+          f"{r['enet_ms_per_batch']:.1f} ms per batch of "
+          f"{r['enet']['batch_size']} ({r['enet_ms_per_warm_batch']:.1f} "
+          f"warm; vs the CPU {r['enet_max_rel_err']:.2e} "
+          f"of the largest value); projection "
+          f"{r['projection_ms_per_frame']:.1f} ms per frame, points covered "
+          f"{r['points_covered']}, store {r['store_bytes']} bytes; labelled "
+          f"{r['labelled_points']}; training losses {r['train_losses']}; "
+          f"entry points {r['entry_point_wall_s']}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (phase 3)")
     ap.add_argument("--skip", nargs="+", default=[],
                     choices=["serve", "train", "eval", "probes", "cli",
-                             "mvn", "benchmark", "pretrained"],
+                             "mvn", "benchmark", "pretrained", "quality",
+                             "multiview"],
                     help="leave out a path while bringing up another "
                          "(exit 3 by design: not a whole run)")
     args = ap.parse_args(argv)
@@ -3221,6 +3617,7 @@ def main(argv=None) -> int:
     partial = args.kernels_only or args.skip
     paths = {}
     serve = train = evaluation = probes = cli = mvn = bench = pre = None
+    quality = multiview = None
     if not args.kernels_only:
         if "serve" not in args.skip:
             t0 = time.perf_counter()
@@ -3285,6 +3682,27 @@ def main(argv=None) -> int:
             print_pretrained(pre)
             print(f"pretrained phase: {time.perf_counter() - t0:.1f} s",
                   flush=True)
+        if "quality" not in args.skip:
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            quality = quality_phase(torch, np, card)
+            # the held step in process and the trajectory's own counts
+            quality["launches"] = sum_launches(launch_counts(),
+                                               quality["launches"])
+            paths["quality"] = quality["launches"]
+            print_quality(quality)
+            print(f"quality phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        if "multiview" not in args.skip:
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            multiview = multiview_phase(torch, np, card)
+            multiview["launches"] = sum_launches(launch_counts(),
+                                                 multiview["launches"])
+            paths["multiview"] = multiview["launches"]
+            print_multiview(multiview)
+            print(f"multiview phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
 
     def launches(wrapper):
         return {path: run[wrapper] for path, run in paths.items()} or None
@@ -3347,6 +3765,10 @@ def main(argv=None) -> int:
         print(json.dumps({"benchmark": bench, "card": card}))
     if pre is not None:
         print(json.dumps({"pretrained": pre, "card": card}))
+    if quality is not None:
+        print(json.dumps({"quality": quality, "card": card}))
+    if multiview is not None:
+        print(json.dumps({"multiview": multiview, "card": card}))
     if partial:
         return 3
     print(card)

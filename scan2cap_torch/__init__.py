@@ -10,8 +10,10 @@ and its native host data plane (``data``, ``native``), the solver and its
 both ways (``convert``), MaskVoteNet, the pretrained-feature track
 (``models.capnet_pretrained``, ``data.dataset_pretrained``, the object
 encoder and dataset) over a feature store that numpy alone reads
-(``data.feature_store``), and the command-line entry points under
-``scan2cap_torch.scripts`` and ``scan2cap_torch.benchmark``.  It imports torch and numpy only
+(``data.feature_store``), multiview features from RGB-D frames (ENet in
+``models.enet``, ``data.projection``, ``data.frames``), and the
+command-line entry points under ``scan2cap_torch.scripts`` (the
+training-quality trajectory among them) and ``scan2cap_torch.benchmark``.  It imports torch and numpy only
 — never JAX, Flax or anything of ``scan2cap_tpu``; what it needs from there
 it keeps as its own copy.  The TPU kernels of the JAX repository (furthest-point
 sampling, the exact ball query, the row gather of ``group_points`` and the

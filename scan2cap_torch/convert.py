@@ -3,10 +3,11 @@ layout, both ways.
 
 The port names every parameter after its Flax tree path, so the mapping is
 mechanical: path components join with dots, a Dense ``kernel`` (in, out)
-becomes a Linear ``weight`` (out, in), BatchNorm ``scale``/``bias`` become
-``weight``/``bias``, and ``batch_stats`` ``mean``/``var`` become
-``running_mean``/``running_var``.  The result loads with
-``load_state_dict(strict=True)``.
+becomes a Linear ``weight`` (out, in), a Conv2D ``kernel`` (kh, kw, in,
+out) a Conv2d ``weight`` (out, in, kh, kw), BatchNorm ``scale``/``bias``
+become ``weight``/``bias``, a PReLU's ``alpha`` its ``weight``, and
+``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``.
+The result loads with ``load_state_dict(strict=True)``.
 
 A Flax gradient tree has the shape of ``params``, so ``named_from_flax``
 gives it the port's parameter names too, and ``adam_state_from_optax``
@@ -21,7 +22,9 @@ and Linear layers to Dense kernels, BN to scale/bias and statistics, the
 GCN layouts, the caption heads by key presence, the vocabulary pad) and
 then to the port's names with ``state_dict_from_flax``;
 ``reference_from_state_dict`` is the inverse, through ``flax_from_state_dict``
-and a copy of the JAX package's exporter.  No mapping is written twice.
+and a copy of the JAX package's exporter.  ``convert_enet_checkpoint`` takes
+the reference's ENet (``scannetv2_enet.pth``) the same way, through a copy of
+the JAX package's ENet converter.  No mapping is written twice.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from typing import Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+               "alpha": "weight"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -55,10 +59,14 @@ def named_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         if leaf not in _PARAM_LEAF:
             raise KeyError(f"unexpected Flax parameter leaf {'/'.join(path)}")
         if leaf == "kernel":
-            if value.ndim != 2:
+            if value.ndim == 4:                 # Conv2D (kh, kw, in, out)
+                value = value.transpose(3, 2, 0, 1)
+            elif value.ndim == 2:               # Dense (in, out)
+                value = value.T
+            else:
                 raise ValueError(f"{'/'.join(path)}: expected a 2-D Dense "
-                                 f"kernel, got shape {value.shape}")
-            value = value.T
+                                 f"or 4-D Conv2D kernel, got shape "
+                                 f"{value.shape}")
         key = ".".join(path[:-1] + (_PARAM_LEAF[leaf],))
         sd[key] = torch.from_numpy(np.array(value, np.float32, order="C"))
     return sd
@@ -107,7 +115,10 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]
                          ) -> Tuple[dict, dict]:
     """The inverse of ``state_dict_from_flax``: a port state dict ->
     (params, batch_stats) Flax trees of numpy arrays.  A 2-D ``weight`` is a
-    Linear's (a Dense kernel, transposed), a 1-D one a BatchNorm's scale."""
+    Linear's (a Dense kernel, transposed), a 4-D one a Conv2d's (a Conv2D
+    kernel), and a 1-D one a PReLU's alpha when its module is named
+    ``prelu*`` (as every PReLU of the port and the JAX package is), else a
+    BatchNorm's scale, which must have its bias beside it."""
     params: dict = {}
     stats: dict = {}
     for key, value in sd.items():
@@ -118,7 +129,14 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]
             _set(stats, path[:-1] + (leaf[len("running_"):],), a)
         elif leaf == "weight" and a.ndim == 2:
             _set(params, path[:-1] + ("kernel",), a.T)
+        elif leaf == "weight" and a.ndim == 4:
+            _set(params, path[:-1] + ("kernel",), a.transpose(2, 3, 1, 0))
+        elif leaf == "weight" and path[-2].startswith("prelu"):
+            _set(params, path[:-1] + ("alpha",), a)
         elif leaf == "weight":
+            if ".".join(path[:-1] + ("bias",)) not in sd:
+                raise KeyError(f"{key}: a 1-D weight outside a prelu* module "
+                               f"is a BatchNorm's scale and needs its bias")
             _set(params, path[:-1] + ("scale",), a)
         elif leaf == "bias":
             _set(params, path, a)
@@ -580,3 +598,100 @@ def mount_detection_weights(model: torch.nn.Module, sd) -> None:
         raise KeyError(f"detection weights and model disagree on "
                        f"{sorted(set(got) ^ own)[:5]}")
     model.load_state_dict(got, strict=False)
+
+
+# --- the reference's ENet (a copy of scan2cap_tpu/convert.py:285-382) ------
+#
+# The reference rebuilds a torch7-exported ENet as a flat nn.Sequential of 27
+# top-level modules (lib/enet.py:130-694); its state dict keys:
+#   0.0.{weight,bias}       initial 3->13 conv        (branch 1 = maxpool)
+#   2.* / 3.weight          initial BN(16) / PReLU(16)
+#   m in 4..25: one bottleneck each --
+#     m.0.0.0.weight        proj conv (1x1, or 2x2/2 when downsampling)
+#     m.0.0.1.* / 2.weight  bn1 / prelu1
+#     regular/dilated:  m.0.0.3.{weight,bias} core 3x3 conv (with a bias),
+#                       m.0.0.4.* bn2, 5 prelu2, 6 expand, 7 bn3
+#     asymmetric:       m.0.0.3.weight 1x5 conv (no bias),
+#                       m.0.0.4.{weight,bias} 5x1 conv (with a bias),
+#                       m.0.0.5.* bn2, 6 prelu2, 7 expand, 8 bn3
+#     m.2.weight            prelu_out
+#   26.0.weight             1x1 classifier conv, no bias
+# The port's convolutions before a BN are bias-free: a constant bias feeding
+# a BN is absorbed by the batch mean in training and equals a shift of
+# running_mean in eval, so the core convs' biases fold into running_mean.
+
+_ENET_ASYMMETRIC = (False, False, True, False, False, False, True, False)
+
+
+def _conv2d_kernel(w: np.ndarray) -> np.ndarray:
+    """torch (out, in, kh, kw) -> Flax (kh, kw, in, out)."""
+    return np.transpose(w, (2, 3, 1, 0)).copy()
+
+
+def _convert_bn_folded(sd, prefix, params, stats, base, fold_bias=None):
+    _set(params, base + ("scale",), sd[prefix + ".weight"])
+    _set(params, base + ("bias",), sd[prefix + ".bias"])
+    mean = sd[prefix + ".running_mean"]
+    if fold_bias is not None:
+        mean = mean - fold_bias
+    _set(stats, base + ("mean",), mean)
+    _set(stats, base + ("var",), sd[prefix + ".running_var"])
+
+
+def _convert_enet_tree(sd: Dict[str, np.ndarray]) -> Tuple[dict, dict]:
+    params: dict = {}
+    stats: dict = {}
+    _set(params, ("initial", "conv", "kernel"), _conv2d_kernel(sd["0.0.weight"]))
+    _set(params, ("initial", "conv", "bias"), sd["0.0.bias"])
+    _convert_bn_folded(sd, "2", params, stats, ("initial", "bn"))
+    _set(params, ("initial", "prelu", "alpha"), sd["3.weight"])
+
+    blocks = [(4 + i, f"b1_{i}", False) for i in range(5)]
+    blocks += [(9, "b2_0", False)]
+    blocks += [(10 + i, f"b2_{i + 1}", asym)
+               for i, asym in enumerate(_ENET_ASYMMETRIC)]
+    blocks += [(18 + i, f"b3_{i + 1}", asym)
+               for i, asym in enumerate(_ENET_ASYMMETRIC)]
+    for m, name, asym in blocks:
+        pre = f"{m}.0.0"
+        base = (name,)
+        _set(params, base + ("proj", "kernel"),
+             _conv2d_kernel(sd[f"{pre}.0.weight"]))
+        _convert_bn_folded(sd, f"{pre}.1", params, stats, base + ("bn1",))
+        _set(params, base + ("prelu1", "alpha"), sd[f"{pre}.2.weight"])
+        if asym:
+            _set(params, base + ("conv_a", "kernel"),
+                 _conv2d_kernel(sd[f"{pre}.3.weight"]))
+            _set(params, base + ("conv_b", "kernel"),
+                 _conv2d_kernel(sd[f"{pre}.4.weight"]))
+            core_bias = sd.get(f"{pre}.4.bias")
+            off = 1
+        else:
+            _set(params, base + ("conv", "kernel"),
+                 _conv2d_kernel(sd[f"{pre}.3.weight"]))
+            core_bias = sd.get(f"{pre}.3.bias")
+            off = 0
+        _convert_bn_folded(sd, f"{pre}.{4 + off}", params, stats,
+                           base + ("bn2",), fold_bias=core_bias)
+        _set(params, base + ("prelu2", "alpha"), sd[f"{pre}.{5 + off}.weight"])
+        _set(params, base + ("expand", "kernel"),
+             _conv2d_kernel(sd[f"{pre}.{6 + off}.weight"]))
+        _convert_bn_folded(sd, f"{pre}.{7 + off}", params, stats,
+                           base + ("bn3",))
+        _set(params, base + ("prelu_out", "alpha"), sd[f"{m}.2.weight"])
+    return params, stats
+
+
+def convert_enet_checkpoint(sd, include_classifier: bool = False
+                            ) -> Dict[str, torch.Tensor]:
+    """The reference's ``scannetv2_enet.pth`` (a path, or its state dict)
+    -> a state dict of ``models.enet.ENetEncoder``, or with
+    ``include_classifier`` of ``ENetClassifier``; it loads with
+    ``load_state_dict(strict=True)``."""
+    sd = load_reference(sd)
+    params, stats = _convert_enet_tree(sd)
+    if include_classifier:
+        params = {"encoder": params,
+                  "classifier": {"kernel": _conv2d_kernel(sd["26.0.weight"])}}
+        stats = {"encoder": stats}
+    return state_dict_from_flax(params, stats)

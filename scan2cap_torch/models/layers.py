@@ -117,12 +117,13 @@ class GRUCell(nn.Module):
 @torch.no_grad()
 def seeded_init(model: nn.Module, seed: int) -> None:
     """Seeded random weights, the same on every device: drawn on the CPU
-    from ``torch.Generator().manual_seed(seed)``, Linear weights
+    from ``torch.Generator().manual_seed(seed)``, Linear and Conv2d weights
     N(0, 1/fan_in) and biases 0, BN scale 1 and shift 0."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, nn.Linear):
-            m.weight.normal_(0.0, 1.0 / math.sqrt(m.in_features), generator=g)
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=g)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm):

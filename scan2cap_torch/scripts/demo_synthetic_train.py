@@ -1,0 +1,132 @@
+"""Training demo on synthetic scenes:
+``python -m scan2cap_torch.scripts.demo_synthetic_train`` (counterpart of
+``scripts/demo_synthetic_train.py``).
+
+Trains the detector (backbone, voting, proposal and the detection losses)
+on a few synthetic batches made once and cycled, prints the vote,
+objectness and box losses as they fall, and scores mAP@0.25 on a held-out
+batch: the milestone check passes when the loss fell and mAP is above 0.
+``--caption`` trains the whole CapNet.  ``--bf16``, ``--bf16_components``,
+``--bf16_storage`` and ``--mesh`` are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+NUM_VOCABS = 128
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--steps", type=int, default=150)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--num_points", type=int, default=40000)
+    p.add_argument("--num_batches", type=int, default=4,
+                   help="distinct synthetic batches cycled during training")
+    p.add_argument("--caption", action="store_true")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--bf16", action="store_true", help="not ported")
+    p.add_argument("--bf16_components", type=str, default=None,
+                   help="not ported (the JAX script's --bf16 knob)")
+    p.add_argument("--bf16_storage", action="store_true", help="not ported")
+    p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
+                   help="not ported")
+    p.add_argument("--use_normal", action="store_true")
+    p.add_argument("--use_multiview", action="store_true")
+    p.add_argument("--use_pretrained", type=str, default=None,
+                   help="warm-start the detection modules from a "
+                        "reference-layout VoteNet .pth")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="the device to run on (cuda, or cpu)")
+    return p
+
+
+def main(argv=None) -> int:
+    import torch
+
+    from scan2cap_torch.config import ModelConfig
+    from scan2cap_torch.convert import mount_detection_weights
+    from scan2cap_torch.data.synthetic import (make_scene_batch, make_vocab,
+                                               to_device)
+    from scan2cap_torch.device import resolve_device
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.scripts.quality_trajectory import eval_detection
+    from scan2cap_torch.scripts.train import refuse_unported
+    from scan2cap_torch.train.step import (create_train_state,
+                                           make_eval_step, make_train_step)
+
+    args = build_parser().parse_args(argv)
+    refuse_unported(args, ("mesh", "bf16", "bf16_components",
+                           "bf16_storage"))
+    device = resolve_device(args.device)
+    cfg = ModelConfig(num_points=args.num_points, no_caption=not args.caption,
+                      min_iou=-1.0, use_normal=args.use_normal,
+                      use_multiview=args.use_multiview)
+    vocab = make_vocab(num_vocabs=NUM_VOCABS, emb_size=cfg.emb_size)
+
+    print("building synthetic batches...", flush=True)
+    hosts = [make_scene_batch(cfg, batch_size=args.batch_size, num_objects=6,
+                              vocab=vocab, seed=s)
+             for s in range(args.num_batches + 1)]
+    batches = [to_device(h, device) for h in hosts]
+
+    model = CapNet(cfg, num_vocabs=NUM_VOCABS, device=device, seed=args.seed)
+    if args.use_pretrained:
+        mount_detection_weights(model, args.use_pretrained)
+        print(f"warm-started detection modules from {args.use_pretrained}",
+              flush=True)
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, state, detection=True, caption=args.caption)
+
+    losses = []
+    t_start = time.perf_counter()
+    first = {}
+    metrics = {}
+    for i in range(args.steps):
+        metrics = step(batches[i % args.num_batches], args.lr, 0.1)
+        if i == 0:
+            first = {k: float(v) for k, v in metrics.items()}
+            print(f"[step 0] first step {time.perf_counter() - t_start:.1f}s",
+                  flush=True)
+            t_start = time.perf_counter()   # the first step is not timed
+        if i % 25 == 0 or i == args.steps - 1:
+            row = {k: float(metrics[k]) for k in
+                   ("loss", "vote_loss", "objectness_loss", "box_loss",
+                    "obj_acc")}
+            losses.append(dict(step=i, **row))
+            print(f"[step {i}] loss {row['loss']:.3f} "
+                  f"vote {row['vote_loss']:.3f} "
+                  f"obj {row['objectness_loss']:.3f} "
+                  f"box {row['box_loss']:.3f} "
+                  f"obj_acc {row['obj_acc']:.3f}", flush=True)
+    float(metrics["loss"])                  # the steps have ended
+    steps_per_sec = (args.steps - 1) / (time.perf_counter() - t_start)
+    print(f"train throughput ~{steps_per_sec * args.batch_size:.2f} "
+          f"scenes/s ({steps_per_sec:.2f} steps/s)", flush=True)
+
+    # held-out synthetic batch -> detection mAP
+    m25, ar = eval_detection(make_eval_step(cfg, model),
+                             [(batches[-1], hosts[-1])])
+    last = {k: float(v) for k, v in metrics.items()}
+    print(f"final: loss {first['loss']:.2f} -> {last['loss']:.2f}; "
+          f"mAP@0.25 = {m25:.4f}, AR = {ar:.4f}")
+    print(json.dumps({"demo": {
+        "steps": args.steps, "batch_size": args.batch_size,
+        "num_points": args.num_points, "caption": args.caption,
+        "first": first, "last": last, "logged": losses, "map25": m25,
+        "ar25": ar, "scenes_per_sec": steps_per_sec * args.batch_size,
+        "platform": device.type, "torch": torch.__version__}}))
+    if not last["loss"] < first["loss"]:
+        raise SystemExit("loss did not decrease")
+    if not m25 > 0:
+        raise SystemExit("mAP is zero")
+    print("milestone check passed")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -24,7 +24,7 @@ import numpy as np
 # what the port does not run (one card, float32): the flags stay so that a
 # JAX command line parses, and stop with this message
 NOT_PORTED = ("{flag} is not ported: the PyTorch port runs on one card in "
-              "float32 (ROADMAP.md, Queue 1, item 11)")
+              "float32 (ROADMAP.md, Queue 1, items 5 and 6)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,8 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args) -> None:
-    for flag in ("mesh", "spatial", "bf16"):
+def refuse_unported(args, flags=("mesh", "spatial", "bf16")) -> None:
+    for flag in flags:
         if getattr(args, flag, None):
             raise SystemExit(NOT_PORTED.format(flag=f"--{flag}"))
 

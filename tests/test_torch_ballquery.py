@@ -28,6 +28,8 @@ from scan2cap_torch.kernels import ballquery as bq
 from scan2cap_torch.ops import grouping
 from scan2cap_torch.probes import cases
 
+from tests.test_torch_dispatch import one_torch_thread
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(ROOT, "scan2cap_torch", "csrc", "ballquery.cu")
 # (N, M, nsample) of the five ball-query sites of one flagship forward
@@ -416,6 +418,11 @@ def _check_emulated(name, variant=None):
     when None) and the pack through the variant with ranges the pack gets,
     each emulated, against the plain versions.  An nsample above
     BQ_SHARED_NSAMPLE goes through the ordered scan's emulation."""
+    with one_torch_thread():
+        return _check_emulated_on_one_thread(name, variant)
+
+
+def _check_emulated_on_one_thread(name, variant):
     xyz, new_xyz, radius, nsample, forced = _scene_tensors(name)
     N, M = xyz.shape[1], new_xyz.shape[1]
     if variant is None:

@@ -199,6 +199,14 @@ def test_package_imports_nothing_of_jax():
         "import scan2cap_torch.probes.pack, scan2cap_torch.probes.shift\n"
         "import scan2cap_torch.probes.gather\n"
         "import scan2cap_torch.data.synthetic\n"
+        "import scan2cap_torch.models.enet, scan2cap_torch.data.projection\n"
+        "import scan2cap_torch.data.frames, scan2cap_torch.utils.colors\n"
+        "import scan2cap_torch.utils.ply\n"
+        "import scan2cap_torch.scripts.quality_trajectory\n"
+        "import scan2cap_torch.scripts.demo_synthetic_train\n"
+        "import scan2cap_torch.scripts.compute_multiview_features\n"
+        "import scan2cap_torch.scripts.project_multiview_features\n"
+        "import scan2cap_torch.scripts.project_multiview_labels\n"
         "import pkgutil\n"
         "for m in pkgutil.walk_packages(scan2cap_torch.__path__,\n"
         "                               'scan2cap_torch.'):\n"
@@ -206,7 +214,9 @@ def test_package_imports_nothing_of_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
         "                                    'scan2cap_tpu'))\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "# Pillow and h5py only at the call that needs them\n"
+        "assert 'PIL' not in sys.modules and 'h5py' not in sys.modules\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                    cwd=root)

@@ -154,7 +154,7 @@ def test_train_resume_eval_predict(cli_env, capsys):
 
 @pytest.mark.parametrize("flag", [["--mesh", "2,1"], ["--spatial"], ["--bf16"]])
 def test_unported_flags_exit_with_their_message(cli_env, flag):
-    with pytest.raises(SystemExit, match="Queue 1, item 11"):
+    with pytest.raises(SystemExit, match="Queue 1, items 5 and 6"):
         traincli.main(TINY + ["--epoch", "1"] + flag)
 
 

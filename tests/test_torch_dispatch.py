@@ -10,6 +10,7 @@ card's edge shapes against the JAX op, so that what the card is held
 against is itself held against JAX.
 """
 
+import contextlib
 import os
 import re
 
@@ -196,6 +197,20 @@ def test_build_log_reading():
 
 
 # --- the FPS kernel's arithmetic, emulated ---------------------------------
+@contextlib.contextmanager
+def one_torch_thread():
+    """torch on one thread inside.  The emulations are many small float64
+    ops: more threads gain nothing there, and while a run's workers share
+    the cores, idle threads spinning on them made the emulations ten times
+    dearer (564 s -> 74 s for these two files' cases with 6 workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _fps_emulated(xyz, npoint, variant):
     """What csrc/fps.cu computes for one scene, in numpy: running mins as
     the int32 bit patterns of the distances (-1 for padding, -2 for a slot
@@ -302,11 +317,12 @@ def test_fps_kernel_arithmetic_emulated_matches_plain(case, variant):
     v = (fps.fps_variant(xyz.shape[1]) if variant is None
          else fps.VARIANTS.index(variant))
     assert _holds(v) >= xyz.shape[1]
-    want = sampling.furthest_point_sample_plain(
-        torch.from_numpy(xyz), npoint).numpy()
-    for b in range(xyz.shape[0]):
-        np.testing.assert_array_equal(
-            _fps_emulated(xyz[b], npoint, v), want[b])
+    with one_torch_thread():
+        want = sampling.furthest_point_sample_plain(
+            torch.from_numpy(xyz), npoint).numpy()
+        for b in range(xyz.shape[0]):
+            np.testing.assert_array_equal(
+                _fps_emulated(xyz[b], npoint, v), want[b])
 
 
 # --- the plain versions at the card's edge shapes, against JAX -------------

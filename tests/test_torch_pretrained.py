@@ -22,10 +22,7 @@ Tolerances:
   keys and corners: exact; its features 1e-4.
 """
 
-import importlib.util
-import json
 import os
-import sys
 
 import h5py
 import numpy as np
@@ -35,7 +32,6 @@ import pytest
 import torch
 
 from tests.test_dataset import make_fixture_glove
-from tests.test_torch_cli import write_cli_data
 
 from scan2cap_tpu.config import ModelConfig as JModelConfig
 from scan2cap_tpu.data import dataset as jdataset
@@ -45,23 +41,15 @@ from scan2cap_tpu.losses import pretrained as jlosses
 from scan2cap_tpu.models.capnet_pretrained import (
     CapNetPretrained as JCapNetPretrained)
 
-from scan2cap_torch import convert
 from scan2cap_torch.config import ModelConfig
 from scan2cap_torch.convert import named_from_flax, state_dict_from_flax
 from scan2cap_torch.data import dataset, synthetic
 from scan2cap_torch.data import dataset_pretrained as pretrained
-from scan2cap_torch.data.feature_store import (FeatureStoreWriter,
-                                               open_feature_store)
+from scan2cap_torch.data.feature_store import FeatureStoreWriter
 from scan2cap_torch.eval import eval_pretrained
 from scan2cap_torch.losses import pretrained as losses
 from scan2cap_torch.models.capnet_pretrained import CapNetPretrained
-from scan2cap_torch.scripts import (eval_pretrained as evalcli,
-                                    extract_gt_features,
-                                    extract_votenet_features,
-                                    train as traincli,
-                                    train_maskvotenet as mvncli,
-                                    train_pretrained as precli)
-from scan2cap_torch.train.checkpoints import CheckpointIO
+from scan2cap_torch.scripts import train_pretrained as precli
 from scan2cap_torch.train.step import (PRETRAINED_REPORT_KEYS,
                                        create_train_state, make_eval_step,
                                        make_pretrained_step)
@@ -583,174 +571,3 @@ def test_feed_pretrained_cap_matches_jax(databases, mode):
         assert 0 < len(keys) <= 3
     jl.close()
     tl.close()
-
-
-# --- the entry points -------------------------------------------------------
-TINY = ["--batch_size", "2", "--verbose", "1", "--device", "cpu"]
-PRE_FLAGS = ["--use_topdown", "--use_relation", "--num_graph_steps", "2",
-             "--num_locals", "2", "--use_orientation"]
-
-
-@pytest.fixture
-def cli_env(tmp_path, monkeypatch):
-    data = write_cli_data(tmp_path, np.random.RandomState(0))
-    monkeypatch.setenv("SCAN2CAP_DATA", str(data))
-    monkeypatch.setenv("SCAN2CAP_OUTPUT", str(tmp_path / "outputs"))
-    monkeypatch.setenv("SCAN2CAP_TEST_TINY", "1")
-    return data, tmp_path / "outputs"
-
-
-def _run(outputs, tag):
-    return next(p for p in outputs.iterdir() if p.name.endswith(tag))
-
-
-def test_gt_track_extract_train_eval(cli_env, capsys):
-    data, outputs = cli_env
-    mvncli.main(TINY + ["--num_points", "2048", "--use_normal", "--epoch",
-                        "1", "--tag", "mvn"])
-    mvn = _run(outputs, "_MVN").name
-    stats = extract_gt_features.main(["--folder", mvn, "--split", "train",
-                                      "--epoch", "2"] + TINY[:2] + TINY[4:])
-    assert stats["batches"] == 4 and stats["samples"] == 8   # 4 pairs x 2
-    extract_gt_features.main(["--folder", mvn, "--split", "val"]
-                             + TINY[:2] + TINY[4:])
-    with open_feature_store(str(data / "gt_ScanRefer_features_train.npz")) \
-            as db:
-        keys = set(db.keys())
-        for e in range(2):
-            for s in ("scene0000_00", "scene0001_00"):
-                for suffix in ("_gt_ids", "_features", "_bbox_corners",
-                               "_gt_corners"):
-                    assert f"{e}|{s}{suffix}" in keys
-        feats = db["1|scene0000_00_features"]
-        assert feats.shape == (2, 128) and feats.dtype == np.float32
-        assert db["0|scene0000_00_gt_ids"].dtype == np.int64
-    assert len(keys) == 16
-
-    capsys.readouterr()
-    solver = precli.main(TINY + PRE_FLAGS + ["--mode", "gt", "--epoch", "1",
-                                             "--val_step", "2", "--tag",
-                                             "pre"])
-    run = _run(outputs, "_PRE")
-    info = json.loads((run / "info.json").read_text())
-    assert info["device"] == "cpu" and info["num_train"] == 4
-    log = (run / "log.txt").read_text()
-    assert "[eval @ iter 2]" in log and "loss" in log
-    for name in ("best", "last", "resume"):
-        assert (run / "ckpt" / f"{name}.pt").exists()
-    assert solver.state.step == 2
-    last = CheckpointIO(str(run / "ckpt")).restore("last")["model"]
-    model = CapNetPretrained(solver.model.cfg, "gt", solver.model.caption
-                             .num_vocabs, device="cpu", seed=9)
-    model.load_state_dict(last, strict=True)
-
-    capsys.readouterr()
-    res = evalcli.main(["--folder", run.name, "--batch_size", "2",
-                        "--device", "cpu"])
-    out = capsys.readouterr().out
-    for tag in ("[BLEU-4]", "[CIDEr]", "[ROUGE]", "[METEOR]"):
-        assert tag in out, out
-    assert np.isfinite(res["cider"])
-    # the val scene's two objects, by their stored ids
-    assert {k for k in res["candidates"] if "eos" not in k} >= {
-        "scene0001_00|0|chair", "scene0001_00|1|chair"}
-    stats = json.loads((run / "eval_stats.json").read_text())
-    assert stats["caption"]["batches"] == 1
-
-
-def test_votenet_track_extract_train_eval(cli_env):
-    data, outputs = cli_env
-    traincli.main(TINY + ["--num_points", "512", "--num_proposals", "16",
-                          "--epoch", "1", "--no_caption", "--tag", "det"])
-    det = _run(outputs, "_DET").name
-    for split in ("train", "val"):
-        stats = extract_votenet_features.main(
-            ["--folder", det, "--split", split] + TINY[:2] + TINY[4:])
-        assert stats["batches"] == 1
-    with open_feature_store(
-            str(data / "votenet_ScanRefer_predictions_train.npz")) as db:
-        for s in ("scene0000_00", "scene0001_00"):
-            for suffix in ("_object_ids", "_features", "_bbox_corners",
-                           "_gt_ids", "_gt_corners"):
-                assert f"0|{s}{suffix}" in db
-            assert db[f"0|{s}_gt_corners"].shape == (3, 8, 3)
-            assert db[f"0|{s}_features"].shape[1:] == (128,)
-    precli.main(TINY + ["--mode", "votenet", "--use_topdown", "--epoch", "1",
-                        "--val_step", "2", "--tag", "prevn"])
-    run = _run(outputs, "_PREVN")
-    assert "[eval @ iter 2]" in (run / "log.txt").read_text()
-    res = evalcli.main(["--folder", run.name, "--batch_size", "2",
-                        "--min_iou", "0.0", "--device", "cpu"])
-    assert np.isfinite(res["cider"])
-
-
-def test_pretrained_entry_points_refuse_mesh_and_default_to_the_card(
-        cli_env):
-    with pytest.raises(SystemExit, match="Queue 1, item 11"):
-        precli.main(TINY + ["--epoch", "1", "--mesh", "2,1"])
-    assert precli.build_parser().parse_args([]).device == "cuda"
-    assert evalcli.build_parser().parse_args(
-        ["--folder", "x"]).device == "cuda"
-    for cli in (extract_gt_features, extract_votenet_features):
-        assert cli.build_parser().parse_args([]).device == "cuda"
-        with pytest.raises(SystemExit, match="--folder"):
-            cli.main(["--device", "cpu"])
-    assert precli.val_features("/d/retrain/gt_x_train.npz") == \
-        "/d/retrain/gt_x_val.npz"
-
-
-def _jax_script(name):
-    spec = importlib.util.spec_from_file_location(
-        f"jax_{name}", os.path.join(REPO, "scripts", f"{name}.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-def test_extract_gt_features_matches_the_jax_script(cli_env, monkeypatch):
-    data, outputs = cli_env
-    mvncli.main(TINY + ["--num_points", "512", "--use_normal", "--epoch",
-                        "1", "--tag", "mvn"])
-    last = CheckpointIO(str(_run(outputs, "_MVN") / "ckpt")).restore(
-        "last")["model"]
-    pth = str(data / "mask_votenet.pth")
-    torch.save(convert.reference_from_state_dict(last), pth)
-    flags = ["--pth", pth, "--split", "train", "--epoch", "2",
-             "--batch_size", "2", "--num_points", "512", "--use_normal"]
-    jax_out, port_out = str(data / "jax.hdf5"), str(data / "port.npz")
-    monkeypatch.setattr(sys, "argv", ["extract_gt_features.py"] + flags
-                        + ["--out", jax_out])
-    jscript = _jax_script("extract_gt_features")
-    jscript.extract(jscript.parse_args())
-    extract_gt_features.main(flags + ["--out", port_out, "--device", "cpu"])
-    with h5py.File(jax_out, "r") as jdb, open_feature_store(port_out) as db:
-        assert set(db.keys()) == set(jdb.keys()) and len(db) == 16
-        for k in jdb.keys():
-            want, got = np.asarray(jdb[k]), db[k]
-            assert got.dtype == want.dtype and got.shape == want.shape, k
-            if k.endswith("_features"):
-                _close_to_scale(got, want, 1e-4, k)
-            else:
-                np.testing.assert_array_equal(got, want, err_msg=k)
-
-
-def test_smoke_pretrained_phase_rehearses_without_jax():
-    # the smoke's in-process half of its pretrained phase on the CPU at a
-    # small width, in a process that must load nothing of JAX
-    import subprocess
-    code = (
-        "import sys, numpy as np, torch\n"
-        "import chip_smoke as c\n"
-        "sizes = dict(hidden_size=32, emb_size=16)\n"
-        "t = c.train_pretrained_inprocess(torch, np, dev='cpu', sizes=sizes,"
-        " B=2, num_vocabs=30, steps=2, windows=1)\n"
-        "assert t['decode_tokens_equal_share'] == 1.0, t\n"
-        "v = c.votenet_eval_inprocess(torch, np, dev='cpu', sizes=sizes, B=2,"
-        " num_vocabs=30)\n"
-        "assert v['candidates'] > 0, v\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'optax', 'scan2cap_tpu'))\n"
-        "assert not bad, bad\n")
-    run = subprocess.run([sys.executable, "-c", code], cwd=REPO, timeout=300,
-                         capture_output=True, text=True)
-    assert run.returncode == 0, run.stderr[-3000:]
