@@ -122,9 +122,9 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      (``scan2cap_torch.scripts.quality_trajectory``): one train step of its
      model at B=8 (40,000 points, 256 proposals) with every FPS, first-k
      and gather launch held exactly against its plain version on the card
-     (5, 5 and 6 a step); the entry point as a subprocess for 100 steps
-     with an evaluation every 50 over one held-out batch (every loss
-     finite, the loss at step 100 below step 50's, 5, 5 and 6 launches a
+     (5, 5 and 6 a step); the entry point as a subprocess for 60 steps
+     with an evaluation every 30 over one held-out batch (every loss
+     finite, the loss at step 60 below step 30's, 5, 5 and 6 launches a
      step; the curve printed); ``demo_synthetic_train`` for 30
      detection-only steps (the loss and the box loss fall);
  13. multiview features from frames: ScanNet-layout frames for 2 of the
@@ -138,10 +138,34 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      two iterations of ``scan2cap_torch.scripts.train --use_multiview``
      reading the store; ENet frames/s and ms per batch of 64, projection ms
      per frame, points covered, store bytes;
- 14. the JSON lines: kernels, serving, training, eval, cli, mvn,
-     benchmark, pretrained, quality, multiview, and last the device line.
-Launch counts are set to 0 just before each of the paths 4-7, 9 and 11-13
-and read just after; the entry points of 8, 9 and 11-13 count their own
+ 14. the tools around a trained run, on phase 8's resumed run (trained
+     here the same way when phase 8 is skipped): ``export_pth`` as a
+     subprocess, whole and ``--detection_only``, each file read back
+     bit-equal to the checkpoint; ``visualize`` on a val scene on the card
+     with every FPS, first-k and gather launch held against its plain
+     version, its kept proposals and captions equal to a ``--device cpu``
+     run; then ScanNet's preparation as subprocesses on a raw scene written
+     here (a mesh of 150,000 vertices and 300,000 faces, segments, an
+     aggregation of 12 objects, an axis alignment, a label map):
+     ``scannet_preprocess.batch_export``, ``check_preprocessed_scene``,
+     ``export_scannet_axis_aligned_mesh``, ``organize_scanrefer``,
+     ``organize_referit3d`` (quoted commas, no pandas) and
+     ``scan2cad_to_scannet``;
+ 15. the bfloat16 backbone: the flagship of phase 5 at B=2 with
+     ``compute_dtype`` and then ``storage_dtype`` bfloat16: step 1 with
+     every FPS, first-k and gather launch held against its plain version
+     and receiving float32 (5, 5, 6), against the port's CPU run (the
+     backbone's FPS and first-k indices exact, the share of the vote
+     stage's indices that differ reported, the loss within 3e-2 and the
+     gradient's norm within 5e-2), ms per step, kernel ms and busy share
+     beside phase 5's float32 step; ``demo_synthetic_train --bf16`` for 30
+     steps and ``quality_trajectory --bf16_storage`` for 20 as
+     subprocesses;
+ 16. the JSON lines: kernels, serving, training, eval, cli, mvn,
+     benchmark, pretrained, quality, multiview, tools, bf16, and last the
+     device line.
+Launch counts are set to 0 just before each of the paths 4-7, 9 and 11-15
+and read just after; the entry points of 8, 9 and 11-15 count their own
 (their stats files and output).
 ``--kernels-only`` stops after phase 3 (a short first check of a new
 kernel).  Imports nothing of JAX.
@@ -1666,20 +1690,28 @@ def write_scannet_fixture(np, root, points=CLI_SCENE_POINTS, seed=0):
     return data, train, val
 
 
-def run_entry_point(module, args, env, logs):
-    """``python -m module args`` to its end; its output goes to the log
-    file, and a failure ends the phase with the log's tail."""
-    log = os.path.join(logs, module.rsplit(".", 1)[-1] + ".log")
+def run_python(name, argv, env, logs, what=None):
+    """``python argv`` to its end; its output goes to the log file
+    ``<name>.log``, and a failure ends the phase with the log's tail
+    (``what`` names the command there, default ``name``)."""
+    log = os.path.join(logs, name + ".log")
     t0 = time.perf_counter()
     with open(log, "a") as f:
-        rc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
-                            env=env, stdout=f, stderr=subprocess.STDOUT,
+        rc = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env,
+                            stdout=f, stderr=subprocess.STDOUT,
                             timeout=600).returncode
     wall = time.perf_counter() - t0
     with open(log) as f:
         text = f.read()
-    require(rc == 0, f"{module} {' '.join(args)} exited {rc}:\n{text[-3000:]}")
+    require(rc == 0, f"{what or name} exited {rc}:\n{text[-3000:]}")
     return text, wall
+
+
+def run_entry_point(module, args, env, logs):
+    """``python -m module args`` (``run_python``, logged as the module's
+    last name)."""
+    return run_python(module.rsplit(".", 1)[-1], ["-m", module, *args],
+                      env, logs, what=f"{module} {' '.join(args)}")
 
 
 def getitem_ms(np, data, train, native_on, num_points=40000):
@@ -1723,13 +1755,16 @@ def trace_kernels(path, steps):
                 kernels=len(kernels) / steps)
 
 
-def cli_phase(torch, np, card, dev="cuda", rehearse=False):
+def cli_phase(torch, np, card, dev="cuda", rehearse=False, keep=False):
     """The port's own entry points as subprocesses on ``dev``, on
     ScanNet-layout fixture data at full scale: train one epoch (the
     in-training eval fires at its last step), resume to epoch 2, evaluate
     captions and detection, write benchmark predictions.  ``rehearse``
     shrinks scenes and model for a run on the CPU (``SCAN2CAP_TEST_TINY``,
-    1,024 points, 32 proposals); launches are then not counted."""
+    1,024 points, 32 proposals); launches are then not counted.  With
+    ``keep`` the fixture and the runs stay on disk for the tools phase
+    (``kept``: the directory, the data, the outputs and the resumed run),
+    which removes them."""
     import shutil
     import tempfile
 
@@ -1916,9 +1951,15 @@ def cli_phase(torch, np, card, dev="cuda", rehearse=False):
                                for t in ("0.25", "0.5")},
                 densecap_map=scored["densecap"]["mAP"],
                 cider_f1_at_05=scored["captioning"]["0.5"]["f1-score"][
-                    "cider"]))
-    finally:
+                    "cider"]),
+            kept=dict(root=root, data=data, outputs=out, run=run_b,
+                      val=val) if keep else None)
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
+    finally:
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 # --------------------------------------------------------------------- phase 9
@@ -1967,16 +2008,20 @@ def mvn_launches_right(per_step, where):
 class HeldAgainstPlain:
     """While open, every launch of the path's three kernels through
     ``scan2cap_torch.ops`` (FPS, the first-k ball query, the row gather)
-    is held against its plain version on the same inputs on the card, and
-    must equal it exactly; ``checked`` lists (kernel, shape) per launch.
-    The plain versions launch no wrapper, so the counts stay the path's."""
+    must receive float32 and is held against its plain version on the same
+    inputs on the card, and must equal it exactly; ``checked`` lists
+    (kernel, shape) per launch, ``outputs`` (with ``record``) the kernels'
+    results on the host, by kernel, in launch order.  The plain versions
+    launch no wrapper, so the counts stay the path's."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, record=False):
         from scan2cap_torch.ops import grouping, sampling
         self.torch, self.grouping, self.sampling = torch, grouping, sampling
         self.checked = []
+        self.outputs = {} if record else None
 
     def fps(self, xyz, npoint, **kw):
+        self._float32("furthest_point_sample_cuda", xyz)
         got = self.kernels["fps"](xyz, npoint, **kw)
         want = self.sampling.furthest_point_sample_plain(xyz, npoint)
         self._hold("furthest_point_sample_cuda", got, want,
@@ -1984,6 +2029,7 @@ class HeldAgainstPlain:
         return got
 
     def first_k(self, xyz, new_xyz, r2, nsample, **kw):
+        self._float32("ball_query_cuda", xyz, new_xyz)
         got = self.kernels["first_k"](xyz, new_xyz, r2, nsample, **kw)
         radius = float(r2) ** 0.5
         require(self.grouping.radius_squared(radius) == r2,
@@ -1994,16 +2040,23 @@ class HeldAgainstPlain:
         return got
 
     def gather(self, features, idx, **kw):
+        self._float32("group_points_cuda", features)
         got = self.kernels["gather"](features, idx, **kw)
         want = self.grouping.group_points_plain(features, idx)
         self._hold("group_points_cuda", got, want,
                    [*features.shape, *idx.shape[1:]])
         return got
 
+    def _float32(self, kernel, *tensors):
+        require(all(t.dtype == self.torch.float32 for t in tensors),
+                f"{kernel} received {[t.dtype for t in tensors]}")
+
     def _hold(self, kernel, got, want, shape):
         require(self.torch.equal(got, want), f"{kernel} at {shape} on the "
                 f"path: kernel != plain")
         self.checked.append((kernel, shape))
+        if self.outputs is not None:
+            self.outputs.setdefault(kernel, []).append(got.cpu())
 
     def __enter__(self):
         g, s = self.grouping, self.sampling
@@ -3152,9 +3205,9 @@ def print_eval(r):
 # ------------------------------------------------------------- phases 12, 13
 # scan2cap_torch.scripts.quality_trajectory: the flagship's trajectory at
 # full width (its own batches, 40,000 points, 256 proposals, B=8), cut to
-# 100 steps with an evaluation every 50 over one held-out batch
-QUALITY_STEPS = 100
-QUALITY_EVAL_EVERY = 50
+# 60 steps with an evaluation every 30 over one held-out batch
+QUALITY_STEPS = 60
+QUALITY_EVAL_EVERY = 30
 DEMO_STEPS = 30
 # multiview features from frames: 200 poses a scene for 2 of the CLI
 # fixture's scenes, colour 328 x 256 PNG, depth 41 x 32 16-bit PNG; ENet at
@@ -3497,6 +3550,571 @@ def multiview_phase(torch, np, card, dev="cuda", rehearse=False):
 
 
 
+# -------------------------------------------------------------------- phase 14
+# the tools around a trained run, and ScanNet's preparation from raw scans
+RAW_SCENE_POINTS = 150000
+RAW_SCENE_FACES = 300000
+RAW_SEGMENTS = 1500
+RAW_OBJECTS = 12
+# raw category -> nyu40 id (a few rows of ScanNet's scannetv2-labels.combined)
+RAW_LABELS = (("chair", 5), ("table", 7), ("door", 8), ("bookshelf", 10),
+              ("sofa", 6), ("cabinet", 3), ("wall", 1), ("floor", 2))
+
+
+def write_raw_scannet(np, root, seed=0):
+    """One raw ScanNet scene as ``scans/`` holds it, made from ``seed``: a
+    mesh of ``RAW_SCENE_POINTS`` vertices and ``RAW_SCENE_FACES`` triangles
+    (``_vh_clean_2.ply``), its over-segmentation (``RAW_SEGMENTS``
+    segments), an aggregation of ``RAW_OBJECTS`` objects of the labels in
+    ``RAW_LABELS`` (two of them wall and floor, which the detection
+    filter drops), a meta file with a 30-degree axis alignment, and the
+    label map.  Returns (scans dir, scene id, label map path, objects
+    of a detection class)."""
+    from scan2cap_torch.config import SCANNET_NYU40IDS
+    from scan2cap_torch.utils.ply import write_ply
+
+    rs = np.random.RandomState(seed)
+    sid = "scene0000_00"
+    scans = os.path.join(root, "scans")
+    os.makedirs(os.path.join(scans, sid))
+    base = os.path.join(scans, sid, sid)
+    P, per_seg = RAW_SCENE_POINTS, RAW_SCENE_POINTS // RAW_SEGMENTS
+    xyz = rs.uniform(0.0, 6.0, (P, 3)).astype(np.float32)
+    xyz[:, 2] *= 0.5
+    seg = np.arange(P) // per_seg
+    groups, detected = [], 0
+    for o in range(RAW_OBJECTS):
+        segs = list(range(o * 100, o * 100 + 40))
+        lo, hi = segs[0] * per_seg, (segs[-1] + 1) * per_seg
+        center = rs.uniform(1.0, 5.0, 3) * [1, 1, 0.3]
+        xyz[lo:hi] = center + (rs.rand(hi - lo, 3) - 0.5) * rs.uniform(
+            0.3, 1.2, 3)
+        label, nyu = RAW_LABELS[o % len(RAW_LABELS)]
+        detected += int(nyu in SCANNET_NYU40IDS)
+        groups.append({"objectId": o, "label": label, "segments": segs})
+    rgb = rs.randint(0, 256, (P, 3)).astype(np.uint8)
+    faces = rs.randint(0, per_seg, (RAW_SCENE_FACES, 3)) + (
+        np.arange(RAW_SCENE_FACES)[:, None] % RAW_SEGMENTS) * per_seg
+    write_ply(base + "_vh_clean_2.ply", xyz, rgb, faces)
+    with open(base + "_vh_clean_2.0.010000.segs.json", "w") as f:
+        json.dump({"segIndices": seg.tolist()}, f)
+    with open(base + ".aggregation.json", "w") as f:
+        json.dump({"segGroups": groups}, f)
+    c, sn = np.cos(np.pi / 6), np.sin(np.pi / 6)
+    mat = np.array([[c, -sn, 0, 1.5], [sn, c, 0, -2.0], [0, 0, 1, 0.1],
+                    [0, 0, 0, 1]])
+    with open(base + ".txt", "w") as f:
+        f.write("axisAlignment = " + " ".join(str(v) for v in mat.ravel())
+                + "\nnumColorFrames = 1\n")
+    tsv = os.path.join(root, "scannetv2-labels.combined.tsv")
+    with open(tsv, "w") as f:
+        f.write("raw_category\tnyu40id\n")
+        f.writelines(f"{name}\t{nyu}\n" for name, nyu in RAW_LABELS)
+    return scans, sid, tsv, detected
+
+
+def preparation_tools(np, root, env, logs, rehearse=False):
+    """The dataset-preparation entry points as subprocesses on a raw
+    scene and small annotation files: ``scannet_preprocess.batch_export``,
+    ``check_preprocessed_scene``, ``export_scannet_axis_aligned_mesh``,
+    ``organize_scanrefer``, ``organize_referit3d`` (a CSV with quoted
+    commas and token lists) and ``scan2cad_to_scannet``."""
+    from scan2cap_torch.utils.ply import read_ply
+
+    t0 = time.perf_counter()
+    scans, sid, tsv, detected = write_raw_scannet(np, root)
+    walls = dict(write_raw_scene=time.perf_counter() - t0)
+    prep = os.path.join(root, "scannet_data")
+    _, walls["batch_export"] = run_python("batch_export", [
+        "-c", "import sys; from scan2cap_torch.data.scannet_preprocess "
+        "import batch_export; print(batch_export(*sys.argv[1:4]))",
+        scans, prep, tsv], env, logs)
+    verts = np.load(os.path.join(prep, sid + "_aligned_vert.npy"))
+    raw = np.load(os.path.join(prep, sid + "_vert.npy"))
+    bboxes = np.load(os.path.join(prep, sid + "_aligned_bbox.npy"))
+    ins = np.load(os.path.join(prep, sid + "_ins_label.npy"))
+    require(verts.shape == raw.shape == (50000, 9) and len(ins) == 50000,
+            f"batch_export: {verts.shape}, {raw.shape}, {ins.shape}")
+    require(len(bboxes) == detected, f"{len(bboxes)} boxes, {detected} "
+            f"objects of a detection class")
+    # area-weighted normals: unit length, zero at a vertex no face uses
+    norms = np.linalg.norm(verts[:, 6:9], axis=1)
+    unit = np.abs(norms - 1) < 1e-3
+    require(np.isfinite(verts).all() and (unit | (norms == 0)).all()
+            and unit.mean() > 0.95, "vertex normals are not unit length")
+    vis = os.path.join(root, "check")
+    _, walls["check_preprocessed_scene"] = run_entry_point(
+        "scan2cap_torch.scripts.check_preprocessed_scene",
+        ["--scannet_data", prep, "--scene_id", sid, "--out", vis], env, logs)
+    require(len(read_ply(os.path.join(vis, sid + "_points.ply"))["vertex"])
+            == 50000, "check_preprocessed_scene's point PLY")
+    aligned = os.path.join(root, "aligned")
+    _, walls["export_scannet_axis_aligned_mesh"] = run_entry_point(
+        "scan2cap_torch.scripts.export_scannet_axis_aligned_mesh",
+        ["--scans", scans, "--scene_id", sid, "--out", aligned], env, logs)
+    mesh = read_ply(os.path.join(aligned, sid + "_aligned.ply"))
+    require(len(mesh["vertex"]) == RAW_SCENE_POINTS
+            and len(mesh["face"]) == RAW_SCENE_FACES,
+            "the aligned mesh lost vertices or faces")
+
+    ann = os.path.join(root, "annotations")
+    os.makedirs(ann)
+    entries = [{"scene_id": sid, "object_id": str(o), "ann_id": str(a),
+                "object_name": RAW_LABELS[o % len(RAW_LABELS)][0],
+                "token": ["the", "object", str(o)],
+                "description": f"the object {o}"}
+               for o in range(RAW_OBJECTS) for a in range(2)]
+    with open(os.path.join(ann, "ScanRefer_filtered.json"), "w") as f:
+        json.dump(entries, f)
+    _, walls["organize_scanrefer"] = run_entry_point(
+        "scan2cap_torch.scripts.organize_scanrefer", ["--data", ann], env,
+        logs)
+    with open(os.path.join(ann, "ScanRefer_filtered_organized.json")) as f:
+        require(len(json.load(f)[sid]) == RAW_OBJECTS, "organize_scanrefer")
+    with open(os.path.join(ann, "nr3d.csv"), "w") as f:
+        f.write("scan_id,target_id,instance_type,assignmentid,utterance,"
+                "tokens\n")
+        for o in range(RAW_OBJECTS):
+            f.write(f'{sid},{o},"{RAW_LABELS[o % 8][0]}, {o}",A{o},'
+                    f'"The {RAW_LABELS[o % 8][0]}, near ""it""",'
+                    f'"[\'the\', \'{RAW_LABELS[o % 8][0]}\', \',\']"\n')
+    for split, scenes in (("train", [sid]), ("val", [])):
+        with open(os.path.join(ann, f"{split}.txt"), "w") as f:
+            f.writelines(s + "\n" for s in scenes)
+    _, walls["organize_referit3d"] = run_entry_point(
+        "scan2cap_torch.scripts.organize_referit3d",
+        ["--csv", os.path.join(ann, "nr3d.csv"), "--data", ann,
+         "--train_scenes", os.path.join(ann, "train.txt"), "--val_scenes",
+         os.path.join(ann, "val.txt")], env, logs)
+    with open(os.path.join(ann, "ReferIt3D_filtered_train.json")) as f:
+        nr3d = json.load(f)
+    require(len(nr3d) == RAW_OBJECTS and nr3d[0]["token"][-1] == ","
+            and nr3d[0]["description"] == 'the chair, near "it"',
+            f"organize_referit3d: {nr3d[:1]}")
+    s = float(np.sqrt(0.5))
+    with open(os.path.join(ann, "full_annotations.json"), "w") as f:
+        json.dump([{"id_scan": sid, "aligned_models": [
+            {"trs": {"rotation": [s, 0.0, 0.0, s]}}
+            for _ in range(RAW_OBJECTS)]}], f)
+    with open(os.path.join(ann, "aligned_cad2inst_id.json"), "w") as f:
+        json.dump({sid: {str(o): o for o in range(RAW_OBJECTS)}}, f)
+    rot_path = os.path.join(ann, "scannet_instance_rotations.json")
+    _, walls["scan2cad_to_scannet"] = run_entry_point(
+        "scan2cap_torch.scripts.scan2cad_to_scannet",
+        ["--scan2cad", ann, "--out", rot_path], env, logs)
+    with open(rot_path) as f:
+        rot = np.asarray(json.load(f)[sid]["3"])
+    require(np.allclose(rot, [[0, -1, 0], [1, 0, 0], [0, 0, 1]], atol=1e-6),
+            f"scan2cad_to_scannet's rotation {rot}")
+    return dict(wall_s=walls, scene_points=RAW_SCENE_POINTS,
+                scene_faces=RAW_SCENE_FACES, boxes=int(len(bboxes)),
+                objects=RAW_OBJECTS)
+
+
+def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
+    """The tools around a trained run and the dataset preparation, on the
+    CLI phase's fixture and resumed run (``kept``; else a run trained here
+    the same way): ``export_pth`` as a subprocess, whole and
+    ``--detection_only``, read back bit-equal to the checkpoint;
+    ``visualize`` in process on the card (the run's weights with the
+    proposal head conditioned so that boxes pass the objectness gate and
+    overlap) with every FPS, first-k and gather launch held against its
+    plain version, its kept proposals and captions equal to a ``--device
+    cpu`` run of the same checkpoint; then ``preparation_tools``."""
+    import shutil
+    import tempfile
+
+    from scan2cap_torch import convert
+    from scan2cap_torch.kernels import launch_counts, reset_launch_counts
+    from scan2cap_torch.scripts import visualize
+    from scan2cap_torch.train.checkpoints import CheckpointIO
+
+    logs = os.path.join(ROOT, "chiprun_out", "tools")
+    os.makedirs(logs, exist_ok=True)
+    report = dict(card=card)
+    if kept is None:
+        root = tempfile.mkdtemp(prefix="scan2cap_tools_")
+        data, _, val = write_scannet_fixture(
+            np, root, points=3000 if rehearse else CLI_SCENE_POINTS)
+        out = os.path.join(root, "outputs")
+    else:
+        root, data, out, val = (kept[k] for k in ("root", "data", "outputs",
+                                                  "val"))
+    env = dict(os.environ, SCAN2CAP_DATA=data, SCAN2CAP_OUTPUT=out,
+               PYTHONPATH=ROOT)
+    env.pop("SCAN2CAP_TEST_TINY", None)
+    if rehearse:
+        env["SCAN2CAP_TEST_TINY"] = "1"
+    saved_env = {k: os.environ.get(k) for k in
+                 ("SCAN2CAP_DATA", "SCAN2CAP_OUTPUT", "SCAN2CAP_TEST_TINY")}
+    try:
+        if kept is None:
+            flags = [*CLI_FLAGS, "--device", dev]
+            if rehearse:
+                flags += ["--num_points", "1024", "--num_proposals", "32"]
+            run_entry_point("scan2cap_torch.scripts.train",
+                            [*flags, "--epoch", "1", "--val_step", "1000",
+                             "--tag", "tools"], env, logs)
+            run = next(d for d in os.listdir(out) if d.endswith("_TOOLS"))
+        else:
+            run = kept["run"]
+        run_dir = os.path.join(out, run)
+        sd = CheckpointIO(os.path.join(run_dir, "ckpt")).restore_best_or_last(
+            )["model"]
+
+        # export: the whole model and its detection modules, read back
+        walls = {}
+        for what, extra, name, keys in (
+                ("full", [], "model.pth", set(sd)),
+                ("detection_only", ["--detection_only"], "votenet.pth",
+                 {k for k in sd if k.split(".")[0] in
+                  convert.DETECTION_MODULES})):
+            _, walls[f"export_{what}"] = run_entry_point(
+                "scan2cap_torch.scripts.export_pth",
+                ["--folder", run, *extra], env, logs)
+            back = convert.state_dict_from_reference(
+                os.path.join(run_dir, name))
+            require(set(back) == keys and all(torch.equal(back[k], sd[k])
+                                              for k in keys),
+                    f"export_pth {what}: {name} does not read back "
+                    f"bit-equal to the checkpoint")
+        report["export"] = dict(wall_s=walls, tensors=len(sd))
+
+        # visualize on the card, held, then on the CPU, on a copy of the
+        # run whose proposals pass the objectness gate and overlap (the
+        # objectness logit +4, boxes nine times their class's mean size,
+        # one class; tests/test_torch_tools.py), so that NMS has work
+        vis_run = run + "_VIS"
+        os.makedirs(os.path.join(out, vis_run))
+        shutil.copy(os.path.join(run_dir, "info.json"),
+                    os.path.join(out, vis_run, "info.json"))
+        conditioned = {k: v.clone() for k, v in sd.items()}
+        bias = conditioned["proposal.conv3.bias"]
+        bias[1] += 4.0
+        bias[25:79] += 8.0
+        bias[79] += 6.0
+        CheckpointIO(os.path.join(out, vis_run, "ckpt")).save(
+            "best", {"model": conditioned})
+        os.environ.update({k: env[k] for k in ("SCAN2CAP_DATA",
+                                               "SCAN2CAP_OUTPUT")})
+        if rehearse:
+            os.environ["SCAN2CAP_TEST_TINY"] = "1"
+        argv = ["--folder", vis_run, "--scene_id", val[0]]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        if dev == "cuda":
+            with HeldAgainstPlain(torch) as held:
+                vis_dir = visualize.main([*argv, "--device", dev])
+            torch.cuda.synchronize()
+        else:
+            held, vis_dir = None, visualize.main([*argv, "--device", dev])
+        card_s = time.perf_counter() - t0
+        launches = {k: v for k, v in launch_counts().items() if v}
+        card_dir = vis_dir + "_card"
+        shutil.move(vis_dir, card_dir)
+        t0 = time.perf_counter()
+        visualize.main([*argv, "--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        files = sorted(os.listdir(card_dir))
+        require(files == sorted(os.listdir(vis_dir)),
+                f"visualize wrote {files} on the card, "
+                f"{sorted(os.listdir(vis_dir))} on the CPU")
+        caps = []
+        for d in (card_dir, vis_dir):
+            with open(os.path.join(d, "captions.json")) as f:
+                caps.append(json.load(f))
+        require(caps[0] == caps[1], f"visualize's kept proposals and "
+                f"captions differ: card {sorted(caps[0])[:8]}, CPU "
+                f"{sorted(caps[1])[:8]}")
+        if held is not None:
+            by_kernel = {}
+            for kernel, _ in held.checked:
+                by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+            require(by_kernel == launches and
+                    launches.get("furthest_point_sample_cuda") == 5
+                    and launches.get("ball_query_cuda") == 5,
+                    f"visualize: held {by_kernel}, launched {launches}")
+        report["visualize"] = dict(
+            scene=val[0], card_s=card_s, cpu_s=cpu_s, files=files,
+            kept=len(caps[0]), launches=launches,
+            held=len(held.checked) if held is not None else 0)
+        report["launches"] = launch_counts()
+        release_card(torch)
+
+        prep_root = os.path.join(root, "raw")
+        os.makedirs(prep_root)
+        report["preparation"] = preparation_tools(np, prep_root, env, logs,
+                                                  rehearse)
+        return report
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# -------------------------------------------------------------------- phase 15
+# the bfloat16 backbone: train steps of the flagship at B=2 in each mode
+BF16_MODES = (("compute", dict(compute_dtype="bfloat16")),
+              ("storage", dict(storage_dtype="bfloat16")))
+# step 1 on the card against the port's CPU run in bfloat16: the loss
+# within 3e-2 relative and the whole gradient's norm within 5e-2 (the
+# batch statistics' float32 sums, taken in another order on the card, round
+# a few activations to the other bfloat16 neighbour; tests/test_torch_bf16.py
+# measured what that does between two implementations); every index of the
+# backbone exact
+BF16_LOSS_TOL = 3e-2
+BF16_NORM_TOL = 5e-2
+BF16_WINDOWS = 2
+BF16_STEPS = 10
+BF16_DEMO_STEPS = 30
+BF16_QUALITY_STEPS = 20
+
+
+class PlainRecorder:
+    """While open, the CPU's FPS and first-k (the plain versions the ops
+    call on a CPU tensor) keep their results, by kernel, in call order."""
+
+    def __init__(self):
+        from scan2cap_torch.ops import grouping, sampling
+        self.grouping, self.sampling = grouping, sampling
+        self.outputs = {}
+
+    def __enter__(self):
+        s, g = self.sampling, self.grouping
+        self.saved = (s.furthest_point_sample_plain, g.ball_query_plain)
+
+        def keep(kernel, fn):
+            def call(*args, **kw):
+                out = fn(*args, **kw)
+                self.outputs.setdefault(kernel, []).append(out.clone())
+                return out
+            return call
+
+        s.furthest_point_sample_plain = keep("furthest_point_sample_cuda",
+                                             self.saved[0])
+        g.ball_query_plain = keep("ball_query_cuda", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.sampling.furthest_point_sample_plain, \
+            self.grouping.ball_query_plain = self.saved
+
+
+def bf16_phase(torch, np, card, dev="cuda", rehearse=False, float32=None,
+               lr=1e-3, bn_momentum=0.1):
+    """The bfloat16 backbone on the flagship at B=2, each mode
+    (``BF16_MODES``): step 1 with every FPS, first-k and gather launch
+    held against its plain version and receiving float32 (5, 5, 6);
+    step 1 on the CPU from the same weights (the backbone's FPS and
+    first-k indices exact, the vote stage's share of differing indices
+    reported, the loss and the gradient's norm within ``BF16_LOSS_TOL`` and
+    ``BF16_NORM_TOL``); ms per step over ``BF16_WINDOWS`` spans, kernel ms
+    and busy share of a profiled step, beside phase 5's float32 step
+    (``float32``); then ``demo_synthetic_train --bf16`` and
+    ``quality_trajectory --bf16_storage`` as subprocesses.  ``rehearse``
+    runs a small model on the CPU."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from scan2cap_torch.config import flagship_config
+    from scan2cap_torch.data.synthetic import to_device
+    from scan2cap_torch.kernels import launch_counts, reset_launch_counts
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.train.step import create_train_state, make_train_step
+
+    report = dict(card=card, modes={})
+    total = dict.fromkeys(launch_counts(), 0)
+    base = flagship_config(min_iou=0.0)
+    if rehearse:
+        base = dataclasses.replace(base, num_points=2048,
+                                   sa_npoints=(256, 128, 64, 32),
+                                   num_proposals=32, hidden_size=64,
+                                   emb_size=32)
+    B = 2
+    for mode, dtypes in BF16_MODES:
+        cfg = dataclasses.replace(base, **dtypes)
+        host = flagship_batch(np, cfg, B)
+
+        def build(device):
+            model = CapNet(cfg, num_vocabs=NUM_VOCABS, device=device, seed=0)
+            condition_weights(torch, model)
+            state = create_train_state(cfg, model)
+            return model, make_train_step(cfg, state, **TRAIN_LOSSES)
+
+        row = dict(batch=B, **dtypes)
+        cpu_model, cpu_step = build("cpu")
+        with PlainRecorder() as cpu_rec:
+            cpu_first = {k: float(v) for k, v in cpu_step(
+                to_device(host, "cpu"), lr, bn_momentum).items()}
+        cpu_norms = grad_norms(cpu_model)
+        del cpu_model, cpu_step
+        if dev == "cpu":
+            row["step1"] = cpu_first
+            report["modes"][mode] = row
+            continue
+        model, step = build(dev)
+        batch = to_device(host, dev)
+        reset_launch_counts()
+        with HeldAgainstPlain(torch, record=True) as held:
+            first = step(batch, lr, bn_momentum)
+        torch.cuda.synchronize()
+        first = {k: float(v) for k, v in first.items()}
+        per_step = {k: v for k, v in launch_counts().items() if v}
+        by_kernel = {}
+        for kernel, _ in held.checked:
+            by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+        want = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
+                    group_points_cuda=6)
+        require(by_kernel == want and per_step == want,
+                f"bf16 {mode}: held {by_kernel}, launched {per_step}")
+        require(all(np.isfinite(v) for v in first.values()),
+                f"bf16 {mode} step 1: {first}")
+        for k, v in per_step.items():
+            total[k] = total.get(k, 0) + v
+        # indices: the backbone's sites exact, the vote stage reported
+        vote_diff = {}
+        for kernel in ("furthest_point_sample_cuda", "ball_query_cuda"):
+            got, want_ = held.outputs[kernel], cpu_rec.outputs[kernel]
+            require(len(got) == len(want_) == 5, f"bf16 {mode}: {kernel} "
+                    f"{len(got)} on the card, {len(want_)} on the CPU")
+            for i in range(4):
+                require(torch.equal(got[i], want_[i].to(got[i].dtype)),
+                        f"bf16 {mode}: {kernel} at the backbone's site "
+                        f"{i + 1} differs from the CPU's")
+            vote_diff[kernel] = float((got[4] != want_[4].to(
+                got[4].dtype)).float().mean())
+        loss_rel = abs(first["loss"] - cpu_first["loss"]) / abs(
+            cpu_first["loss"])
+        card_norms = grad_norms(model)
+        whole = [float(np.sqrt(sum(v * v for v in n.values())))
+                 for n in (card_norms, cpu_norms)]
+        norm_rel = abs(whole[0] - whole[1]) / whole[1]
+        worst = max(cpu_norms, key=lambda n: abs(card_norms[n] - cpu_norms[n])
+                    / max(cpu_norms[n], 1e-6 * whole[1]))
+        require(loss_rel <= BF16_LOSS_TOL, f"bf16 {mode} step-1 loss: card "
+                f"{first['loss']} vs CPU {cpu_first['loss']}")
+        require(norm_rel <= BF16_NORM_TOL, f"bf16 {mode} gradient norm: "
+                f"card {whole[0]} vs CPU {whole[1]}")
+        # ms per step, then a profiled step
+        step(batch, lr, bn_momentum)
+        torch.cuda.synchronize()
+        window_ms = []
+        for _ in range(BF16_WINDOWS):
+            t0 = time.perf_counter()
+            for _ in range(BF16_STEPS):
+                loss = step(batch, lr, bn_momentum)["loss"]
+            float(loss)
+            window_ms.append((time.perf_counter() - t0) * 1e3 / BF16_STEPS)
+        ms = sorted(window_ms)[len(window_ms) // 2]
+        profile = profile_step(lambda: step(batch, lr, bn_momentum),
+                               f"bf16 {mode}")
+        row.update(
+            step1=dict(loss=first["loss"], cpu_loss=cpu_first["loss"],
+                       loss_rel=loss_rel, grad_norm=whole[0],
+                       cpu_grad_norm=whole[1], grad_norm_rel=norm_rel,
+                       worst_tensor=worst,
+                       worst_tensor_rel=abs(card_norms[worst]
+                                            - cpu_norms[worst])
+                       / max(cpu_norms[worst], 1e-6 * whole[1])),
+            held=len(held.checked), launches_per_step=per_step,
+            vote_stage_indices_differing=vote_diff,
+            window_ms_per_step=window_ms, ms_per_step=ms,
+            kernel_ms=profile["kernel_ms"],
+            busy_share=profile["kernel_ms"] / ms, top=profile["top"],
+            loss_after=float(loss))
+        if float32 is not None:
+            row["float32"] = dict(
+                ms_per_step=float32["ms_per_step"],
+                kernel_ms=float32["profile"]["kernel_ms"],
+                busy_share=float32["profile"]["busy_share_of_steady_step"])
+        report["modes"][mode] = row
+        del model, step, batch, held
+        release_card(torch)
+
+    logs = os.path.join(ROOT, "chiprun_out", "bf16")
+    os.makedirs(logs, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("SCAN2CAP_TEST_TINY", None)
+    tmp = tempfile.mkdtemp(prefix="scan2cap_bf16_")
+    try:
+        demo_size = (["--steps", "20", "--batch_size", "2", "--num_points",
+                      "2048", "--num_batches", "1"] if rehearse
+                     else ["--steps", str(BF16_DEMO_STEPS)])
+        text, wall = run_entry_point(
+            "scan2cap_torch.scripts.demo_synthetic_train",
+            [*demo_size, "--bf16", "--device", dev], env, logs)
+        demo = json.loads(next(l for l in text.splitlines()[::-1]
+                               if l.startswith('{"demo"')))["demo"]
+        require(demo["compute_dtype"] == "bfloat16"
+                and all(np.isfinite([demo["first"]["loss"],
+                                     demo["last"]["loss"]])),
+                f"the bf16 demo: {demo['first']} -> {demo['last']}")
+        report["demo"] = dict(wall_s=wall, steps=demo["steps"],
+                              first=demo["first"]["loss"],
+                              last=demo["last"]["loss"], map25=demo["map25"],
+                              ar25=demo["ar25"],
+                              scenes_per_s=demo["scenes_per_sec"])
+        out = os.path.join(tmp, "trajectory.json")
+        size = (["--tiny", "--steps", "4", "--eval_every", "2",
+                 "--batch_size", "2", "--num_batches", "1", "--num_points",
+                 "512"] if rehearse else
+                ["--steps", str(BF16_QUALITY_STEPS), "--eval_every",
+                 str(BF16_QUALITY_STEPS // 2)])
+        _, wall = run_entry_point(
+            "scan2cap_torch.scripts.quality_trajectory",
+            [*size, "--bf16_storage", "--eval_batches", "1", "--out", out,
+             "--device", dev], env, logs)
+        with open(out) as f:
+            traj = json.load(f)
+        losses = [x for x in traj["curve"]["loss"] if x is not None]
+        require(traj["config"]["storage_dtype"] == "bfloat16"
+                and all(np.isfinite(losses)),
+                f"the bf16-storage trajectory: {traj['curve']['loss']}")
+        per = traj["launches_per_step"]
+        require(rehearse or per == dict(furthest_point_sample_cuda=5,
+                                        ball_query_cuda=5,
+                                        group_points_cuda=6),
+                f"the bf16-storage trajectory's launches per step {per}")
+        report["trajectory"] = dict(wall_s=wall, curve=traj["curve"],
+                                    ms_per_step=traj["ms_per_step"],
+                                    launches_per_step=per)
+        steps = traj["config"]["steps"]
+        for k, v in per.items():
+            total[k] = total.get(k, 0) + v * steps
+        for k, v in traj["eval_launches"].items():
+            total[k] = total.get(k, 0) + v
+        report["launches"] = total
+        return report
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def print_tools(r):
+    v, e, p = r["visualize"], r["export"], r["preparation"]
+    print(f"  tools: export {e['wall_s']} s ({e['tensors']} tensors read "
+          f"back bit-equal); visualize {v['scene']} {v['card_s']:.1f} s on "
+          f"the card ({v['held']} launches held), {v['cpu_s']:.1f} s on the "
+          f"CPU, {v['kept']} boxes kept, files {v['files']}; preparation "
+          f"{p['wall_s']}", flush=True)
+
+
+def print_bf16(r):
+    for mode, row in r["modes"].items():
+        s1 = row["step1"]
+        print(f"  bf16 {mode}: step 1 loss {s1.get('loss')} (CPU "
+              f"{s1.get('cpu_loss')}), {row.get('ms_per_step')} ms per step "
+              f"(float32 {row.get('float32', {}).get('ms_per_step')}), "
+              f"kernels {row.get('kernel_ms')} ms, busy "
+              f"{row.get('busy_share')}, vote-stage indices differing "
+              f"{row.get('vote_stage_indices_differing')}", flush=True)
+    print(f"  bf16 demo {r['demo']}; storage trajectory "
+          f"{r['trajectory']['ms_per_step']} ms per step", flush=True)
+
+
 def print_quality(r):
     t, d = r["trajectory"], r["demo"]
     print(f"  quality: held step {r['held_step']['by_kernel']} exact; "
@@ -3531,7 +4149,7 @@ def main(argv=None) -> int:
     ap.add_argument("--skip", nargs="+", default=[],
                     choices=["serve", "train", "eval", "probes", "cli",
                              "mvn", "benchmark", "pretrained", "quality",
-                             "multiview"],
+                             "multiview", "tools", "bf16"],
                     help="leave out a path while bringing up another "
                          "(exit 3 by design: not a whole run)")
     args = ap.parse_args(argv)
@@ -3617,7 +4235,7 @@ def main(argv=None) -> int:
     partial = args.kernels_only or args.skip
     paths = {}
     serve = train = evaluation = probes = cli = mvn = bench = pre = None
-    quality = multiview = None
+    quality = multiview = tools = bf16 = kept = None
     if not args.kernels_only:
         if "serve" not in args.skip:
             t0 = time.perf_counter()
@@ -3642,7 +4260,9 @@ def main(argv=None) -> int:
             print(f"probe phase: {time.perf_counter() - t0:.1f} s", flush=True)
         if "cli" not in args.skip:
             t0 = time.perf_counter()
-            cli = cli_phase(torch, np, card)
+            # the tools phase reads the resumed run and removes the fixture
+            cli = cli_phase(torch, np, card, keep="tools" not in args.skip)
+            kept = cli.pop("kept")
             paths["cli"] = cli["launches"]
             print(f"  cli: {cli['train_ms_per_step']:.1f} ms per step at "
                   f"B={cli['batch']} ({cli['scenes_per_s']:.1f} scenes/s), "
@@ -3702,6 +4322,22 @@ def main(argv=None) -> int:
             paths["multiview"] = multiview["launches"]
             print_multiview(multiview)
             print(f"multiview phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        if "tools" not in args.skip:
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            tools = tools_phase(torch, np, card, kept=kept)
+            paths["tools"] = tools["launches"]
+            print_tools(tools)
+            print(f"tools phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        if "bf16" not in args.skip:
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            bf16 = bf16_phase(torch, np, card, float32=train)
+            paths["bf16"] = bf16["launches"]
+            print_bf16(bf16)
+            print(f"bf16 phase: {time.perf_counter() - t0:.1f} s",
                   flush=True)
 
     def launches(wrapper):
@@ -3769,6 +4405,10 @@ def main(argv=None) -> int:
         print(json.dumps({"quality": quality, "card": card}))
     if multiview is not None:
         print(json.dumps({"multiview": multiview, "card": card}))
+    if tools is not None:
+        print(json.dumps({"tools": tools, "card": card}))
+    if bf16 is not None:
+        print(json.dumps({"bf16": bf16, "card": card}))
     if partial:
         return 3
     print(card)

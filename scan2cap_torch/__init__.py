@@ -11,9 +11,13 @@ both ways (``convert``), MaskVoteNet, the pretrained-feature track
 (``models.capnet_pretrained``, ``data.dataset_pretrained``, the object
 encoder and dataset) over a feature store that numpy alone reads
 (``data.feature_store``), multiview features from RGB-D frames (ENet in
-``models.enet``, ``data.projection``, ``data.frames``), and the
-command-line entry points under ``scan2cap_torch.scripts`` (the
-training-quality trajectory among them) and ``scan2cap_torch.benchmark``.  It imports torch and numpy only
+``models.enet``, ``data.projection``, ``data.frames``), the bfloat16
+backbone (``ModelConfig.compute_dtype``, ``storage_dtype``,
+``bf16_components``), ScanNet's preprocessing
+(``data.scannet_preprocess``), and the command-line entry points under
+``scan2cap_torch.scripts`` (the training-quality trajectory, the export to
+a reference ``.pth``, the visualizer and the dataset-preparation tools
+among them) and ``scan2cap_torch.benchmark``.  It imports torch and numpy only
 — never JAX, Flax or anything of ``scan2cap_tpu``; what it needs from there
 it keeps as its own copy.  The TPU kernels of the JAX repository (furthest-point
 sampling, the exact ball query, the row gather of ``group_points`` and the
@@ -35,6 +39,10 @@ import torch
 # reference's exactly.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# The bfloat16 backbone (``--bf16``) sums its products in float32 and
+# rounds once, as the JAX package's bfloat16 Dense does: no split-K partial
+# sums in bfloat16.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 from scan2cap_torch.device import resolve_device  # noqa: E402
 

@@ -3,10 +3,11 @@
 Only what the ported paths read: ``ModelConfig``, the ScanNet class names,
 nyu40 ids, mean-size table and mean colour, the numpy box decode the
 dataset uses, and ``PathConfig``.  Field names and defaults are the JAX
-package's, so a config written for one package reads the same in the other.  The
-TPU-only knobs (``compute_dtype``, ``storage_dtype``, ``bf16_components``,
-``spatial_axis``) are not carried: the port computes in float32 and runs
-on one card.
+package's, so a config written for one package reads the same in the other.
+The backbone narrows to bfloat16 as the JAX package's does
+(``compute_dtype``, ``storage_dtype``, gated per module by
+``bf16_components``; ``models/layers.py``); ``spatial_axis`` is not
+carried: the port runs on one card.
 """
 
 from __future__ import annotations
@@ -103,6 +104,15 @@ class ModelConfig:
     use_height: bool = True          # lib/dataset.py "not no_height"
     no_caption: bool = False
     min_iou: float = 0.25            # CONF.TRAIN.MIN_IOU_THRESHOLD (caption gate)
+    # numerics: the backbone's MLP chain computes in ``compute_dtype``
+    # (its layers 1 and on; the geometry and layer 0 stay float32)
+    compute_dtype: str = "float32"
+    # storage-only narrowing: the backbone MLPs' inter-layer activations
+    # are stored at this width while every matmul and BN computes in
+    # float32 (ignored where compute_dtype narrows)
+    storage_dtype: str = "float32"
+    # which backbone modules either narrowing applies to
+    bf16_components: str = "sa1,sa2,sa3,sa4,fp"
 
     @property
     def input_feature_dim(self) -> int:

@@ -10,6 +10,13 @@ Architecture constants (backbone_module.py:28-66):
   sa3:  512 pts, r=0.8, 16 smp, mlp [256, 128, 128, 256]
   sa4:  256 pts, r=1.2, 16 smp, mlp [256, 128, 128, 256]
   fp1/fp2: mlp [256+256, 256, 256]
+
+bfloat16 (``compute_dtype``, ``storage_dtype``, per module through
+``bf16_components``) narrows the MLP chains only: the sampling, the ball
+query, the gathers and the gather-lean projection stay float32, so FPS,
+the first-k and the gather see float32 alone and their indices are the
+float32 model's.  Only the grouped values after the centres' subtraction
+are narrowed (``scan2cap_tpu/models/backbone.py:183-199``).
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from scan2cap_torch.models.layers import SharedMLP
+from scan2cap_torch.models.layers import SharedMLP, torch_dtype, widen
 from scan2cap_torch.ops import (ball_query, furthest_point_sample,
                                 gather_points, group_points,
                                 interpolation_weights, query_and_group,
@@ -49,6 +56,7 @@ class _LeafGatheredProjection(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         cat, ct_in, idx = ctx.saved_tensors
+        g = g.to(cat.dtype)          # a narrow gradient promotes, as in JAX
         gath = group_points_forward(cat, idx)              # (B, M, S, Cin)
         dW = (torch.einsum("bmsc,bmsd->cd", gath, g)
               - torch.einsum("bmc,bmd->cd", ct_in, g.sum(dim=2)))
@@ -66,11 +74,15 @@ def leaf_gathered_projection(cat: torch.Tensor, ct_in: torch.Tensor,
 class PointnetSAModuleVotes(nn.Module):
     """Single-scale set-abstraction layer (pointnet2_modules.py:164-272).
 
-    ``in_features`` is the width of the point features (without xyz)."""
+    ``in_features`` is the width of the point features (without xyz).
+    ``compute_dtype`` / ``storage_dtype`` narrow the MLP chain
+    (``SharedMLP``) and the grouped values that enter it."""
 
     def __init__(self, npoint: int, radius: float, nsample: int,
                  in_features: int, mlp: Sequence[int], use_xyz: bool = True,
-                 normalize_xyz: bool = True, leaf_inputs: bool = False):
+                 normalize_xyz: bool = True, leaf_inputs: bool = False,
+                 compute_dtype: Optional[str] = None,
+                 storage_dtype: Optional[str] = None):
         super().__init__()
         self.npoint = npoint
         self.radius = radius
@@ -79,7 +91,10 @@ class PointnetSAModuleVotes(nn.Module):
         self.normalize_xyz = normalize_xyz
         self.in_features = in_features
         in_width = in_features + (3 if use_xyz else 0)
-        self.mlp = SharedMLP(in_width, mlp)
+        self.mlp = SharedMLP(in_width, mlp, compute_dtype=compute_dtype,
+                             storage_dtype=storage_dtype)
+        # the dtype the grouped values enter the MLP chain in (None: float32)
+        self.narrow = torch_dtype(compute_dtype) or torch_dtype(storage_dtype)
         # gather-lean path: project every source point through the
         # bias-free layer 0 once and gather the narrow projection instead
         # of the wide raw features (scan2cap_tpu/models/backbone.py:131-181)
@@ -102,14 +117,16 @@ class PointnetSAModuleVotes(nn.Module):
             #                                  - Dense_0([xyz_c; 0])
             idx = ball_query(xyz, new_xyz, self.radius, self.nsample)
             scale = 1.0 / self.radius if self.normalize_xyz else 1.0
+            # the split runs in float32 whatever the features' dtype
+            feats = widen(features) if features is not None else None
             xyz_s = xyz * scale
-            cat = torch.cat([xyz_s, features], -1) if features is not None \
+            cat = torch.cat([xyz_s, feats], -1) if feats is not None \
                 else xyz_s
             ct_in = new_xyz * scale
-            if features is not None:
+            if feats is not None:
                 ct_in = torch.cat(
                     [ct_in, ct_in.new_zeros(ct_in.shape[:-1]
-                                            + (features.shape[-1],))], -1)
+                                            + (feats.shape[-1],))], -1)
             if self.leaf_inputs:
                 g = leaf_gathered_projection(
                     cat, ct_in, self.mlp.dense_0.weight.t(), idx)
@@ -117,21 +134,34 @@ class PointnetSAModuleVotes(nn.Module):
                 proj = self.mlp.project_first(cat)          # (B, N, w0)
                 ct = self.mlp.project_first(ct_in)          # (B, npoint, w0)
                 g = group_points(proj, idx) - ct[:, :, None, :]
+            if self.narrow is not None:
+                # relative-scale values only from here on
+                g = g.to(self.narrow)
             out = self.mlp.from_first(g, train, bn_momentum)
         else:
-            grouped = query_and_group(xyz, new_xyz, features, self.radius,
-                                      self.nsample, use_xyz=self.use_xyz,
-                                      normalize_xyz=self.normalize_xyz)
+            # grouped in float32 and narrowed after: a gather commutes with
+            # the cast, so this is the JAX package's narrow-then-group
+            grouped = query_and_group(
+                xyz, new_xyz, widen(features) if features is not None
+                else None, self.radius, self.nsample, use_xyz=self.use_xyz,
+                normalize_xyz=self.normalize_xyz)
+            if self.narrow is not None:
+                grouped = grouped.to(self.narrow)
             out = self.mlp(grouped, train, bn_momentum)
         return new_xyz, out.amax(dim=2), inds
 
 
 class PointnetFPModule(nn.Module):
-    """Feature-propagation layer (pointnet2_modules.py:356-416)."""
+    """Feature-propagation layer (pointnet2_modules.py:356-416).  With a
+    narrowed upstream, ``three_interpolate`` takes bfloat16 features and
+    float32 weights and returns float32, as in JAX."""
 
-    def __init__(self, in_features: int, mlp: Sequence[int]):
+    def __init__(self, in_features: int, mlp: Sequence[int],
+                 compute_dtype: Optional[str] = None,
+                 storage_dtype: Optional[str] = None):
         super().__init__()
-        self.mlp = SharedMLP(in_features, mlp)
+        self.mlp = SharedMLP(in_features, mlp, compute_dtype=compute_dtype,
+                             storage_dtype=storage_dtype)
 
     def forward(self, unknown: torch.Tensor, known: torch.Tensor,
                 unknown_feats: Optional[torch.Tensor],
@@ -149,20 +179,37 @@ class PointnetFPModule(nn.Module):
 
 class Pointnet2Backbone(nn.Module):
     """models/backbone_module.py:22-127, channels-last; fills the same
-    data-dict keys as the JAX module."""
+    data-dict keys as the JAX module.  ``compute_dtype`` and
+    ``storage_dtype`` apply to the modules named in ``bf16_components``
+    ("sa1,...,sa4,fp"); the others stay float32, bit for bit.  With
+    ``compute_dtype`` the SA and FP features come out narrow."""
 
     def __init__(self, input_feature_dim: int = 0,
-                 sa_npoints: Tuple[int, int, int, int] = (2048, 1024, 512, 256)):
+                 sa_npoints: Tuple[int, int, int, int] = (2048, 1024, 512, 256),
+                 compute_dtype: Optional[str] = None,
+                 storage_dtype: Optional[str] = None,
+                 bf16_components: str = "sa1,sa2,sa3,sa4,fp"):
         super().__init__()
         np1, np2, np3, np4 = sa_npoints
+        comps = {c.strip() for c in bf16_components.split(",")}
+
+        def dt(name):
+            return dict(
+                compute_dtype=compute_dtype if name in comps else None,
+                storage_dtype=storage_dtype if name in comps else None)
+
         # sa1's xyz/features come straight from the input cloud
         self.sa1 = PointnetSAModuleVotes(np1, 0.2, 64, input_feature_dim,
-                                         (64, 64, 128), leaf_inputs=True)
-        self.sa2 = PointnetSAModuleVotes(np2, 0.4, 32, 128, (128, 128, 256))
-        self.sa3 = PointnetSAModuleVotes(np3, 0.8, 16, 256, (128, 128, 256))
-        self.sa4 = PointnetSAModuleVotes(np4, 1.2, 16, 256, (128, 128, 256))
-        self.fp1 = PointnetFPModule(256 + 256, (256, 256))
-        self.fp2 = PointnetFPModule(256 + 256, (256, 256))
+                                         (64, 64, 128), leaf_inputs=True,
+                                         **dt("sa1"))
+        self.sa2 = PointnetSAModuleVotes(np2, 0.4, 32, 128, (128, 128, 256),
+                                         **dt("sa2"))
+        self.sa3 = PointnetSAModuleVotes(np3, 0.8, 16, 256, (128, 128, 256),
+                                         **dt("sa3"))
+        self.sa4 = PointnetSAModuleVotes(np4, 1.2, 16, 256, (128, 128, 256),
+                                         **dt("sa4"))
+        self.fp1 = PointnetFPModule(256 + 256, (256, 256), **dt("fp"))
+        self.fp2 = PointnetFPModule(256 + 256, (256, 256), **dt("fp"))
 
     def forward(self, data_dict: dict, train: bool = False,
                 bn_momentum: float = 0.1) -> dict:

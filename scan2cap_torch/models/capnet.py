@@ -17,7 +17,7 @@ from scan2cap_torch.models.backbone import Pointnet2Backbone
 from scan2cap_torch.models.caption import (SceneCaptionModule,
                                            TopDownSceneCaptionModule)
 from scan2cap_torch.models.graph import GraphModule
-from scan2cap_torch.models.layers import seeded_init
+from scan2cap_torch.models.layers import seeded_init, widen
 from scan2cap_torch.models.proposal import ProposalModule
 from scan2cap_torch.models.voting import VotingModule, l2_normalize_votes
 
@@ -34,8 +34,11 @@ class CapNet(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.backbone_net = Pointnet2Backbone(cfg.input_feature_dim,
-                                              cfg.sa_npoints)
+        self.backbone_net = Pointnet2Backbone(
+            cfg.input_feature_dim, cfg.sa_npoints,
+            compute_dtype=cfg.compute_dtype,
+            storage_dtype=cfg.storage_dtype,
+            bf16_components=cfg.bf16_components)
         self.vgen = VotingModule(cfg.vote_factor, 256)
         self.proposal = ProposalModule(
             cfg.num_class, cfg.num_heading_bin, cfg.num_size_cluster,
@@ -71,8 +74,10 @@ class CapNet(nn.Module):
         d["seed_inds"] = d["fp2_inds"]
         d["seed_xyz"] = d["fp2_xyz"]
         d["seed_features"] = d["fp2_features"]
-        vote_xyz, vote_features = self.vgen(d["fp2_xyz"], d["fp2_features"],
-                                            train, bn_momentum)
+        # a bfloat16 backbone's seed features enter the float32 voting
+        # layers promoted, as JAX promotes them
+        vote_xyz, vote_features = self.vgen(
+            d["fp2_xyz"], widen(d["fp2_features"]), train, bn_momentum)
         vote_features = l2_normalize_votes(vote_features)
         d["vote_xyz"] = vote_xyz
         d["vote_features"] = vote_features

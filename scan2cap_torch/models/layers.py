@@ -4,22 +4,38 @@ Channels-last: the reference's 1x1 convolutions are ``nn.Linear`` over the
 trailing axis.  Parameter names follow the Flax tree (``dense_{i}``,
 ``bn_{i}``, GRU ``ih``/``hh``) so ``convert.state_dict_from_flax`` is a
 mechanical rename.
+
+bfloat16 (``SharedMLP``'s ``compute_dtype`` and ``storage_dtype``) is cast
+explicitly, tensor by tensor, where the JAX package's Flax modules narrow:
+parameters and BN running statistics stay float32, and ``torch.autocast``
+is not used.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in at least float32 (a bfloat16 tensor promoted, as Flax
+    promotes it against float32 parameters; float32 and float64 as they
+    are)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class BatchNorm(nn.Module):
     """Torch-semantics batch norm over the trailing feature axis, with the
     momentum passed per call (the BN momentum schedule is a call argument
     in the JAX package too).  Train mode normalises with the biased batch
-    variance and updates the running variance with the unbiased one."""
+    variance and updates the running variance with the unbiased one.  The
+    statistics and ``(x - mean) * inv + bias`` are at least float32
+    whatever ``x`` is; the result has ``x``'s dtype
+    (``scan2cap_tpu/models/layers.py:22-51``)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -31,10 +47,11 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 momentum: float = 0.1) -> torch.Tensor:
+        xf = widen(x)
         if train:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            var = x.var(dim=dims, unbiased=False)
+            mean = xf.mean(dim=dims)
+            var = xf.var(dim=dims, unbiased=False)
             with torch.no_grad():
                 n = x.numel() // x.shape[-1]
                 unbiased = var * (n / max(n - 1, 1))
@@ -43,37 +60,72 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * inv + self.bias
+        return ((xf - mean) * inv + self.bias).to(x.dtype)
+
+
+def torch_dtype(name: Optional[str]) -> Optional[torch.dtype]:
+    """A dtype's name ("bfloat16") -> the torch dtype; None and "float32"
+    (no narrowing) -> None."""
+    if name is None or name == "float32":
+        return None
+    return getattr(torch, name)
 
 
 class SharedMLP(nn.Module):
     """Stack of Linear(+BN)(+ReLU) over the trailing axis; ``features``
-    lists the input width followed by the output widths."""
+    lists the input width followed by the output widths.
+
+    ``compute_dtype`` (a dtype's name, e.g. "bfloat16"): layers 1 and on
+    cast their input and weight to it and multiply there (Flax's
+    ``Dense(dtype=...)``).  Layer 0 always computes in float32: the SA
+    layers' gather-lean split Dense(a + b) == Dense(a) + Dense(b) runs it
+    over absolute room-scale coordinates, which bfloat16 would quantize.
+
+    ``storage_dtype``: only the activations between layers are cast to it;
+    every product and BN computes in float32 on them, and the last layer's
+    output stays float32.  Ignored when ``compute_dtype`` is set."""
 
     def __init__(self, in_features: int, features: Sequence[int],
-                 bn: bool = True, activation: bool = True):
+                 bn: bool = True, activation: bool = True,
+                 compute_dtype: Optional[str] = None,
+                 storage_dtype: Optional[str] = None):
         super().__init__()
         self.bn = bn
         self.activation = activation
         self.num_layers = len(features)
+        self.compute_dtype = torch_dtype(compute_dtype)
+        self.storage_dtype = (None if self.compute_dtype is not None
+                              else torch_dtype(storage_dtype))
         widths = [in_features, *features]
         for i, w in enumerate(features):
             self.add_module(f"dense_{i}", nn.Linear(widths[i], w, bias=not bn))
             if bn:
                 self.add_module(f"bn_{i}", BatchNorm(w))
 
+    def _dense(self, x, i):
+        lin = getattr(self, f"dense_{i}")
+        dt = self.compute_dtype
+        if i and dt is not None:
+            # the product and the bias add in the narrow dtype, as Flax's
+            # Dense(dtype=bfloat16) does
+            y = F.linear(x.to(dt), lin.weight.to(dt))
+            return y if lin.bias is None else y + lin.bias.to(dt)
+        # a narrow input is promoted to the parameters' dtype, as in Flax
+        return lin(x.to(lin.weight.dtype))
+
     def _post(self, x, i, train, bn_momentum):
         if self.bn:
             x = getattr(self, f"bn_{i}")(x, train, bn_momentum)
         if self.activation:
             x = torch.relu(x)
+        if self.storage_dtype is not None and i < self.num_layers - 1:
+            x = x.to(self.storage_dtype)
         return x
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 bn_momentum: float = 0.1) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = self._post(getattr(self, f"dense_{i}")(x), i, train,
-                           bn_momentum)
+            x = self._post(self._dense(x, i), i, train, bn_momentum)
         return x
 
     def project_first(self, x: torch.Tensor) -> torch.Tensor:
@@ -89,8 +141,7 @@ class SharedMLP(nn.Module):
         """Finish the stack from layer-0 pre-activation values."""
         x = self._post(x, 0, train, bn_momentum)
         for i in range(1, self.num_layers):
-            x = self._post(getattr(self, f"dense_{i}")(x), i, train,
-                           bn_momentum)
+            x = self._post(self._dense(x, i), i, train, bn_momentum)
         return x
 
 

@@ -105,8 +105,9 @@ def ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
                nsample: int) -> torch.Tensor:
     """(B, N, 3) points, (B, M, 3) queries -> (B, M, nsample) int32."""
     if xyz.is_cuda:
-        return ball_query_cuda(xyz.detach().to(torch.float32).contiguous(),
-                               new_xyz.detach().to(torch.float32).contiguous(),
+        # no cast: the kernel takes float32 alone and refuses the rest
+        return ball_query_cuda(xyz.detach().contiguous(),
+                               new_xyz.detach().contiguous(),
                                radius_squared(radius), nsample)
     if xyz.device.type != "cpu":
         raise ValueError(f"unsupported device {xyz.device}")

@@ -22,8 +22,8 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """(B, N, 3) -> (B, npoint) int32 indices into N."""
     xyz = xyz.detach()
     if xyz.is_cuda:
-        return furthest_point_sample_cuda(
-            xyz.to(torch.float32).contiguous(), npoint)
+        # no cast: the kernel takes float32 alone and refuses the rest
+        return furthest_point_sample_cuda(xyz.contiguous(), npoint)
     if xyz.device.type != "cpu":
         raise ValueError(f"unsupported device {xyz.device}")
     return furthest_point_sample_plain(xyz, npoint)

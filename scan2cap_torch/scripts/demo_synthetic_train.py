@@ -6,14 +6,18 @@ Trains the detector (backbone, voting, proposal and the detection losses)
 on a few synthetic batches made once and cycled, prints the vote,
 objectness and box losses as they fall, and scores mAP@0.25 on a held-out
 batch: the milestone check passes when the loss fell and mAP is above 0.
-``--caption`` trains the whole CapNet.  ``--bf16``, ``--bf16_components``,
-``--bf16_storage`` and ``--mesh`` are not ported.
+``--caption`` trains the whole CapNet.  ``--bf16`` narrows the backbone's
+MLP chain to bfloat16 compute, ``--bf16_storage`` only its inter-layer
+activations, both in the modules ``--bf16_components`` names.  ``--mesh``
+is not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import time
 
 NUM_VOCABS = 128
@@ -29,10 +33,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--caption", action="store_true")
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--bf16", action="store_true", help="not ported")
-    p.add_argument("--bf16_components", type=str, default=None,
-                   help="not ported (the JAX script's --bf16 knob)")
-    p.add_argument("--bf16_storage", action="store_true", help="not ported")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 backbone MLP chain (geometry stays f32)")
+    p.add_argument("--bf16_components", type=str,
+                   default="sa1,sa2,sa3,sa4,fp",
+                   help="with --bf16 or --bf16_storage: which backbone "
+                        "modules narrow")
+    p.add_argument("--bf16_storage", action="store_true",
+                   help="storage-only bfloat16: layer-boundary activation "
+                        "buffers half-width, all matmul/BN compute f32 "
+                        "(subsumed by --bf16)")
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
                    help="not ported")
     p.add_argument("--use_normal", action="store_true")
@@ -60,12 +70,19 @@ def main(argv=None) -> int:
                                            make_eval_step, make_train_step)
 
     args = build_parser().parse_args(argv)
-    refuse_unported(args, ("mesh", "bf16", "bf16_components",
-                           "bf16_storage"))
+    refuse_unported(args, ("mesh",))
     device = resolve_device(args.device)
     cfg = ModelConfig(num_points=args.num_points, no_caption=not args.caption,
                       min_iou=-1.0, use_normal=args.use_normal,
-                      use_multiview=args.use_multiview)
+                      use_multiview=args.use_multiview,
+                      compute_dtype="bfloat16" if args.bf16 else "float32",
+                      storage_dtype=("bfloat16" if args.bf16_storage
+                                     else "float32"),
+                      bf16_components=args.bf16_components)
+    # test hook (as scripts/train.py's): a small SA pyramid and few proposals
+    if os.environ.get("SCAN2CAP_TEST_TINY"):
+        cfg = dataclasses.replace(cfg, sa_npoints=(128, 64, 32, 16),
+                                  num_proposals=16, max_num_obj=16)
     vocab = make_vocab(num_vocabs=NUM_VOCABS, emb_size=cfg.emb_size)
 
     print("building synthetic batches...", flush=True)
@@ -117,6 +134,9 @@ def main(argv=None) -> int:
     print(json.dumps({"demo": {
         "steps": args.steps, "batch_size": args.batch_size,
         "num_points": args.num_points, "caption": args.caption,
+        "compute_dtype": cfg.compute_dtype,
+        "storage_dtype": cfg.storage_dtype,
+        "bf16_components": cfg.bf16_components,
         "first": first, "last": last, "logged": losses, "map25": m25,
         "ar25": ar, "scenes_per_sec": steps_per_sec * args.batch_size,
         "platform": device.type, "torch": torch.__version__}}))

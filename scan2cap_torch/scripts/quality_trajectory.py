@@ -23,8 +23,10 @@ a curve is not the JAX package's point for point; its bounds are
 
 The JSON line has the JAX script's keys plus ``card`` (nvidia-smi's name
 and power limit), ``torch``, the seconds spent in training steps and in
-each evaluation, and the kernels' launches per training step.  ``--mesh``
-and ``--bf16_storage`` are not ported.
+each evaluation, the kernels' launches per training step, and the
+backbone's ``storage_dtype`` under ``config``.  ``--bf16_storage`` stores
+the backbone MLPs' inter-layer activations in bfloat16 (every product and
+BN stays float32).  ``--mesh`` is not ported.
 
 Run on the card (the committed curve's settings):
     python -m scan2cap_torch.scripts.quality_trajectory --eval_batches 4 \\
@@ -67,7 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", type=str, default="")
     p.add_argument("--tiny", action="store_true",
                    help="the CPU-sized config of the slow test")
-    p.add_argument("--bf16_storage", action="store_true", help="not ported")
+    p.add_argument("--bf16_storage", action="store_true",
+                   help="storage-only bfloat16 backbone buffers")
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
                    help="not ported")
     p.add_argument("--device", type=str, default="cuda",
@@ -79,7 +82,7 @@ def parse_args(argv=None):
     from scan2cap_torch.scripts.train import refuse_unported
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_unported(args, ("mesh", "bf16_storage"))
+    refuse_unported(args, ("mesh",))
     if args.seeds and len(args.seeds.split(",")) > 1:
         if not (args.out and "{seed}" in args.out):
             p.error("--seeds needs --out with a '{seed}' placeholder")
@@ -88,16 +91,18 @@ def parse_args(argv=None):
 
 def make_config(args):
     from scan2cap_torch.config import ModelConfig
+    storage = "bfloat16" if args.bf16_storage else "float32"
     if args.tiny:
         return ModelConfig(
             num_points=min(args.num_points, 1024), num_proposals=32,
             sa_npoints=(256, 128, 64, 32), max_num_obj=8, num_locals=4,
             num_graph_steps=2, use_topdown=True, use_relation=True,
-            use_orientation=True, min_iou=-1.0)
+            use_orientation=True, min_iou=-1.0, storage_dtype=storage)
     return ModelConfig(
         num_points=args.num_points, num_graph_steps=2, num_locals=10,
         use_topdown=True, use_relation=True, use_orientation=True,
-        use_normal=True, use_multiview=True, min_iou=-1.0)
+        use_normal=True, use_multiview=True, min_iou=-1.0,
+        storage_dtype=storage)
 
 
 Pair = Tuple[Dict[str, torch.Tensor], Dict[str, np.ndarray]]
@@ -227,7 +232,8 @@ def run_seed(args, cfg, seed: int, train_pairs: List[Pair],
                    "num_batches": args.num_batches,
                    "eval_batches": args.eval_batches, "lr": args.lr,
                    "seed": seed, "mesh": args.mesh,
-                   "flagship": not args.tiny},
+                   "flagship": not args.tiny,
+                   "storage_dtype": cfg.storage_dtype},
         "platform": device.type,
         "curve": curve,
         "final": {"map25": curve["map25"][-1], "ar25": curve["ar25"][-1],

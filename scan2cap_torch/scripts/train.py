@@ -21,10 +21,10 @@ from datetime import datetime
 
 import numpy as np
 
-# what the port does not run (one card, float32): the flags stay so that a
-# JAX command line parses, and stop with this message
-NOT_PORTED = ("{flag} is not ported: the PyTorch port runs on one card in "
-              "float32 (ROADMAP.md, Queue 1, items 5 and 6)")
+# what the port does not run (one card): the flags stay so that a JAX
+# command line parses, and stop with this message
+NOT_PORTED = ("{flag} is not ported: the PyTorch port runs on one card "
+              "(ROADMAP.md, Queue 1, item 6)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,13 +75,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
                    help="not ported")
     p.add_argument("--debug", action="store_true")
-    p.add_argument("--bf16", action="store_true", help="not ported")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 backbone MLP chain (compute_dtype; the "
+                        "geometry and the kernels stay float32)")
     p.add_argument("--device", type=str, default="cuda",
                    help="the device to run on (cuda, or cpu)")
     return p
 
 
-def refuse_unported(args, flags=("mesh", "spatial", "bf16")) -> None:
+def refuse_unported(args, flags=("mesh", "spatial")) -> None:
     for flag in flags:
         if getattr(args, flag, None):
             raise SystemExit(NOT_PORTED.format(flag=f"--{flag}"))
@@ -106,6 +108,8 @@ def model_config_from_args(args):
         use_multiview=args.use_multiview,
         use_height=not args.no_height,
         no_caption=args.no_caption,
+        compute_dtype=("bfloat16" if getattr(args, "bf16", False)
+                       else "float32"),
     )
     # test hook: shrink the SA pyramid so fixture-size scenes run fast
     if os.environ.get("SCAN2CAP_TEST_TINY"):
@@ -114,8 +118,8 @@ def model_config_from_args(args):
 
 
 def model_config_from_info(info: dict):
-    """The ModelConfig of a saved run (its info.json), for eval and
-    predict."""
+    """The ModelConfig of a saved run (its info.json), for eval, predict,
+    export and visualize: a ``--bf16`` run is rebuilt in bfloat16."""
     return model_config_from_args(argparse.Namespace(**info))
 
 

@@ -1,6 +1,7 @@
 """ScanNet's NYU40 palette (a copy of ``scan2cap_tpu/utils/colors.py``;
 reference scripts/colors.py), byte for byte, so PLYs written by the port
-carry the reference's colours."""
+carry the reference's colours; ``object_color`` is the reference's
+per-object rule (scripts/visualize.py:375)."""
 
 NYU40_COLORS = [
     [174, 199, 232],   # wall
@@ -44,3 +45,8 @@ NYU40_COLORS = [
     [82, 84, 163],     # otherfurniture
     [100, 85, 144],    # otherprop
 ]
+
+
+def object_color(object_id: int):
+    """The palette entry of an object: ``NYU40_COLORS[object_id % 40]``."""
+    return tuple(NYU40_COLORS[int(object_id) % len(NYU40_COLORS)])

@@ -383,3 +383,52 @@ def test_mask_votenet_forward_launches_the_lists_kernel(card):
     for k in ("center", "size_scores", "sem_cls_scores"):
         torch.testing.assert_close(gpu[k].cpu(), cpu[k], rtol=0,
                                    atol=1e-3 * float(cpu[k].abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["compute_dtype", "storage_dtype"])
+def test_bf16_train_step_launches_only_float32_kernels(card, mode,
+                                                       monkeypatch):
+    """One bfloat16 train step of a narrow flagship on the card: every FPS,
+    first-k and gather launch receives float32 and equals its plain
+    version on the same inputs (5, 5 and 6 a step)."""
+    from scan2cap_torch.config import ModelConfig
+    from scan2cap_torch.data import synthetic
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.train.step import create_train_state, make_train_step
+
+    seen = []
+
+    def held(name, kernel, plain, n_float):
+        def call(*args, **kw):
+            for a in args[:n_float]:
+                assert a.dtype == torch.float32, (name, a.dtype)
+            got = kernel(*args, **kw)
+            assert torch.equal(got, plain(*args)), name
+            seen.append(name)
+            return got
+        return call
+
+    monkeypatch.setattr(sampling, "furthest_point_sample_cuda", held(
+        "fps", sampling.furthest_point_sample_cuda,
+        sampling.furthest_point_sample_plain, 1))
+    monkeypatch.setattr(grouping, "ball_query_cuda", held(
+        "first_k", grouping.ball_query_cuda,
+        lambda x, q, r2, ns: grouping.ball_query_plain(x, q, r2 ** 0.5, ns),
+        2))
+    monkeypatch.setattr(grouping, "group_points_cuda", held(
+        "gather", grouping.group_points_cuda, grouping.group_points_plain, 1))
+    cfg = ModelConfig(num_points=4096, sa_npoints=(512, 256, 128, 64),
+                      num_proposals=64, hidden_size=64, emb_size=32,
+                      num_graph_steps=2, num_locals=10, use_topdown=True,
+                      use_relation=True, use_orientation=True, min_iou=-1.0,
+                      **{mode: "bfloat16"})
+    vocab = synthetic.make_vocab(num_vocabs=40, emb_size=cfg.emb_size)
+    batch = synthetic.to_device(synthetic.make_scene_batch(
+        cfg, batch_size=2, num_objects=4, vocab=vocab, seed=7), card)
+    model = CapNet(cfg, num_vocabs=40, device=card)
+    metrics = make_train_step(cfg, create_train_state(cfg, model),
+                              detection=True, caption=True,
+                              orientation=True)(batch, 1e-3, 0.1)
+    assert torch.isfinite(metrics["loss"])
+    assert (seen.count("fps"), seen.count("first_k"),
+            seen.count("gather")) == (5, 5, 6), seen

@@ -507,6 +507,6 @@ def test_train_maskvotenet_one_epoch(cli_env):
 
 
 def test_train_maskvotenet_refuses_mesh(cli_env):
-    with pytest.raises(SystemExit, match="Queue 1, items 5 and 6"):
+    with pytest.raises(SystemExit, match="Queue 1, item 6"):
         mvncli.main(TINY + ["--epoch", "1", "--mesh", "2,1"])
     assert mvncli.build_parser().parse_args([]).device == "cuda"

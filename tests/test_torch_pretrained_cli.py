@@ -126,7 +126,7 @@ def test_votenet_track_extract_train_eval(cli_env):
 
 def test_pretrained_entry_points_refuse_mesh_and_default_to_the_card(
         cli_env):
-    with pytest.raises(SystemExit, match="Queue 1, items 5 and 6"):
+    with pytest.raises(SystemExit, match="Queue 1, item 6"):
         precli.main(TINY + ["--epoch", "1", "--mesh", "2,1"])
     assert precli.build_parser().parse_args([]).device == "cuda"
     assert evalcli.build_parser().parse_args(

@@ -51,6 +51,9 @@ from scan2cap_torch.train.step import (create_train_state, make_eval_step,
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CURVE = os.path.join(REPO, "scan2cap_torch", "measurements",
                      "quality_trajectory_h100.json")
+CURVE_BF16S = os.path.join(REPO, "scan2cap_torch", "measurements",
+                           "quality_trajectory_bf16s_h100.json")
+STUDY = os.path.join(REPO, "scan2cap_torch", "measurements", "quality_study")
 
 
 def test_card_curve_meets_the_jax_package_bounds(monkeypatch):
@@ -68,6 +71,86 @@ def test_card_curve_meets_the_jax_package_bounds(monkeypatch):
     assert art["launches_per_step"] == dict(furthest_point_sample_cuda=5.0,
                                             ball_query_cuda=5.0,
                                             group_points_cuda=6.0)
+
+
+def test_bf16_storage_curve_meets_the_jax_package_bounds(monkeypatch):
+    # --bf16_storage on the card, held to the same gates, unloosened
+    monkeypatch.setattr(jax_gates, "ARTIFACT", CURVE_BF16S)
+    jax_gates.test_artifact_is_flagship_full_scale()
+    jax_gates.test_artifact_quality_bounds()
+    with open(CURVE_BF16S) as f:
+        art = json.load(f)
+    c = art["config"]
+    assert c["storage_dtype"] == "bfloat16"
+    assert (c["eval_batches"], c["seed"], c["steps"], c["batch_size"],
+            c["num_batches"], c["lr"]) == (4, 42, 600, 8, 4, 1e-3)
+    assert art["curve"]["step"] == list(range(0, 601, 50))
+    assert art["platform"] == "cuda" and art["card"].startswith("NVIDIA")
+    assert art["launches_per_step"] == dict(furthest_point_sample_cuda=5.0,
+                                            ball_query_cuda=5.0,
+                                            group_points_cuda=6.0)
+
+
+def test_analyze_quality_study_on_the_jax_tests_cases(monkeypatch,
+                                                      tmp_path):
+    # tests/test_analyze_quality_study.py's synthetic cases, each branch of
+    # the pre-registered rule, through the port's copy
+    import tests.test_analyze_quality_study as jstudy
+    monkeypatch.setattr(jstudy, "SCRIPT", os.path.join(
+        REPO, "scan2cap_torch", "scripts", "analyze_quality_study.py"))
+    for i, case in enumerate((jstudy.test_neutral_study_flips_default,
+                              jstudy.test_collapse_and_regression_stay_opt_in,
+                              jstudy.test_cap_acc_guard)):
+        (tmp_path / str(i)).mkdir()
+        case(tmp_path / str(i))
+
+
+def test_analyze_quality_study_equals_the_jax_script(tmp_path):
+    import subprocess
+    import sys
+
+    from tests.test_analyze_quality_study import _write_run
+    for d in ("port", "jax"):
+        (tmp_path / d).mkdir()
+        for seed, f32, bf in ((1, 0.40, 0.41), (2, 0.42, 0.37),
+                              (3, 0.38, 0.40)):
+            _write_run(str(tmp_path / d), seed, "f32", f32)
+            _write_run(str(tmp_path / d), seed, "bf16s", bf, 0.95)
+    outs = []
+    for d, script in (("port", ["-m", "scan2cap_torch.scripts."
+                                "analyze_quality_study"]),
+                      ("jax", [os.path.join(REPO, "scripts",
+                                            "analyze_quality_study.py")])):
+        res = subprocess.run([sys.executable, *script, "--dir",
+                              str(tmp_path / d)], cwd=REPO, check=True,
+                             capture_output=True, text=True, timeout=120)
+        outs.append(res.stdout.replace(str(tmp_path / d), "DIR"))
+    assert outs[0] == outs[1]
+    assert ((tmp_path / "port" / "paired_summary.json").read_bytes()
+            == (tmp_path / "jax" / "paired_summary.json").read_bytes())
+
+
+def test_committed_seed_study(tmp_path):
+    # the card's six curves (seeds 42 to 44, float32 and bf16 storage) and
+    # the verdict the port's analysis gives them
+    from scan2cap_torch.scripts import analyze_quality_study as study
+    import shutil
+    names = sorted(n for n in os.listdir(STUDY) if n.startswith("qt_seed"))
+    assert names == [f"qt_seed{s}_{a}.json" for s in (42, 43, 44)
+                     for a in ("bf16s", "f32")]
+    for n in names:
+        with open(os.path.join(STUDY, n)) as f:
+            art = json.load(f)
+        assert art["platform"] == "cuda" and art["config"]["steps"] == 600
+        assert art["config"].get("storage_dtype", "float32") == (
+            "bfloat16" if "bf16s" in n else "float32")
+        shutil.copy(os.path.join(STUDY, n), tmp_path / n)
+    with open(CURVE_BF16S) as f, open(os.path.join(
+            STUDY, "qt_seed42_bf16s.json")) as g:
+        assert json.load(f) == json.load(g)
+    summary = study.main(["--dir", str(tmp_path)])
+    with open(os.path.join(STUDY, "paired_summary.json")) as f:
+        assert json.load(f) == json.loads(json.dumps(summary))
 
 
 # --- the record functions against the JAX script's logic ------------------
@@ -168,14 +251,38 @@ def test_record_functions_match_the_jax_script(one_torch_thread):
 
 
 def test_entry_points_refuse_the_unported_flags():
-    for flag in (["--mesh", "2,1"], ["--bf16_storage"]):
-        with pytest.raises(SystemExit, match="Queue 1, items 5 and 6"):
-            qt.main(ARGS + flag)
-    for flag in (["--mesh", "2,1"], ["--bf16"], ["--bf16_storage"],
-                 ["--bf16_components", "sa1"]):
-        with pytest.raises(SystemExit, match="Queue 1, items 5 and 6"):
-            demo.main(["--device", "cpu"] + flag)
+    with pytest.raises(SystemExit, match="Queue 1, item 6"):
+        qt.main(ARGS + ["--mesh", "2,1"])
+    with pytest.raises(SystemExit, match="Queue 1, item 6"):
+        demo.main(["--device", "cpu", "--mesh", "2,1"])
     with pytest.raises(SystemExit):
         qt.parse_args(ARGS + ["--seeds", "1,2", "--out", "x.json"])
     assert qt.build_parser().parse_args([]).device == "cuda"
     assert demo.build_parser().parse_args([]).device == "cuda"
+
+
+def test_bf16_flags_run(tmp_path, monkeypatch, capsys, one_torch_thread):
+    # the flags once refused: a storage-narrowed trajectory and a
+    # compute-narrowed demo with one component, each a few tiny steps
+    out = tmp_path / "qt.json"
+    assert qt.main(ARGS + ["--bf16_storage", "--steps", "2", "--eval_every",
+                           "1", "--num_batches", "1", "--out",
+                           str(out)]) == 0
+    art = json.loads(out.read_text())
+    assert art["config"]["storage_dtype"] == "bfloat16"
+    assert art["curve"]["step"] == [0, 1, 2]
+    assert all(np.isfinite(art["curve"]["loss"][1:]))
+    monkeypatch.setenv("SCAN2CAP_TEST_TINY", "1")
+    capsys.readouterr()
+    try:
+        demo.main(["--device", "cpu", "--bf16", "--bf16_components", "sa1",
+                   "--steps", "2", "--batch_size", "2", "--num_points",
+                   "512", "--num_batches", "1"])
+    except SystemExit as e:             # the milestone check after 2 steps
+        assert str(e) in ("loss did not decrease", "mAP is zero"), e
+    line = next(l for l in capsys.readouterr().out.splitlines()
+                if l.startswith('{"demo"'))
+    run = json.loads(line)["demo"]
+    assert (run["compute_dtype"], run["bf16_components"]) == ("bfloat16",
+                                                              "sa1")
+    assert run["steps"] == 2 and np.isfinite(run["last"]["loss"])
