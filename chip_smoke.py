@@ -161,14 +161,28 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      beside phase 5's float32 step; ``demo_synthetic_train --bf16`` for 30
      steps and ``quality_trajectory --bf16_storage`` for 20 as
      subprocesses;
- 16. the JSON lines: kernels, serving, training, eval, cli, mvn,
+ 16. the mesh (``--mesh 1,1`` over NCCL: one rank, size-1 groups; run
+     after phase 8, on its fixture): ``train --mesh 1,1`` for 15 steps at
+     B=8 (the ``mesh:`` line, its first loss within 2e-3 of phase 8's
+     same-seed run without ``--mesh``, 5 FPS, 5 first-k and 6 gathers a
+     step, a traced step's collectives, ``last.pt`` read back bit-equal
+     without ``--mesh``); then at once ``eval --mesh 1,1`` of phase 8's
+     resumed run printing phase 8's scores, ``train --mesh 2,1`` refused
+     with the device-count message, and in this process one step as the
+     rank with every launch held against its plain version and the
+     ``--spatial`` shards' kernels (the ball query and gather of 2 and 4
+     query slices at the four SA layers' shapes, B=2 and 8) equal to the
+     unsharded kernel's rows; ms per step with and without the mesh, the
+     NCCL version;
+ 17. the JSON lines: kernels, serving, training, eval, cli, mesh, mvn,
      benchmark, pretrained, quality, multiview, tools, bf16, and last the
      device line.
 Launch counts are set to 0 just before each of the paths 4-7, 9 and 11-15
-and read just after; the entry points of 8, 9 and 11-15 count their own
-(their stats files and output).
-``--kernels-only`` stops after phase 3 (a short first check of a new
-kernel).  Imports nothing of JAX.
+and read just after; the entry points of 8, 9, 11-15 and 16 count their
+own (their stats files and output).
+Subprocesses that are independent and whose speed no path reads run at
+once (``run_together``).  ``--kernels-only`` stops after phase 3 (a short
+first check of a new kernel).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1714,6 +1728,26 @@ def run_entry_point(module, args, env, logs):
                       env, logs, what=f"{module} {' '.join(args)}")
 
 
+def run_together(*jobs):
+    """Independent ``run_python`` jobs (argument tuples) at once, a thread
+    each: most of a subprocess's wall is its start (Python, torch, the
+    card's context), which they then share.  Their (text, wall) in order;
+    every job ends before the first failure is raised.  Each job's own
+    times are taken beside the others: use it where no path's speed is
+    read from them."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = [pool.submit(run_python, *job) for job in jobs]
+    return [f.result() for f in futures]
+
+
+def entry_job(module, args, env, logs, name=None):
+    """A ``run_together`` job of ``python -m module args``, logged as
+    ``name`` (default the module's last name)."""
+    return (name or module.rsplit(".", 1)[-1], ["-m", module, *args], env,
+            logs, f"{module} {' '.join(args)}")
+
+
 def getitem_ms(np, data, train, native_on, num_points=40000):
     """ms per sample of the train dataset's __getitem__ (augmented, as the
     CLI's configuration has it) on the native data plane or numpy's."""
@@ -1755,6 +1789,25 @@ def trace_kernels(path, steps):
                 kernels=len(kernels) / steps)
 
 
+def trace_collectives(path, steps):
+    """Collectives per step in a ``--profile`` trace: the host's ops that
+    issue them (names starting ``c10d::`` or ``nccl:``) with their host ms,
+    and the device's NCCL kernels with their ms."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ops = [e for e in events if e.get("cat") == "cpu_op"
+           and e["name"].startswith(("c10d::", "nccl:"))]
+    nccl = [e for e in events if e.get("cat") == "kernel"
+            and "nccl" in e["name"].lower()]
+    by_name = {}
+    for e in ops:
+        by_name[e["name"]] = by_name.get(e["name"], 0) + 1 / steps
+    return dict(host_ops=len(ops) / steps,
+                host_ops_ms=sum(e["dur"] for e in ops) / 1e3 / steps,
+                host_ops_by_name=by_name, nccl_kernels=len(nccl) / steps,
+                nccl_kernel_ms=sum(e["dur"] for e in nccl) / 1e3 / steps)
+
+
 def cli_phase(torch, np, card, dev="cuda", rehearse=False, keep=False):
     """The port's own entry points as subprocesses on ``dev``, on
     ScanNet-layout fixture data at full scale: train one epoch (the
@@ -1763,8 +1816,8 @@ def cli_phase(torch, np, card, dev="cuda", rehearse=False, keep=False):
     shrinks scenes and model for a run on the CPU (``SCAN2CAP_TEST_TINY``,
     1,024 points, 32 proposals); launches are then not counted.  With
     ``keep`` the fixture and the runs stay on disk for the tools phase
-    (``kept``: the directory, the data, the outputs and the resumed run),
-    which removes them."""
+    (``kept``: the directory, the data, the outputs, the resumed run and
+    its eval's score lines), which removes them."""
     import shutil
     import tempfile
 
@@ -1816,6 +1869,8 @@ def cli_phase(torch, np, card, dev="cuda", rehearse=False, keep=False):
         for tag in ("[BLEU-4]", "[CIDEr]", "[ROUGE]", "[METEOR]",
                     "mAP@0.25", "mAP@0.5"):
             require(tag in text, f"eval printed no {tag}")
+        # the mesh phase evaluates this run again under --mesh 1,1
+        eval_scores = [l for l in text.splitlines() if l.startswith("[")]
         _, walls["predict"] = run_entry_point(
             "scan2cap_torch.benchmark.predict",
             ["--folder", run_b, "--device", dev], env, logs)
@@ -1953,13 +2008,301 @@ def cli_phase(torch, np, card, dev="cuda", rehearse=False, keep=False):
                 cider_f1_at_05=scored["captioning"]["0.5"]["f1-score"][
                     "cider"]),
             kept=dict(root=root, data=data, outputs=out, run=run_b,
-                      val=val) if keep else None)
+                      val=val, eval_scores=eval_scores) if keep else None)
     except BaseException:
         shutil.rmtree(root, ignore_errors=True)
         raise
     finally:
         if not keep:
             shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------------------ the mesh phase
+# (name, N, M, radius, nsample) of the four SA layers' ball queries, whose
+# query axis --spatial splits
+SPATIAL_SITES = (("sa1", 40000, 2048, 0.2, 64), ("sa2", 2048, 1024, 0.4, 32),
+                 ("sa3", 1024, 512, 0.8, 16), ("sa4", 512, 256, 1.2, 16))
+
+
+def mesh_held_step(torch, cfg, host, seed, dev, store):
+    """This process as the one rank of ``--mesh 1,1`` (NCCL, through a
+    FileStore at ``store``): one train step of the CLI's model on
+    ``host``, every FPS, first-k and gather launch held against its plain
+    version; the step's launches and loss."""
+    from scan2cap_torch.data.synthetic import to_device
+    from scan2cap_torch.kernels import launch_counts, reset_launch_counts
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.parallel import mesh as pmesh
+    from scan2cap_torch.train.step import create_train_state, make_train_step
+
+    with pmesh.joined(pmesh.MeshSpec(1, 1), 0, dev, store) as mesh:
+        model = CapNet(cfg, num_vocabs=NUM_VOCABS, device=mesh.device,
+                       seed=seed)
+        pmesh.shard_model(model)
+        state = create_train_state(cfg, model)
+        step = make_train_step(cfg, state, **TRAIN_LOSSES)
+        batch = pmesh.local_rows(to_device(host, mesh.device))
+        reset_launch_counts()
+        with HeldAgainstPlain(torch) as held:
+            metrics = step(batch, 1e-3, 0.1)
+        torch.cuda.synchronize()
+        out = dict(launches=launch_counts(), loss=float(metrics["loss"]),
+                   held=[[k, shape] for k, shape in held.checked],
+                   nccl=".".join(map(str, torch.cuda.nccl.version())),
+                   backend=torch.distributed.get_backend())
+    return out
+
+
+def spatial_shards(torch, dev="cuda", batches=(2, 8)):
+    """The --spatial shards' kernels in one process, no collective: at each
+    SA layer's shape (B=2 and 8), the ball query and the gather of each of
+    2 and 4 contiguous query slices (copied out, as the sharded ops hand
+    them over) equal the unsharded kernel's rows exactly."""
+    from scan2cap_torch.ops import grouping
+    g = torch.Generator(device="cpu").manual_seed(3)
+    checks = []
+    for name, N, M, r, ns in SPATIAL_SITES:
+        for B in batches:
+            xyz = (torch.rand((B, N, 3), generator=g) * 4).to(dev)
+            new_xyz = xyz[:, :M]
+            table = torch.randn((B, N, 128), generator=g).to(dev)
+            idx = grouping.ball_query(xyz, new_xyz, r, ns)
+            rows = grouping.group_points_forward(table, idx)
+            for parts in (2, 4):
+                per = M // parts
+                for s in range(parts):
+                    sl = slice(s * per, (s + 1) * per)
+                    part = grouping.ball_query(
+                        xyz, new_xyz[:, sl].contiguous(), r, ns)
+                    require(torch.equal(part, idx[:, sl]),
+                            f"{name} B={B}: ball query of query slice "
+                            f"{s}/{parts} differs from the whole's rows")
+                    got = grouping.group_points_forward(
+                        table, idx[:, sl].contiguous())
+                    require(torch.equal(got, rows[:, sl]),
+                            f"{name} B={B}: gather of query slice "
+                            f"{s}/{parts} differs from the whole's rows")
+                checks.append([name, B, parts])
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return checks
+
+
+def mesh_phase(torch, np, card, kept=None, dev="cuda", rehearse=False):
+    """``--mesh 1,1`` on the card, through the entry points (one NCCL rank,
+    size-1 groups): train 15 steps at B=8 on the CLI fixture (its first
+    loss against the same seed's run without --mesh, 5 FPS, 5 first-k and
+    6 gathers a step, a traced step's collectives, last.pt read back by a
+    process without --mesh); then at once, their times not read: eval
+    --mesh 1,1 printing the scores of eval without it, --mesh 2,1 refused
+    for want of a second card, and in this process one step as the rank
+    with every launch held against its plain version, and the --spatial
+    shards' kernels against the unsharded kernel's rows.  On the CLI
+    phase's fixture, its runs and its eval's scores (``kept``; written here
+    when that phase was skipped).  ``rehearse`` runs it on the CPU (gloo)
+    at the CLI phase's rehearsal sizes; launches are then not counted and
+    no step is held."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from scan2cap_torch.config import ModelConfig
+    from scan2cap_torch.data.synthetic import make_scene_batch, make_vocab
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.parallel import mesh as pmesh
+    from scan2cap_torch.scripts.train import model_config_from_info
+    from scan2cap_torch.train.checkpoints import CheckpointIO
+
+    logs = os.path.join(ROOT, "chiprun_out", "mesh")
+    os.makedirs(logs, exist_ok=True)
+    own = kept is None
+    if own:
+        root = tempfile.mkdtemp(prefix="scan2cap_mesh_")
+        data, _, _ = write_scannet_fixture(
+            np, root, points=3000 if rehearse else CLI_SCENE_POINTS)
+        out = os.path.join(root, "outputs")
+    else:
+        root, data, out = kept["root"], kept["data"], kept["outputs"]
+    try:
+        env = dict(os.environ, SCAN2CAP_DATA=data, SCAN2CAP_OUTPUT=out,
+                   PYTHONPATH=ROOT)
+        env.pop("SCAN2CAP_TEST_TINY", None)
+        flags = [*CLI_FLAGS, "--device", dev, "--epoch", "1", "--val_step",
+                 "1000", "--verbose", "1"]
+        if rehearse:
+            env["SCAN2CAP_TEST_TINY"] = "1"
+            flags += ["--num_points", "1024", "--num_proposals", "32"]
+        steps = CLI_TRAIN_ENTRIES // CLI_BATCH
+        walls = {}
+        if own:
+            _, walls["train"] = run_entry_point(
+                "scan2cap_torch.scripts.train", [*flags, "--tag", "smoke_a"],
+                env, logs)
+        one = next(d for d in os.listdir(out) if d.endswith("_SMOKE_A"))
+        text, walls["train_mesh"] = run_python(
+            "train_mesh", ["-m", "scan2cap_torch.scripts.train", *flags,
+                           "--mesh", "1,1", "--profile",
+                           str(CLI_PROFILED_STEPS), "--tag", "smoke_m"],
+            env, logs)
+        require("mesh: data=1 model=1" in text,
+                f"train --mesh 1,1 printed no mesh line:\n{text[-2000:]}")
+        run = next(d for d in os.listdir(out) if d.endswith("_SMOKE_M"))
+
+        def read(r, name):
+            with open(os.path.join(out, r, name)) as f:
+                return json.load(f)
+
+        stats_1, stats_m = (read(r, "train_stats.json") for r in (one, run))
+        info = read(run, "info.json")
+        require(info["mesh"] == "1,1", f"info.json mesh {info['mesh']}")
+        loss_1 = stats_1["epochs"][0]["losses"][0]
+        loss_m = stats_m["epochs"][0]["losses"][0]
+        require(abs(loss_m - loss_1) <= 2e-3 * abs(loss_1),
+                f"first-step loss {loss_m} under --mesh 1,1, {loss_1} "
+                f"without")
+        losses = stats_m["epochs"][0]["losses"]
+        require(len(losses) == steps and all(np.isfinite(losses)),
+                f"--mesh 1,1 losses {losses}")
+        per_step = per_call(stats_m["launches"], stats_m["steps"])
+        want = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
+                    group_points_cuda=6)
+        for k, v in want.items():
+            require(rehearse or per_step.get(k) == v, f"--mesh 1,1 step: "
+                    f"{k} {per_step.get(k)} launches, the structure's is {v}")
+        trace = os.path.join(out, run, "profile", "trace.json")
+        profile = dict(trace_kernels(trace, CLI_PROFILED_STEPS),
+                       **trace_collectives(trace, CLI_PROFILED_STEPS))
+
+        # at once: the evals, the refusal, and this process's work
+        evaluated = run if own else kept["run"]
+        eval_args = ["--folder", evaluated, "--eval_caption", "--device",
+                     dev]
+        jobs = [entry_job("scan2cap_torch.scripts.eval",
+                          [*eval_args, "--mesh", "1,1"], env, logs,
+                          "eval_mesh")]
+        if own:
+            jobs.append(entry_job("scan2cap_torch.scripts.eval", eval_args,
+                                  env, logs, "eval_one"))
+        # a mesh larger than the devices present (here: a second card)
+        n = pmesh.device_count(dev) + 1
+        refused = {}
+
+        def refuse():
+            refused["res"] = subprocess.run(
+                [sys.executable, "-m", "scan2cap_torch.scripts.train",
+                 *flags, "--mesh", f"{n},1", "--tag", "smoke_2"], cwd=ROOT,
+                env=env, capture_output=True, text=True, timeout=300)
+
+        with ThreadPoolExecutor(2) as pool:
+            evals = pool.submit(run_together, *jobs)
+            refusal = pool.submit(refuse)
+
+            # last.pt in a process without --mesh
+            last = CheckpointIO(os.path.join(out, run, "ckpt")).restore(
+                "last")["model"]
+            if rehearse:
+                os.environ["SCAN2CAP_TEST_TINY"] = "1"
+            model = CapNet(model_config_from_info(info),
+                           num_vocabs=NUM_VOCABS,
+                           num_vocabs_padded=info["num_vocabs_padded"],
+                           device=dev, seed=1)
+            os.environ.pop("SCAN2CAP_TEST_TINY", None)
+            model.load_state_dict(last, strict=True)
+            require(all(torch.equal(v.cpu(), last[k])
+                        for k, v in model.state_dict().items()),
+                    "the --mesh 1,1 last.pt does not load bit-equal")
+            del model
+
+            # one step as the rank, every launch held against its plain
+            # version
+            held = dict(launches={}, held=[], loss=float("nan"), nccl=None,
+                        backend=None)
+            t0 = time.perf_counter()
+            if not rehearse:
+                cfg = ModelConfig(num_points=40000, use_normal=True,
+                                  use_topdown=True, num_locals=10,
+                                  num_graph_steps=2, use_relation=True,
+                                  use_orientation=True)
+                host = make_scene_batch(
+                    cfg, batch_size=CLI_BATCH, num_objects=8,
+                    vocab=make_vocab(num_vocabs=NUM_VOCABS,
+                                     emb_size=cfg.emb_size), seed=0)
+                held = mesh_held_step(torch, cfg, host, 42, dev,
+                                      os.path.join(root, "held_store"))
+                release_card(torch)
+            walls["held_step"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            shards = spatial_shards(torch, dev, batches=(2,) if rehearse
+                                    else (2, 8))
+            shards_s = time.perf_counter() - t0
+            evals, refusal = evals.result(), refusal.result()
+
+        counts = held["launches"]
+        for k, v in want.items():
+            require(rehearse or counts.get(k) == v and sum(
+                1 for kk, _ in held["held"] if kk == k) == v,
+                f"held --mesh 1,1 step: {k} {counts.get(k)} launches, "
+                f"{held['held']} held; the structure's is {v}")
+        require(rehearse or held["backend"] == "nccl"
+                and np.isfinite(held["loss"]),
+                f"held step: backend {held['backend']}, loss {held['loss']}")
+        res = refused["res"]
+        msg = (f"--mesh {n},1 needs {n} devices; only {n - 1} available "
+               f"({torch.device(dev).type})")
+        require(res.returncode != 0 and msg in res.stderr + res.stdout,
+                f"train --mesh {n},1 exited {res.returncode}:\n"
+                f"{(res.stderr + res.stdout)[-2000:]}")
+
+        def score_lines(text):
+            return [l for l in text.splitlines() if l.startswith("[")]
+
+        scores = dict(mesh=score_lines(evals[0][0]),
+                      one=(score_lines(evals[1][0]) if own
+                           else kept["eval_scores"]))
+        walls["evals"] = [w for _, w in evals]
+        require(scores["one"] and scores["one"] == scores["mesh"],
+                f"eval scores differ under --mesh 1,1: {scores}")
+        ev = read(evaluated, "eval_stats.json")["caption"]
+
+        def median_ms(st):
+            s = sorted(st["epochs"][0]["step_s"][2:])
+            return s[len(s) // 2] * 1e3
+
+        profile["busy_share_of_step"] = (profile["kernel_ms"]
+                                         / median_ms(stats_m))
+        launches = sum_launches(stats_m["launches"], ev["launches"])
+        return dict(
+            card=card, config=" ".join(flags), batch=CLI_BATCH, steps=steps,
+            nccl=held["nccl"], backend=held["backend"],
+            loss_first=loss_m, loss_first_without=loss_1,
+            loss_first_rel_diff=abs(loss_m - loss_1) / abs(loss_1),
+            ms_per_step=median_ms(stats_m),
+            ms_per_step_without=median_ms(stats_1),
+            launches_per_step=per_step, launches=launches, profile=profile,
+            held_step=dict(launches=counts, exact=len(held["held"]),
+                           loss=held["loss"]),
+            eval_scores=scores["mesh"], evaluated=evaluated,
+            spatial_shard_checks=shards, spatial_shards_s=shards_s,
+            entry_point_wall_s=walls)
+    finally:
+        if own:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def print_mesh(r):
+    print(f"  mesh 1,1 ({r['backend']}, NCCL {r['nccl']}): "
+          f"{r['ms_per_step']:.1f} ms per step, "
+          f"{r['ms_per_step_without']:.1f} without; first loss "
+          f"{r['loss_first']:.6f} vs {r['loss_first_without']:.6f} "
+          f"(rel diff {r['loss_first_rel_diff']:.2e}); launches a step "
+          f"{r['launches_per_step']}; trace of a step: "
+          f"{r['profile']['kernel_ms']:.2f} ms of kernels, "
+          f"{r['profile']['host_ops']:.0f} collectives "
+          f"({r['profile']['host_ops_ms']:.2f} ms on the host, "
+          f"{r['profile']['nccl_kernel_ms']:.2f} ms of NCCL kernels); "
+          f"held step {r['held_step']['exact']} "
+          f"launches exact; {len(r['spatial_shard_checks'])} spatial shard "
+          f"checks in {r['spatial_shards_s']:.1f} s", flush=True)
 
 
 # --------------------------------------------------------------------- phase 9
@@ -2804,6 +3147,16 @@ def pretrained_cli(torch, np, dev="cuda", rehearse=False):
             report.setdefault("wall_s", {})[tag or module] = wall
             return text
 
+        def run_both(module, runs):
+            """``run`` of several argument lists at once, by tag."""
+            done = run_together(*(
+                entry_job(f"scan2cap_torch.scripts.{module}",
+                          [*args, "--device", dev], env, logs, tag)
+                for tag, args in runs.items()))
+            for tag, (_, wall) in zip(runs, done):
+                report.setdefault("wall_s", {})[tag] = wall
+            return [text for text, _ in done]
+
         def run_folder(tag):
             return next(d for d in os.listdir(out)
                         if d.endswith("_" + tag.upper()))
@@ -2891,15 +3244,17 @@ def pretrained_cli(torch, np, dev="cuda", rehearse=False):
             val_pairs = len({(e["scene_id"], e["object_id"])
                              for e in json.load(f)})
         batches = 2 * -(-pairs // MVN_BATCH)              # two passes
-        text = run("extract_gt_features", [
-            "--folder", mvn_run, "--split", "train", "--epoch", "2",
-            "--batch_size", str(MVN_BATCH)], "extract_gt_train")
+        # train and val at once (separate stores; their walls overlap)
+        text, text_val = run_both("extract_gt_features", {
+            "extract_gt_train": [
+                "--folder", mvn_run, "--split", "train", "--epoch", "2",
+                "--batch_size", str(MVN_BATCH)],
+            "extract_gt_val": [
+                "--folder", mvn_run, "--split", "val", "--batch_size",
+                str(MVN_BATCH)]})
         gt_train = extract_stats(text, batches, EXTRACT_FORWARD,
                                  "extract_gt_features (train)")
-        text = run("extract_gt_features", [
-            "--folder", mvn_run, "--split", "val", "--batch_size",
-            str(MVN_BATCH)], "extract_gt_val")
-        gt_val = extract_stats(text, -(-val_pairs // MVN_BATCH),
+        gt_val = extract_stats(text_val, -(-val_pairs // MVN_BATCH),
                                EXTRACT_FORWARD, "extract_gt_features (val)")
         gt_store = os.path.join(data, "gt_ScanRefer_features_train.npz")
         suffixes = ("_gt_ids", "_features", "_bbox_corners", "_gt_corners")
@@ -3029,10 +3384,11 @@ def pretrained_cli(torch, np, dev="cuda", rehearse=False):
         with open(os.path.join(out, det_run, "info.json"), "w") as f:
             json.dump(det_info, f)
         vn = {}
-        for split in ("train", "val"):
-            text = run("extract_votenet_features", [
-                "--folder", det_run, "--split", split, "--batch_size", "8"],
-                f"extract_votenet_{split}")
+        texts = run_both("extract_votenet_features", {
+            f"extract_votenet_{split}": [
+                "--folder", det_run, "--split", split, "--batch_size", "8"]
+            for split in ("train", "val")})
+        for split, text in zip(("train", "val"), texts):
             vn[split] = extract_stats(
                 text, 1, EXTRACT_FORWARD,
                 f"extract_votenet_features ({split})")
@@ -3507,22 +3863,28 @@ def multiview_phase(torch, np, card, dev="cuda", rehearse=False):
             np.save(os.path.join(labels, f[:-4] + ".npy"),
                     rs.randint(0, 41, (32, 41)))
         ply = os.path.join(root, "labels.ply")
-        text = run("project_multiview_labels",
-                   ["--scannet_data", scannet, "--frames_root", frames_root,
-                    "--labels_root", os.path.join(root, "labels"),
-                    "--scene_id", scenes[0], "--out", ply])
+        # the labels' projection and the loop closed (the flagship's flags
+        # with multiview read the store; --debug takes one batch of the
+        # first scene's entry, so two epochs are two iterations) at once:
+        # neither reads the other, nor is timed
+        pkg = "scan2cap_torch.scripts."
+        (text, walls["project_multiview_labels"]), (_, walls["train"]) = \
+            run_together(
+                entry_job(pkg + "project_multiview_labels",
+                          ["--scannet_data", scannet, "--frames_root",
+                           frames_root, "--labels_root",
+                           os.path.join(root, "labels"), "--scene_id",
+                           scenes[0], "--out", ply], env, logs),
+                entry_job(pkg + "train",
+                          [*CLI_FLAGS, "--use_multiview", "--num_scenes",
+                           str(MV_SCENES), "--debug", "--epoch", "2",
+                           "--batch_size", str(CLI_BATCH), "--device", dev,
+                           *(["--num_points", "1024", "--num_proposals",
+                              "32"] if rehearse else []), "--tag", "mv"],
+                          env, logs))
         labelled = int(text.rsplit("(", 1)[1].split("/")[0])
         require(os.path.getsize(ply) > 0 and labelled > 0,
                 f"labels: {text[-300:]}")
-
-        # the loop closed: the flagship's flags with multiview read the
-        # store; --debug takes one batch of the first scene's entry, so two
-        # epochs are two iterations
-        run("train", [*CLI_FLAGS, "--use_multiview", "--num_scenes",
-                      str(MV_SCENES), "--debug", "--epoch", "2",
-                      "--batch_size", str(CLI_BATCH), "--device", dev,
-                      *(["--num_points", "1024", "--num_proposals", "32"]
-                        if rehearse else []), "--tag", "mv"])
         out = env["SCAN2CAP_OUTPUT"]
         run_name = next(d for d in os.listdir(out) if d.endswith("_MV"))
         with open(os.path.join(out, run_name, "train_stats.json")) as f:
@@ -3643,20 +4005,7 @@ def preparation_tools(np, root, env, logs, rehearse=False):
     require(np.isfinite(verts).all() and (unit | (norms == 0)).all()
             and unit.mean() > 0.95, "vertex normals are not unit length")
     vis = os.path.join(root, "check")
-    _, walls["check_preprocessed_scene"] = run_entry_point(
-        "scan2cap_torch.scripts.check_preprocessed_scene",
-        ["--scannet_data", prep, "--scene_id", sid, "--out", vis], env, logs)
-    require(len(read_ply(os.path.join(vis, sid + "_points.ply"))["vertex"])
-            == 50000, "check_preprocessed_scene's point PLY")
     aligned = os.path.join(root, "aligned")
-    _, walls["export_scannet_axis_aligned_mesh"] = run_entry_point(
-        "scan2cap_torch.scripts.export_scannet_axis_aligned_mesh",
-        ["--scans", scans, "--scene_id", sid, "--out", aligned], env, logs)
-    mesh = read_ply(os.path.join(aligned, sid + "_aligned.ply"))
-    require(len(mesh["vertex"]) == RAW_SCENE_POINTS
-            and len(mesh["face"]) == RAW_SCENE_FACES,
-            "the aligned mesh lost vertices or faces")
-
     ann = os.path.join(root, "annotations")
     os.makedirs(ann)
     entries = [{"scene_id": sid, "object_id": str(o), "ann_id": str(a),
@@ -3666,11 +4015,6 @@ def preparation_tools(np, root, env, logs, rehearse=False):
                for o in range(RAW_OBJECTS) for a in range(2)]
     with open(os.path.join(ann, "ScanRefer_filtered.json"), "w") as f:
         json.dump(entries, f)
-    _, walls["organize_scanrefer"] = run_entry_point(
-        "scan2cap_torch.scripts.organize_scanrefer", ["--data", ann], env,
-        logs)
-    with open(os.path.join(ann, "ScanRefer_filtered_organized.json")) as f:
-        require(len(json.load(f)[sid]) == RAW_OBJECTS, "organize_scanrefer")
     with open(os.path.join(ann, "nr3d.csv"), "w") as f:
         f.write("scan_id,target_id,instance_type,assignmentid,utterance,"
                 "tokens\n")
@@ -3681,16 +4025,6 @@ def preparation_tools(np, root, env, logs, rehearse=False):
     for split, scenes in (("train", [sid]), ("val", [])):
         with open(os.path.join(ann, f"{split}.txt"), "w") as f:
             f.writelines(s + "\n" for s in scenes)
-    _, walls["organize_referit3d"] = run_entry_point(
-        "scan2cap_torch.scripts.organize_referit3d",
-        ["--csv", os.path.join(ann, "nr3d.csv"), "--data", ann,
-         "--train_scenes", os.path.join(ann, "train.txt"), "--val_scenes",
-         os.path.join(ann, "val.txt")], env, logs)
-    with open(os.path.join(ann, "ReferIt3D_filtered_train.json")) as f:
-        nr3d = json.load(f)
-    require(len(nr3d) == RAW_OBJECTS and nr3d[0]["token"][-1] == ","
-            and nr3d[0]["description"] == 'the chair, near "it"',
-            f"organize_referit3d: {nr3d[:1]}")
     s = float(np.sqrt(0.5))
     with open(os.path.join(ann, "full_annotations.json"), "w") as f:
         json.dump([{"id_scan": sid, "aligned_models": [
@@ -3699,9 +4033,37 @@ def preparation_tools(np, root, env, logs, rehearse=False):
     with open(os.path.join(ann, "aligned_cad2inst_id.json"), "w") as f:
         json.dump({sid: {str(o): o for o in range(RAW_OBJECTS)}}, f)
     rot_path = os.path.join(ann, "scannet_instance_rotations.json")
-    _, walls["scan2cad_to_scannet"] = run_entry_point(
-        "scan2cap_torch.scripts.scan2cad_to_scannet",
-        ["--scan2cad", ann, "--out", rot_path], env, logs)
+    # the five read what is written above and nothing of each other: at
+    # once (each wall is mostly its start)
+    pkg = "scan2cap_torch.scripts."
+    jobs = {
+        "check_preprocessed_scene": [
+            "--scannet_data", prep, "--scene_id", sid, "--out", vis],
+        "export_scannet_axis_aligned_mesh": [
+            "--scans", scans, "--scene_id", sid, "--out", aligned],
+        "organize_scanrefer": ["--data", ann],
+        "organize_referit3d": [
+            "--csv", os.path.join(ann, "nr3d.csv"), "--data", ann,
+            "--train_scenes", os.path.join(ann, "train.txt"),
+            "--val_scenes", os.path.join(ann, "val.txt")],
+        "scan2cad_to_scannet": ["--scan2cad", ann, "--out", rot_path]}
+    ran = run_together(*(entry_job(pkg + name, args, env, logs)
+                         for name, args in jobs.items()))
+    for name, (_, wall) in zip(jobs, ran):
+        walls[name] = wall
+    require(len(read_ply(os.path.join(vis, sid + "_points.ply"))["vertex"])
+            == 50000, "check_preprocessed_scene's point PLY")
+    mesh = read_ply(os.path.join(aligned, sid + "_aligned.ply"))
+    require(len(mesh["vertex"]) == RAW_SCENE_POINTS
+            and len(mesh["face"]) == RAW_SCENE_FACES,
+            "the aligned mesh lost vertices or faces")
+    with open(os.path.join(ann, "ScanRefer_filtered_organized.json")) as f:
+        require(len(json.load(f)[sid]) == RAW_OBJECTS, "organize_scanrefer")
+    with open(os.path.join(ann, "ReferIt3D_filtered_train.json")) as f:
+        nr3d = json.load(f)
+    require(len(nr3d) == RAW_OBJECTS and nr3d[0]["token"][-1] == ","
+            and nr3d[0]["description"] == 'the chair, near "it"',
+            f"organize_referit3d: {nr3d[:1]}")
     with open(rot_path) as f:
         rot = np.asarray(json.load(f)[sid]["3"])
     require(np.allclose(rot, [[0, -1, 0], [1, 0, 0], [0, 0, 1]], atol=1e-6),
@@ -4044,9 +4406,19 @@ def bf16_phase(torch, np, card, dev="cuda", rehearse=False, float32=None,
         demo_size = (["--steps", "20", "--batch_size", "2", "--num_points",
                       "2048", "--num_batches", "1"] if rehearse
                      else ["--steps", str(BF16_DEMO_STEPS)])
-        text, wall = run_entry_point(
-            "scan2cap_torch.scripts.demo_synthetic_train",
-            [*demo_size, "--bf16", "--device", dev], env, logs)
+        out = os.path.join(tmp, "trajectory.json")
+        size = (["--tiny", "--steps", "4", "--eval_every", "2",
+                 "--batch_size", "2", "--num_batches", "1", "--num_points",
+                 "512"] if rehearse else
+                ["--steps", str(BF16_QUALITY_STEPS), "--eval_every",
+                 str(BF16_QUALITY_STEPS // 2)])
+        # the demo and the trajectory at once: their step times overlap
+        (text, wall), (_, traj_wall) = run_together(
+            entry_job("scan2cap_torch.scripts.demo_synthetic_train",
+                      [*demo_size, "--bf16", "--device", dev], env, logs),
+            entry_job("scan2cap_torch.scripts.quality_trajectory",
+                      [*size, "--bf16_storage", "--eval_batches", "1",
+                       "--out", out, "--device", dev], env, logs))
         demo = json.loads(next(l for l in text.splitlines()[::-1]
                                if l.startswith('{"demo"')))["demo"]
         require(demo["compute_dtype"] == "bfloat16"
@@ -4058,16 +4430,6 @@ def bf16_phase(torch, np, card, dev="cuda", rehearse=False, float32=None,
                               last=demo["last"]["loss"], map25=demo["map25"],
                               ar25=demo["ar25"],
                               scenes_per_s=demo["scenes_per_sec"])
-        out = os.path.join(tmp, "trajectory.json")
-        size = (["--tiny", "--steps", "4", "--eval_every", "2",
-                 "--batch_size", "2", "--num_batches", "1", "--num_points",
-                 "512"] if rehearse else
-                ["--steps", str(BF16_QUALITY_STEPS), "--eval_every",
-                 str(BF16_QUALITY_STEPS // 2)])
-        _, wall = run_entry_point(
-            "scan2cap_torch.scripts.quality_trajectory",
-            [*size, "--bf16_storage", "--eval_batches", "1", "--out", out,
-             "--device", dev], env, logs)
         with open(out) as f:
             traj = json.load(f)
         losses = [x for x in traj["curve"]["loss"] if x is not None]
@@ -4079,7 +4441,7 @@ def bf16_phase(torch, np, card, dev="cuda", rehearse=False, float32=None,
                                         ball_query_cuda=5,
                                         group_points_cuda=6),
                 f"the bf16-storage trajectory's launches per step {per}")
-        report["trajectory"] = dict(wall_s=wall, curve=traj["curve"],
+        report["trajectory"] = dict(wall_s=traj_wall, curve=traj["curve"],
                                     ms_per_step=traj["ms_per_step"],
                                     launches_per_step=per)
         steps = traj["config"]["steps"]
@@ -4148,8 +4510,8 @@ def main(argv=None) -> int:
                     help="stop after the kernel checks (phase 3)")
     ap.add_argument("--skip", nargs="+", default=[],
                     choices=["serve", "train", "eval", "probes", "cli",
-                             "mvn", "benchmark", "pretrained", "quality",
-                             "multiview", "tools", "bf16"],
+                             "mesh", "mvn", "benchmark", "pretrained",
+                             "quality", "multiview", "tools", "bf16"],
                     help="leave out a path while bringing up another "
                          "(exit 3 by design: not a whole run)")
     args = ap.parse_args(argv)
@@ -4235,7 +4597,7 @@ def main(argv=None) -> int:
     partial = args.kernels_only or args.skip
     paths = {}
     serve = train = evaluation = probes = cli = mvn = bench = pre = None
-    quality = multiview = tools = bf16 = kept = None
+    quality = multiview = tools = bf16 = kept = mesh = None
     if not args.kernels_only:
         if "serve" not in args.skip:
             t0 = time.perf_counter()
@@ -4260,8 +4622,10 @@ def main(argv=None) -> int:
             print(f"probe phase: {time.perf_counter() - t0:.1f} s", flush=True)
         if "cli" not in args.skip:
             t0 = time.perf_counter()
-            # the tools phase reads the resumed run and removes the fixture
-            cli = cli_phase(torch, np, card, keep="tools" not in args.skip)
+            # the mesh phase trains on the fixture, the tools phase reads
+            # the resumed run; the last of them removes the fixture
+            cli = cli_phase(torch, np, card, keep=not {"tools", "mesh"}
+                            <= set(args.skip))
             kept = cli.pop("kept")
             paths["cli"] = cli["launches"]
             print(f"  cli: {cli['train_ms_per_step']:.1f} ms per step at "
@@ -4274,6 +4638,17 @@ def main(argv=None) -> int:
                   f"saves {cli['checkpoint_save_ms']} ms, profile of a step "
                   f"{cli['profile']}", flush=True)
             print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        if "mesh" not in args.skip:
+            t0 = time.perf_counter()
+            mesh = mesh_phase(torch, np, card, kept=kept)
+            paths["mesh"] = mesh["launches"]
+            print_mesh(mesh)
+            print(f"mesh phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        if kept is not None and "tools" in args.skip:
+            import shutil
+            shutil.rmtree(kept["root"], ignore_errors=True)
+            kept = None
         if "mvn" not in args.skip:
             t0 = time.perf_counter()
             reset_launch_counts()
@@ -4395,6 +4770,8 @@ def main(argv=None) -> int:
         print(json.dumps({"eval": evaluation, "card": card}))
     if cli is not None:
         print(json.dumps({"cli": cli, "card": card}))
+    if mesh is not None:
+        print(json.dumps({"mesh": mesh, "card": card}))
     if mvn is not None:
         print(json.dumps({"mvn": mvn, "card": card}))
     if bench is not None:

@@ -14,7 +14,9 @@ encoder and dataset) over a feature store that numpy alone reads
 ``models.enet``, ``data.projection``, ``data.frames``), the bfloat16
 backbone (``ModelConfig.compute_dtype``, ``storage_dtype``,
 ``bf16_components``), ScanNet's preprocessing
-(``data.scannet_preprocess``), and the command-line entry points under
+(``data.scannet_preprocess``), ``--mesh DATA,MODEL`` and ``--spatial``
+over ``torch.distributed`` (``parallel``), and the command-line entry
+points under
 ``scan2cap_torch.scripts`` (the training-quality trajectory, the export to
 a reference ``.pth``, the visualizer and the dataset-preparation tools
 among them) and ``scan2cap_torch.benchmark``.  It imports torch and numpy only

@@ -6,8 +6,9 @@ dataset uses, and ``PathConfig``.  Field names and defaults are the JAX
 package's, so a config written for one package reads the same in the other.
 The backbone narrows to bfloat16 as the JAX package's does
 (``compute_dtype``, ``storage_dtype``, gated per module by
-``bf16_components``; ``models/layers.py``); ``spatial_axis`` is not
-carried: the port runs on one card.
+``bf16_components``; ``models/layers.py``); ``spatial_axis`` names the
+mesh axis the set-abstraction layers split their query axis over
+(``parallel/spatial.py``, ``--spatial``).
 """
 
 from __future__ import annotations
@@ -113,6 +114,9 @@ class ModelConfig:
     storage_dtype: str = "float32"
     # which backbone modules either narrowing applies to
     bf16_components: str = "sa1,sa2,sa3,sa4,fp"
+    # point-axis (spatial) sharding: the mesh axis ("model" or "data") the
+    # SA layers' query centres split over (parallel/spatial.py); "" = off
+    spatial_axis: str = ""
 
     @property
     def input_feature_dim(self) -> int:

@@ -29,7 +29,7 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -415,13 +415,27 @@ class Loader:
     SAME seeded global permutation but keeps only its interleaved slice, so
     the union of all hosts' batches covers each epoch exactly once with no
     overlap — the per-host input pipeline the reference never needed
-    (SURVEY.md §2.4; its DataLoader feeds a single GPU)."""
+    (SURVEY.md §2.4; its DataLoader feeds a single GPU).
+
+    A rank of a mesh (``parallel.mesh``) passes ``data_shard=(d, DATA)``:
+    it loads only rows [d * B / DATA, (d + 1) * B / DATA) of each global
+    batch, the very batch (items, order and augmentation seeds) that one
+    process draws, and yields those rows.  B must divide by DATA."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 42, num_workers: int = 4, drop_last: bool = True,
                  num_shards: int = 1, shard_id: int = 0,
-                 reuse_buffers: bool = False):
+                 reuse_buffers: bool = False,
+                 data_shard: Optional[Tuple[int, int]] = None):
         assert 0 <= shard_id < num_shards
+        d, n_data = data_shard or (0, 1)
+        if batch_size % n_data or not 0 <= d < n_data or (
+                n_data > 1 and not drop_last):
+            raise ValueError(f"data_shard={data_shard} needs drop_last and "
+                             f"a batch size ({batch_size}) it divides")
+        # the rows of each global batch this loader yields
+        self.rows = slice(d * batch_size // n_data,
+                          (d + 1) * batch_size // n_data)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -517,7 +531,8 @@ class Loader:
                     if buffers[slot] is None:
                         buffers[slot] = {
                             k: np.empty(
-                                (self.batch_size,) + np.asarray(v).shape,
+                                (self.rows.stop - self.rows.start,)
+                                + np.asarray(v).shape,
                                 np.asarray(v).dtype)
                             for k, v in s.items()}
             buf = buffers[slot]
@@ -527,6 +542,7 @@ class Loader:
         def submit(b):
             idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
             seeds = [(self.seed + epoch) * 100003 + int(i) for i in idxs]
+            idxs, seeds = idxs[self.rows], seeds[self.rows]
             if self.reuse_buffers:
                 # ring position persists across epochs (see __init__
                 # contract): the new epoch's prefetch lands in the slots
@@ -552,7 +568,7 @@ class Loader:
                 for f in fs:
                     f.result()          # barrier + error propagation
                 buf = buffers[slot]
-                yield (buf if len(fs) == self.batch_size
+                yield (buf if len(fs) == self.rows.stop - self.rows.start
                        else {k: v[:len(fs)] for k, v in buf.items()})
             else:
                 yield _collate([f.result() for f in fs])

@@ -31,6 +31,7 @@ from scan2cap_torch.eval.ap_helper import nonempty_boxes
 from scan2cap_torch.eval.capeval import Bleu, Cider, Meteor, Rouge
 from scan2cap_torch.ops.boxes import box3d_iou_batch
 from scan2cap_torch.ops.nms import nms_3d
+from scan2cap_torch.parallel.mesh import main_only
 
 
 def prepare_corpus(raw_data: Sequence[dict], max_len: int = 30) -> Dict:
@@ -233,7 +234,9 @@ def eval_cap(
     device: str | torch.device = "cuda",
 ):
     """Full caption evaluation (eval_helper.py:388-512):
-    corpus prep -> model feed -> metric scoring."""
+    corpus prep -> model feed -> metric scoring.  Under a mesh every rank
+    feeds (``eval_step`` wrapped by ``parallel.mesh.mesh_eval_fn``) and
+    rank 0 scores, handing the scores to every rank."""
     if corpus is None:
         corpus = prepare_corpus(dataset.scanrefer_full
                                 if hasattr(dataset, "scanrefer_full")
@@ -241,4 +244,4 @@ def eval_cap(
     candidates = feed_scene_cap(
         eval_step, dataset, loader, organized, min_iou, use_nms=use_nms,
         intermediates=intermediates, device=device)
-    return score_captions(corpus, candidates, use_meteor_jar)
+    return main_only(score_captions, corpus, candidates, use_meteor_jar)

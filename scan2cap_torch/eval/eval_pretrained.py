@@ -20,6 +20,7 @@ from scan2cap_torch.data.synthetic import to_device
 from scan2cap_torch.device import resolve_device
 from scan2cap_torch.eval.eval_helper import decode_caption, score_captions
 from scan2cap_torch.ops.boxes import box3d_iou_batch
+from scan2cap_torch.parallel.mesh import main_only
 
 
 def feed_pretrained_cap(eval_step: Callable[[Dict], Dict], dataset, loader,
@@ -71,4 +72,5 @@ def eval_pretrained_cap(eval_step, dataset, loader, organized, corpus,
     """(bleu, cider, rouge, meteor) of the candidates against ``corpus``."""
     candidates = feed_pretrained_cap(eval_step, dataset, loader, organized,
                                      mode, min_iou, device)
-    return score_captions(corpus, candidates, use_meteor_jar)
+    # under a mesh rank 0 scores and hands the scores to every rank
+    return main_only(score_captions, corpus, candidates, use_meteor_jar)

@@ -8,6 +8,11 @@ reference truncates the loop instead: same objective, the denominator
 counts (good box x step) pairs including pads, and pad targets contribute
 zero loss via ignore_index=0).  The edge losses work on the dense
 (B, K, L) edge list with ``edge_mask``.
+
+Under a mesh (``parallel.mesh``) each batch-wide denominator is taken over
+the data group (``batch_sum``) while the numerators stay local: a rank's
+loss is its share of the global loss.  The batch-max caption length is
+the global one (``batch_max``).
 """
 
 from __future__ import annotations
@@ -19,13 +24,14 @@ import numpy as np
 import torch
 
 from scan2cap_torch.losses.detection import _ce_logits
+from scan2cap_torch.parallel.mesh import batch_max, batch_sum
 
 
 def compute_cap_loss(data_dict: dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token CE (ignore pad=0) gated by good_bbox_masks
     (loss_helper.py:189-230).  Returns (cap_loss, cap_acc)."""
     pred_caps = data_dict["lang_cap"]                   # (B, T-1, V)
-    num_words = torch.max(data_dict["lang_len"])        # reference batch-max
+    num_words = batch_max(torch.max(data_dict["lang_len"]))  # batch-max
     T = pred_caps.shape[1]
     targets = data_dict["lang_ids"][:, 1:T + 1].long()  # (B, T)
 
@@ -35,15 +41,15 @@ def compute_cap_loss(data_dict: dict) -> Tuple[torch.Tensor, torch.Tensor]:
     good = data_dict["good_bbox_masks"].to(torch.float32)[:, None]  # (B, 1)
 
     ce = _ce_logits(pred_caps, targets) * pad_mask      # ignore_index=0
-    denom = torch.sum(good * step_mask) + 1e-6          # pads counted
+    denom = batch_sum(torch.sum(good * step_mask)) + 1e-6  # pads counted
     cap_loss = torch.sum(ce * good * step_mask) / denom
 
     # accuracy over non-pad tokens of good boxes
     preds = torch.argmax(pred_caps.detach(), dim=-1)
     correct_mask = pad_mask * good * step_mask
-    num_good = torch.sum(data_dict["good_bbox_masks"])
+    num_good = batch_sum(torch.sum(data_dict["good_bbox_masks"]))
     acc = (torch.sum((preds == targets).to(torch.float32) * correct_mask)
-           / (torch.sum(correct_mask) + 1e-6))
+           / (batch_sum(torch.sum(correct_mask)) + 1e-6))
     cap_acc = torch.where(num_good > 0, acc, torch.zeros_like(acc))
     return cap_loss, cap_acc
 
@@ -102,9 +108,10 @@ def compute_node_orientation_loss(data_dict: dict, num_bins: int = 6
     masks = src_m.expand_as(tgt_m) * tgt_m * edge_mask
 
     ce = _ce_logits(preds, labels)
-    loss = torch.sum(ce * masks) / (torch.sum(masks) + 1e-8)
+    denom = batch_sum(torch.sum(masks)) + 1e-8
+    loss = torch.sum(ce * masks) / denom
     hits = (torch.argmax(preds.detach(), dim=-1) == labels).to(torch.float32)
-    acc = torch.sum(hits * masks) / (torch.sum(masks) + 1e-8)
+    acc = torch.sum(hits * masks) / denom
     return loss, acc
 
 
@@ -120,4 +127,5 @@ def compute_node_distance_loss(data_dict: dict) -> torch.Tensor:
     src_c, tgt_c = _edge_endpoint_gather(gt_center, assignment, nbr_idx)
     labels = torch.linalg.vector_norm(src_c.expand_as(tgt_c) - tgt_c, dim=-1)
     sq = (preds - labels) ** 2
-    return torch.sum(sq * edge_mask) / (torch.sum(edge_mask) + 1e-8)
+    return torch.sum(sq * edge_mask) / (batch_sum(torch.sum(edge_mask))
+                                        + 1e-8)

@@ -3,6 +3,10 @@ reference lib/loss_helper.py:24-187, VoteNet).
 
 Constants (loss_helper.py:19-22): NEAR 0.3 m / FAR 0.6 m objectness
 thresholds, CE class weights [0.2, 0.8], 3 identical GT votes per point.
+
+Under a mesh (``parallel.mesh``) each batch-wide denominator is taken over
+the data group (``batch_sum``) while the numerators stay local: a rank's
+loss is its share of the global loss.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 
 from scan2cap_torch.config import SCANNET_MEAN_SIZE_ARR
 from scan2cap_torch.ops.nn_distance import huber_loss, nn_distance
+from scan2cap_torch.parallel.mesh import batch_sum
 
 FAR_THRESHOLD = 0.6
 NEAR_THRESHOLD = 0.3
@@ -55,7 +60,7 @@ def compute_vote_loss(data_dict: dict) -> torch.Tensor:
     _, _, dist2, _ = nn_distance(vote_r, gt_r, l1=True)
     votes_dist = torch.amin(dist2, dim=1).reshape(B, S)
     return (torch.sum(votes_dist * seed_gt_votes_mask)
-            / (torch.sum(seed_gt_votes_mask) + 1e-6))
+            / (batch_sum(torch.sum(seed_gt_votes_mask)) + 1e-6))
 
 
 def compute_objectness_loss(data_dict: dict
@@ -77,7 +82,7 @@ def compute_objectness_loss(data_dict: dict
     w = scores.new_tensor(OBJECTNESS_CLS_WEIGHTS)[objectness_label.long()]
     ce = _ce_logits(scores, objectness_label) * w
     loss = (torch.sum(ce * objectness_mask)
-            / (torch.sum(objectness_mask) + 1e-6))
+            / (batch_sum(torch.sum(objectness_mask)) + 1e-6))
     return loss, objectness_label, objectness_mask, ind1
 
 
@@ -87,7 +92,7 @@ def compute_box_and_sem_cls_loss(data_dict: dict, num_heading_bin: int = 1,
     (loss_helper.py:113-187).  Returns the 6 loss terms."""
     assignment = data_dict["object_assignment"].long()  # (B, K)
     objness = data_dict["objectness_label"].to(torch.float32)
-    denom_obj = torch.sum(objness) + 1e-6
+    denom_obj = batch_sum(torch.sum(objness)) + 1e-6
 
     # centre: bidirectional chamfer
     pred_center = data_dict["center"]
@@ -96,7 +101,7 @@ def compute_box_and_sem_cls_loss(data_dict: dict, num_heading_bin: int = 1,
     box_label_mask = data_dict["box_label_mask"].to(torch.float32)
     center_loss = (torch.sum(dist1 * objness) / denom_obj
                    + torch.sum(dist2 * box_label_mask)
-                   / (torch.sum(box_label_mask) + 1e-6))
+                   / (batch_sum(torch.sum(box_label_mask)) + 1e-6))
 
     # heading
     heading_cls_label = _take(data_dict["heading_class_label"], assignment)

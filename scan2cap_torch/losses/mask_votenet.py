@@ -8,6 +8,9 @@ the box losses are means over the single proposal (no objectness masking):
 Also the mIoU between the decoded single box and the GT box, on the
 device.  The objectness and heading terms are reported as zeros, so that
 the solver's report keys are CapNet's.
+
+Under a mesh (``parallel.mesh``) every mean is over the global batch
+(``batch_mean``): a rank's loss is its share of the global loss.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from scan2cap_torch.config import SCANNET_MEAN_SIZE_ARR
 from scan2cap_torch.losses.detection import _ce_logits, compute_vote_loss
 from scan2cap_torch.ops.boxes import box3d_iou_batch, get_3d_box_batch
 from scan2cap_torch.ops.nn_distance import huber_loss, nn_distance
+from scan2cap_torch.parallel.mesh import batch_mean
 
 
 def compute_mask_box_loss(data_dict: dict, num_size_cluster: int = 18):
@@ -29,10 +33,10 @@ def compute_mask_box_loss(data_dict: dict, num_size_cluster: int = 18):
     dist1, _, _, _ = nn_distance(pred_center, gt_center)
     # +1e-8: the reference's bare sqrt has an unbounded gradient at zero
     # distance
-    center_loss = torch.mean(torch.sqrt(dist1 + 1e-8))
+    center_loss = batch_mean(torch.sqrt(dist1 + 1e-8))
 
     size_cls_label = data_dict["size_class_label"].long()   # (B, 1)
-    size_cls_loss = torch.mean(
+    size_cls_loss = batch_mean(
         _ce_logits(data_dict["size_scores"], size_cls_label))
 
     size_onehot = torch.nn.functional.one_hot(
@@ -42,12 +46,12 @@ def compute_mask_box_loss(data_dict: dict, num_size_cluster: int = 18):
     mean_sizes = pred_res.new_tensor(SCANNET_MEAN_SIZE_ARR)
     res_label_norm = (data_dict["size_residual_label"]
                       / mean_sizes[size_cls_label])
-    size_reg_loss = torch.mean(huber_loss(pred_res - res_label_norm, 1.0))
+    size_reg_loss = batch_mean(huber_loss(pred_res - res_label_norm, 1.0))
 
     sem_label = data_dict["sem_cls_label"].long()
     sem_scores = data_dict["sem_cls_scores"]
-    sem_cls_loss = torch.mean(_ce_logits(sem_scores, sem_label))
-    sem_cls_acc = torch.mean(
+    sem_cls_loss = batch_mean(_ce_logits(sem_scores, sem_label))
+    sem_cls_acc = batch_mean(
         (torch.argmax(sem_scores.detach(), -1) == sem_label).to(torch.float32))
     return center_loss, size_cls_loss, size_reg_loss, sem_cls_loss, sem_cls_acc
 
@@ -65,7 +69,7 @@ def compute_miou(data_dict: dict) -> torch.Tensor:
     box_size = mean_sizes[size_cls[:, 0]] + size_res
     heading = pred_center.new_zeros(pred_center.shape[:1])
     pred_corners = get_3d_box_batch(box_size, heading, pred_center)
-    return torch.mean(box3d_iou_batch(pred_corners,
+    return batch_mean(box3d_iou_batch(pred_corners,
                                       data_dict["bbox_corner_label"]))
 
 

@@ -5,7 +5,9 @@ lib/loss_helper_pretrained.py).
 "gt" mode: plain token CE averaged over the non-pad tokens (torch
 CrossEntropyLoss(ignore_index=0) mean reduction, :26-42); "votenet" mode:
 the IoU-gated CE of the scene path (:43-77).  Total =
-cap + 0.1 * orientation [+ 0.1 * distance] (:167-204).
+cap + 0.1 * orientation [+ 0.1 * distance] (:167-204).  Under a mesh
+the denominators and the batch-max caption length are the global batch's
+(``parallel.mesh``).
 """
 
 from __future__ import annotations
@@ -18,13 +20,14 @@ from scan2cap_torch.losses.caption import (compute_cap_loss,
                                            compute_node_distance_loss,
                                            compute_node_orientation_loss)
 from scan2cap_torch.losses.detection import _ce_logits
+from scan2cap_torch.parallel.mesh import batch_max, batch_sum
 
 
 def compute_cap_loss_gt(data_dict: dict) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean CE over the non-pad target tokens (gt mode).  Returns
     (cap_loss, cap_acc)."""
     pred_caps = data_dict["lang_cap"]                   # (B, T, V)
-    num_words = torch.max(data_dict["lang_len"])
+    num_words = batch_max(torch.max(data_dict["lang_len"]))
     T = pred_caps.shape[1]
     targets = data_dict["lang_ids"][:, 1:T + 1].long()
 
@@ -33,11 +36,12 @@ def compute_cap_loss_gt(data_dict: dict) -> Tuple[torch.Tensor, torch.Tensor]:
     pad_mask = (targets != 0).to(torch.float32) * step_mask
 
     ce = _ce_logits(pred_caps, targets) * pad_mask
-    cap_loss = torch.sum(ce) / (torch.sum(pad_mask) + 1e-6)
+    denom = batch_sum(torch.sum(pad_mask)) + 1e-6
+    cap_loss = torch.sum(ce) / denom
 
     preds = torch.argmax(pred_caps.detach(), dim=-1)
     cap_acc = (torch.sum((preds == targets).to(torch.float32) * pad_mask)
-               / (torch.sum(pad_mask) + 1e-6))
+               / denom)
     return cap_loss, cap_acc
 
 

@@ -6,6 +6,10 @@ loss = 10 * (vote + 0.5*objectness + box + 0.1*sem_cls) [+ cap]
 where box = center + 0.1*heading_cls + heading_reg + 0.1*size_cls + size_reg.
 Without detection, loss = cap [+ 0.1*ori] [+ 0.1*dist].
 The object-centric track's loss is cls + cap (``get_object_cap_loss``).
+
+Under a mesh (``parallel.mesh``) each batch-wide denominator is taken over
+the data group (``batch_sum``) while the numerators stay local: a rank's
+loss is its share of the global loss.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from scan2cap_torch.losses.detection import (_ce_logits,
                                              compute_box_and_sem_cls_loss,
                                              compute_objectness_loss,
                                              compute_vote_loss)
+from scan2cap_torch.parallel.mesh import batch_count, batch_mean, batch_sum
 
 DETECTION_TERMS = ("vote_loss", "objectness_loss", "center_loss",
                    "heading_cls_loss", "heading_reg_loss", "size_cls_loss",
@@ -40,7 +45,8 @@ def get_scene_cap_loss(data_dict: dict, detection: bool = True,
     d["objectness_label"] = objectness_label
     d["objectness_mask"] = objectness_mask
     d["object_assignment"] = object_assignment
-    total = objectness_label.shape[0] * objectness_label.shape[1]
+    total = batch_count(objectness_label.shape[0]
+                        * objectness_label.shape[1])
     d["pos_ratio"] = torch.sum(objectness_label.to(torch.float32)) / total
     d["neg_ratio"] = torch.sum(objectness_mask) / total - d["pos_ratio"]
 
@@ -53,7 +59,7 @@ def get_scene_cap_loss(data_dict: dict, detection: bool = True,
     obj_pred = torch.argmax(d["objectness_scores"].detach(), dim=2)
     d["obj_acc"] = (torch.sum(
         (obj_pred == objectness_label).to(torch.float32) * objectness_mask)
-        / (torch.sum(objectness_mask) + 1e-6))
+        / (batch_sum(torch.sum(objectness_mask)) + 1e-6))
 
     terms = (vote_loss, objectness_loss, center_loss, heading_cls_loss,
              heading_reg_loss, size_cls_loss, size_reg_loss, sem_cls_loss,
@@ -101,10 +107,10 @@ def compute_object_cls_loss(data_dict: dict, weights=None):
     if weights is not None:
         w = torch.as_tensor(weights, dtype=preds.dtype,
                             device=preds.device)[targets]
-        cls_loss = torch.sum(ce * w) / torch.sum(w)
+        cls_loss = torch.sum(ce * w) / batch_sum(torch.sum(w))
     else:
-        cls_loss = torch.mean(ce)
-    acc = torch.mean((torch.argmax(preds.detach(), -1) == targets).to(
+        cls_loss = batch_mean(ce)
+    acc = batch_mean((torch.argmax(preds.detach(), -1) == targets).to(
         torch.float32))
     return cls_loss, acc
 

@@ -17,6 +17,10 @@ query, the gathers and the gather-lean projection stay float32, so FPS,
 the first-k and the gather see float32 alone and their indices are the
 float32 model's.  Only the grouped values after the centres' subtraction
 are narrowed (``scan2cap_tpu/models/backbone.py:183-199``).
+
+``spatial_axis`` (``ModelConfig.spatial_axis``, ``--spatial``) routes each
+SA layer's ball query, grouping and sa1 projection through the query-axis
+sharding of ``parallel/spatial.py``; FPS stays replicated.
 """
 
 from __future__ import annotations
@@ -32,6 +36,9 @@ from scan2cap_torch.ops import (ball_query, furthest_point_sample,
                                 interpolation_weights, query_and_group,
                                 three_interpolate, three_nn)
 from scan2cap_torch.ops.grouping import group_points_forward
+from scan2cap_torch.parallel.spatial import (
+    ball_query_sharded, group_points_sharded,
+    leaf_gathered_projection_sharded, query_and_group_sharded)
 
 
 class _LeafGatheredProjection(torch.autograd.Function):
@@ -76,14 +83,17 @@ class PointnetSAModuleVotes(nn.Module):
 
     ``in_features`` is the width of the point features (without xyz).
     ``compute_dtype`` / ``storage_dtype`` narrow the MLP chain
-    (``SharedMLP``) and the grouped values that enter it."""
+    (``SharedMLP``) and the grouped values that enter it.
+    ``spatial_axis`` splits the query axis over that mesh axis."""
 
     def __init__(self, npoint: int, radius: float, nsample: int,
                  in_features: int, mlp: Sequence[int], use_xyz: bool = True,
                  normalize_xyz: bool = True, leaf_inputs: bool = False,
                  compute_dtype: Optional[str] = None,
-                 storage_dtype: Optional[str] = None):
+                 storage_dtype: Optional[str] = None,
+                 spatial_axis: str = ""):
         super().__init__()
+        self.spatial_axis = spatial_axis
         self.npoint = npoint
         self.radius = radius
         self.nsample = nsample
@@ -112,10 +122,13 @@ class PointnetSAModuleVotes(nn.Module):
         if inds is None:
             inds = furthest_point_sample(xyz, self.npoint)
         new_xyz = gather_points(xyz, inds)                  # (B, npoint, 3)
+        sp = self.spatial_axis
         if self.gather_lean:
             # Dense_0([xyz_j - xyz_c; f_j]) == Dense_0([xyz_j; f_j])
             #                                  - Dense_0([xyz_c; 0])
-            idx = ball_query(xyz, new_xyz, self.radius, self.nsample)
+            idx = (ball_query_sharded(xyz, new_xyz, self.radius,
+                                      self.nsample, sp) if sp
+                   else ball_query(xyz, new_xyz, self.radius, self.nsample))
             scale = 1.0 / self.radius if self.normalize_xyz else 1.0
             # the split runs in float32 whatever the features' dtype
             feats = widen(features) if features is not None else None
@@ -128,12 +141,16 @@ class PointnetSAModuleVotes(nn.Module):
                     [ct_in, ct_in.new_zeros(ct_in.shape[:-1]
                                             + (feats.shape[-1],))], -1)
             if self.leaf_inputs:
-                g = leaf_gathered_projection(
-                    cat, ct_in, self.mlp.dense_0.weight.t(), idx)
+                w0 = self.mlp.dense_0.weight.t()
+                g = (leaf_gathered_projection_sharded(
+                         leaf_gathered_projection, cat, ct_in, w0, idx, sp)
+                     if sp else leaf_gathered_projection(cat, ct_in, w0, idx))
             else:
                 proj = self.mlp.project_first(cat)          # (B, N, w0)
                 ct = self.mlp.project_first(ct_in)          # (B, npoint, w0)
-                g = group_points(proj, idx) - ct[:, :, None, :]
+                gathered = (group_points_sharded(proj, idx, sp) if sp
+                            else group_points(proj, idx))
+                g = gathered - ct[:, :, None, :]
             if self.narrow is not None:
                 # relative-scale values only from here on
                 g = g.to(self.narrow)
@@ -141,10 +158,12 @@ class PointnetSAModuleVotes(nn.Module):
         else:
             # grouped in float32 and narrowed after: a gather commutes with
             # the cast, so this is the JAX package's narrow-then-group
-            grouped = query_and_group(
+            group = (query_and_group_sharded if sp else query_and_group)
+            extra = dict(axis=sp) if sp else {}
+            grouped = group(
                 xyz, new_xyz, widen(features) if features is not None
                 else None, self.radius, self.nsample, use_xyz=self.use_xyz,
-                normalize_xyz=self.normalize_xyz)
+                normalize_xyz=self.normalize_xyz, **extra)
             if self.narrow is not None:
                 grouped = grouped.to(self.narrow)
             out = self.mlp(grouped, train, bn_momentum)
@@ -182,21 +201,26 @@ class Pointnet2Backbone(nn.Module):
     data-dict keys as the JAX module.  ``compute_dtype`` and
     ``storage_dtype`` apply to the modules named in ``bf16_components``
     ("sa1,...,sa4,fp"); the others stay float32, bit for bit.  With
-    ``compute_dtype`` the SA and FP features come out narrow."""
+    ``compute_dtype`` the SA and FP features come out narrow.
+    ``spatial_axis`` applies to the four SA layers."""
 
     def __init__(self, input_feature_dim: int = 0,
                  sa_npoints: Tuple[int, int, int, int] = (2048, 1024, 512, 256),
                  compute_dtype: Optional[str] = None,
                  storage_dtype: Optional[str] = None,
-                 bf16_components: str = "sa1,sa2,sa3,sa4,fp"):
+                 bf16_components: str = "sa1,sa2,sa3,sa4,fp",
+                 spatial_axis: str = ""):
         super().__init__()
         np1, np2, np3, np4 = sa_npoints
         comps = {c.strip() for c in bf16_components.split(",")}
 
         def dt(name):
-            return dict(
+            out = dict(
                 compute_dtype=compute_dtype if name in comps else None,
                 storage_dtype=storage_dtype if name in comps else None)
+            if name.startswith("sa"):
+                out["spatial_axis"] = spatial_axis
+            return out
 
         # sa1's xyz/features come straight from the input cloud
         self.sa1 = PointnetSAModuleVotes(np1, 0.2, 64, input_feature_dim,

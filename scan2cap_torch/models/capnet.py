@@ -38,7 +38,8 @@ class CapNet(nn.Module):
             cfg.input_feature_dim, cfg.sa_npoints,
             compute_dtype=cfg.compute_dtype,
             storage_dtype=cfg.storage_dtype,
-            bf16_components=cfg.bf16_components)
+            bf16_components=cfg.bf16_components,
+            spatial_axis=cfg.spatial_axis)
         self.vgen = VotingModule(cfg.vote_factor, 256)
         self.proposal = ProposalModule(
             cfg.num_class, cfg.num_heading_bin, cfg.num_size_cluster,

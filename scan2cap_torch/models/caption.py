@@ -20,19 +20,32 @@ decoder attends either over each target's ``num_locals`` local slots
 reference, so its softmax weight is exactly 0 and scoring only the local
 slots is the same math; or, with ``num_locals=-1``, over all K proposals
 (``_decode_scene``), targets taken ``eval_chunk`` at a time.
+
+Under a mesh (``parallel.mesh``) the model axis splits the classifier
+(its vocabulary columns, or its hidden rows where the width does not
+divide) and the hidden axis of ``map_feat`` and ``map_hidd``
+(``parallel.mesh.shard_model`` sets ``tp``): in training the logits are
+gathered before the log-softmax and the argmax, and the attention
+score's partial sums are summed over the model group.  The eval decode
+gathers those weights whole once per forward and splits its targets over
+the model group instead (``parallel.mesh.decode_split``, the JAX
+package's ``_shard_targets``).
 """
 
 from __future__ import annotations
 
-import torch
-from torch import nn
-
+import contextlib
 from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
 
 from scan2cap_torch.models.graph import (bbox_centers, mask_and_topk_locals,
                                          norm3, query_locals_dense)
 from scan2cap_torch.models.layers import GRUCell
 from scan2cap_torch.ops.boxes import box3d_iou_batch
+from scan2cap_torch.parallel import mesh as pmesh
 
 
 def select_target(data_dict: dict) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -120,9 +133,10 @@ def _gather_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _iou_gate(target_ious: torch.Tensor, min_iou: float):
     """(good_bbox_masks (B,) bool, pred_ious: the mean IoU of the good
-    targets, 0 without one)."""
+    targets, 0 without one; under a mesh this rank's share of the global
+    mean)."""
     good = target_ious > min_iou
-    num_good = torch.sum(good)
+    num_good = pmesh.batch_sum(torch.sum(good))
     mean_iou = torch.where(
         num_good > 0,
         torch.sum(target_ious * good) / torch.clamp(num_good, min=1),
@@ -130,7 +144,64 @@ def _iou_gate(target_ious: torch.Tensor, min_iou: float):
     return good, mean_iou
 
 
-class SceneCaptionModule(nn.Module):
+class _SplitLinears(nn.Module):
+    """The caption linears as ``tp`` splits them over the model axis
+    (linear name -> the split dim of its torch weight; empty without a
+    mesh).  ``_full`` holds whole weights during an eval decode."""
+
+    tp: dict = {}
+    _full = None
+
+    def _lin(self, name: str, x: torch.Tensor,
+             local: bool = False) -> torch.Tensor:
+        """Linear ``name`` on ``x``.  Split along its output, the result
+        is gathered (or, with ``local``, this rank's columns are
+        returned); split along its input, the partial products are
+        summed over the model group."""
+        lin = getattr(self, name)
+        if self._full is not None and name in self._full:
+            return F.linear(x, *self._full[name])
+        dim = self.tp.get(name)
+        if dim is None:
+            return lin(x)
+        if dim == 0:
+            bias = (None if lin.bias is None else
+                    pmesh.shard_of(pmesh.enter(lin.bias), "model", 0))
+            y = F.linear(pmesh.enter(x), lin.weight, bias)
+            return y if local else pmesh.gather(y, "model", -1)
+        xs = pmesh.shard_of(pmesh.enter(x), "model", -1)
+        y = pmesh.psum(F.linear(xs, lin.weight))
+        return y if lin.bias is None else y + lin.bias
+
+    def _attend(self, combined: torch.Tensor) -> torch.Tensor:
+        """attend(combined) where ``combined`` may hold this rank's hidden
+        columns only (``map_hidd`` split): the partial scores are summed
+        over the model group."""
+        if self._full is None and self.tp.get("map_hidd") == 0:
+            w = pmesh.shard_of(pmesh.enter(self.attend.weight), "model", 1)
+            return pmesh.psum(F.linear(combined, w))
+        return self.attend(combined)
+
+    @contextlib.contextmanager
+    def _whole_weights(self):
+        """Under a split: the split weights gathered whole, for an eval
+        decode that splits its targets instead."""
+        if not self.tp:
+            yield
+            return
+        full = {}
+        for name, dim in self.tp.items():
+            lin = getattr(self, name)
+            full[name] = (pmesh.all_gather(lin.weight, "model", dim),
+                          lin.bias)
+        self._full = full
+        try:
+            yield
+        finally:
+            self._full = None
+
+
+class SceneCaptionModule(_SplitLinears):
     """Plain GRU decoder (caption_module.py:40-200): ``map_feat`` + ReLU
     projects the proposal features to the embedding width, which is also
     the GRU's hidden width; the classifier reads the hidden state."""
@@ -165,7 +236,7 @@ class SceneCaptionModule(nn.Module):
         prev, outs = first_input, []
         for t in range(num_steps):
             hidden = self.recurrent_cell(prev, hidden)
-            logits = _mask_pad_logits(self.classifier(hidden),
+            logits = _mask_pad_logits(self._lin("classifier", hidden),
                                       self.num_vocabs)
             if word_embs is not None:
                 prev = word_embs[:, t + 1]
@@ -179,7 +250,7 @@ class SceneCaptionModule(nn.Module):
     def forward_sample_batch(self, data_dict: dict) -> dict:
         d = dict(data_dict)
         word_embs = d["lang_feat"]                               # (B,T,E)
-        obj_feats = torch.relu(self.map_feat(d["bbox_feature"]))  # (B,K,E)
+        obj_feats = torch.relu(self._lin("map_feat", d["bbox_feature"]))
         target_ids, target_ious = select_target(d)
         logits = self._decode(_gather_targets(obj_feats, target_ids),
                               word_embs[:, 0], word_embs, None,
@@ -191,25 +262,32 @@ class SceneCaptionModule(nn.Module):
         return d
 
     def forward_scene_batch(self, data_dict: dict) -> dict:
+        with self._whole_weights():
+            return self._forward_scene(data_dict)
+
+    def _forward_scene(self, data_dict: dict) -> dict:
         d = dict(data_dict)
         emb_table = d["glove_emb_table"]                         # (V, E)
-        obj_feats = torch.relu(self.map_feat(d["bbox_feature"]))  # (B,K,E)
-        B, K, E = obj_feats.shape
+        obj_feats = torch.relu(self._lin("map_feat", d["bbox_feature"]))
+        B, K, E = obj_feats.shape                                # (B,K,E)
         sos = d["lang_feat"][:, 0]                               # (B, E)
-        chunks = []
-        for s in range(0, K, self.eval_chunk):
-            feats = obj_feats[:, s:s + self.eval_chunk]
+
+        def decode(feats):
             kc = feats.shape[1]
             tokens = self._decode(
                 feats.reshape(B * kc, E),
                 sos[:, None].expand(B, kc, E).reshape(B * kc, E), None,
                 emb_table, self.max_des_len - 1)                 # 29 steps
-            chunks.append(tokens.reshape(B, kc, -1))
+            return (tokens.reshape(B, kc, -1),)
+
+        chunks = [pmesh.decode_split(
+            decode, [obj_feats[:, s:s + self.eval_chunk]])[0]
+            for s in range(0, K, self.eval_chunk)]
         d["lang_cap"] = torch.cat(chunks, dim=1).to(torch.int32)  # (B,K,T)
         return d
 
 
-class TopDownSceneCaptionModule(nn.Module):
+class TopDownSceneCaptionModule(_SplitLinears):
     """2-layer attention decoder (caption_module.py:202-592)."""
 
     def __init__(self, num_vocabs: int, emb_size: int = 300,
@@ -268,14 +346,15 @@ class TopDownSceneCaptionModule(nn.Module):
             x = torch.cat([word_embs[:, t], h2, target_feat], dim=-1)
             x = torch.relu(self.map_topdown(x))
             h1 = self.recurrent_cell_1(x, h1)
-            combined = torch.tanh(mapped_obj + self.map_hidd(h1)[:, None, :])
-            scores = self.attend(combined) + neg_mask            # (N, K, 1)
+            combined = torch.tanh(
+                mapped_obj + self._lin("map_hidd", h1, local=True)[:, None, :])
+            scores = self._attend(combined) + neg_mask           # (N, K, 1)
             attn = torch.softmax(scores, dim=1)
             attended = torch.sum(obj_feats * attn, dim=1)        # (N, C)
             lang_in = torch.relu(self.map_lang(
                 torch.cat([attended, h1], dim=-1)))
             h2 = self.recurrent_cell_2(lang_in, h2)
-            logits_t.append(_mask_pad_logits(self.classifier(h2),
+            logits_t.append(_mask_pad_logits(self._lin("classifier", h2),
                                              self.num_vocabs))
             attn_t.append(attn[..., 0])
         return torch.stack(logits_t, dim=1), torch.stack(attn_t, dim=2)
@@ -300,7 +379,7 @@ class TopDownSceneCaptionModule(nn.Module):
                 self.query_mode, self.overlay_threshold)
         if self.use_relation:
             obj_feats = add_relation_feat(d, obj_feats, target_ids)
-        mapped_obj = self.map_feat(obj_feats)
+        mapped_obj = self._lin("map_feat", obj_feats, local=True)
         logits, attns = self._decode(target_feats, obj_feats, mapped_obj,
                                      valid_masks, word_embs,
                                      self.max_des_len + 1)
@@ -337,7 +416,7 @@ class TopDownSceneCaptionModule(nn.Module):
         for _ in range(num_steps):
             x = torch.relu(self.map_topdown(torch.cat([prev, h2, tgt], -1)))
             h1 = self.recurrent_cell_1(x, h1)
-            hproj = self.map_hidd(h1)
+            hproj = self._lin("map_hidd", h1)
             scores = torch.sum(torch.tanh(shared_mapped[:, None]
                                           + hproj[:, :, None]) * w,
                                dim=-1)                              # (B,kc,K)
@@ -354,7 +433,8 @@ class TopDownSceneCaptionModule(nn.Module):
                                                 dim=2)
             lang_in = torch.relu(self.map_lang(torch.cat([attended, h1], -1)))
             h2 = self.recurrent_cell_2(lang_in, h2)
-            logits = _mask_pad_logits(self.classifier(h2), self.num_vocabs)
+            logits = _mask_pad_logits(self._lin("classifier", h2),
+                                      self.num_vocabs)
             tokens = torch.argmax(logits, dim=-1)                   # (B,kc)
             prev = emb_table[tokens]
             tokens_t.append(tokens)
@@ -377,14 +457,15 @@ class TopDownSceneCaptionModule(nn.Module):
         for _ in range(num_steps):
             x = torch.relu(self.map_topdown(torch.cat([prev, h2, tgt], -1)))
             h1 = self.recurrent_cell_1(x, h1)
-            hproj = self.map_hidd(h1)
+            hproj = self._lin("map_hidd", h1)
             scores = torch.sum(torch.tanh(base_loc + hproj[:, :, None]) * w,
                                dim=-1)                              # (B,K,L)
             attn = torch.softmax(scores, dim=-1)
             attended = torch.einsum("btl,btlc->btc", attn, ctx_loc)
             lang_in = torch.relu(self.map_lang(torch.cat([attended, h1], -1)))
             h2 = self.recurrent_cell_2(lang_in, h2)
-            logits = _mask_pad_logits(self.classifier(h2), self.num_vocabs)
+            logits = _mask_pad_logits(self._lin("classifier", h2),
+                                      self.num_vocabs)
             tokens = torch.argmax(logits, dim=-1)                   # (B,K)
             prev = emb_table[tokens]
             tokens_t.append(tokens)
@@ -393,8 +474,12 @@ class TopDownSceneCaptionModule(nn.Module):
                 torch.stack(attn_t, dim=2))
 
     def forward_scene_batch(self, data_dict: dict) -> dict:
-        if self.num_locals == -1:
-            return self._forward_scene_full(data_dict)
+        with self._whole_weights():
+            if self.num_locals == -1:
+                return self._forward_scene_full(data_dict)
+            return self._forward_scene_local(data_dict)
+
+    def _forward_scene_local(self, data_dict: dict) -> dict:
         d = dict(data_dict)
         emb_table = d["glove_emb_table"]
         obj_feats = d["bbox_feature"]                               # (B,K,C)
@@ -404,7 +489,7 @@ class TopDownSceneCaptionModule(nn.Module):
         all_valid, loc_idx = query_locals_dense(
             d["bbox_corner"], object_masks, self.num_locals, self.query_mode,
             include_self=True, overlay_threshold=self.overlay_threshold)
-        shared_mapped = self.map_feat(obj_feats)                    # (B,K,H)
+        shared_mapped = self._lin("map_feat", obj_feats)            # (B,K,H)
         sh_loc = _gather_slots(shared_mapped, loc_idx)              # (B,K,L,H)
         obj_loc = _gather_slots(obj_feats, loc_idx)                 # (B,K,L,C)
         if self.use_relation:
@@ -412,15 +497,16 @@ class TopDownSceneCaptionModule(nn.Module):
             # == shared + scatter(map_feat(rel)); only neighbour slots move
             rel_all = d["edge_feature"]                             # (B,K,Le,C)
             nbr_all = d["edge_nbr_idx"]                             # (B,K,Le)
-            delta = self.map_feat(rel_all)
+            delta = self._lin("map_feat", rel_all)
             match = (loc_idx[:, :, :, None].long()
                      == nbr_all[:, :, None, :].long()).to(obj_feats.dtype)
             sh_loc = sh_loc + torch.einsum("btlj,btjh->btlh", match, delta)
             obj_loc = obj_loc + torch.einsum("btlj,btjc->btlc", match, rel_all)
-        d["lang_cap"], d["topdown_attn"] = self._decode_scene_local(
-            obj_feats, sh_loc, obj_loc,
-            sos[:, None].expand(B, K, sos.shape[-1]), emb_table,
-            self.max_des_len - 1)                                   # 29 steps
+        d["lang_cap"], d["topdown_attn"] = pmesh.decode_split(
+            lambda tgt, base, ctx, first: self._decode_scene_local(
+                tgt, base, ctx, first, emb_table, self.max_des_len - 1),
+            [obj_feats, sh_loc, obj_loc,
+             sos[:, None].expand(B, K, sos.shape[-1])])             # 29 steps
         d["topdown_attn_slots"] = loc_idx                           # (B,K,L)
         d["valid_masks"] = all_valid
         return d
@@ -434,24 +520,27 @@ class TopDownSceneCaptionModule(nn.Module):
         B, K, _ = obj_feats.shape
         all_valid = d["bbox_mask"].to(torch.float32)[:, None, :].expand(B, K, K)
         sos = d["lang_feat"][:, 0]
-        shared_mapped = self.map_feat(obj_feats)                    # (B,K,H)
+        shared_mapped = self._lin("map_feat", obj_feats)            # (B,K,H)
         onehot = nbr_base = rel = None
         if self.use_relation:
             rel = d["edge_feature"]                                 # (B,K,L,C)
             nbr = d["edge_nbr_idx"]                                 # (B,K,L)
-            nbr_base = _gather_slots(shared_mapped, nbr) + self.map_feat(rel)
+            nbr_base = (_gather_slots(shared_mapped, nbr)
+                        + self._lin("map_feat", rel))
             onehot = nn.functional.one_hot(nbr.long(), K).to(obj_feats.dtype)
         tokens, attn = [], []
         for s in range(0, K, self.eval_chunk):
             sl = slice(s, s + self.eval_chunk)
             kc = obj_feats[:, sl].shape[1]
-            tok, att = self._decode_scene(
-                obj_feats[:, sl], shared_mapped, obj_feats, all_valid[:, sl],
-                onehot[:, sl] if onehot is not None else None,
-                nbr_base[:, sl] if nbr_base is not None else None,
-                rel[:, sl] if rel is not None else None,
-                sos[:, None].expand(B, kc, sos.shape[-1]), emb_table,
-                self.max_des_len - 1)                               # 29 steps
+            tok, att = pmesh.decode_split(
+                lambda tgt, valid, oh, nb, rl, first: self._decode_scene(
+                    tgt, shared_mapped, obj_feats, valid, oh, nb, rl, first,
+                    emb_table, self.max_des_len - 1),               # 29 steps
+                [obj_feats[:, sl], all_valid[:, sl],
+                 onehot[:, sl] if onehot is not None else None,
+                 nbr_base[:, sl] if nbr_base is not None else None,
+                 rel[:, sl] if rel is not None else None,
+                 sos[:, None].expand(B, kc, sos.shape[-1])])
             tokens.append(tok)
             attn.append(att)
         d["lang_cap"] = torch.cat(tokens, dim=1)                    # (B,K,T)

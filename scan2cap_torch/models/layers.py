@@ -9,6 +9,10 @@ bfloat16 (``SharedMLP``'s ``compute_dtype`` and ``storage_dtype``) is cast
 explicitly, tensor by tensor, where the JAX package's Flax modules narrow:
 parameters and BN running statistics stay float32, and ``torch.autocast``
 is not used.
+
+Under a mesh (``parallel.mesh``), train-mode ``BatchNorm`` takes its
+statistics over the global batch: the per-rank sums travel over the data
+group with their gradients.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from scan2cap_torch.parallel import mesh as pmesh
 
 
 def widen(x: torch.Tensor) -> torch.Tensor:
@@ -35,7 +41,9 @@ class BatchNorm(nn.Module):
     variance and updates the running variance with the unbiased one.  The
     statistics and ``(x - mean) * inv + bias`` are at least float32
     whatever ``x`` is; the result has ``x``'s dtype
-    (``scan2cap_tpu/models/layers.py:22-51``)."""
+    (``scan2cap_tpu/models/layers.py:22-51``).  Under a mesh the batch
+    is the global one, and the running variance's correction counts its
+    rows."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -50,10 +58,19 @@ class BatchNorm(nn.Module):
         xf = widen(x)
         if train:
             dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=dims)
-            var = xf.var(dim=dims, unbiased=False)
+            n = x.numel() // x.shape[-1]
+            if pmesh.current() is None:
+                mean = xf.mean(dim=dims)
+                var = xf.var(dim=dims, unbiased=False)
+            else:
+                # global statistics: two passes, each sum over the data
+                # group with its gradient (every rank's loss share
+                # depends on them)
+                n = pmesh.batch_count(n)
+                mean = pmesh.sum_shares(xf.sum(dim=dims)) / n
+                var = pmesh.sum_shares(
+                    torch.sum((xf - mean) ** 2, dim=dims)) / n
             with torch.no_grad():
-                n = x.numel() // x.shape[-1]
                 unbiased = var * (n / max(n - 1, 1))
                 self.running_mean.mul_(1.0 - momentum).add_(momentum * mean)
                 self.running_var.mul_(1.0 - momentum).add_(momentum * unbiased)

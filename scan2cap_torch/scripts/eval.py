@@ -9,6 +9,10 @@ checkpoint, ``--use_last``'s last one, or ``--use_pretrained``: a port run
 name, a full reference-layout ``model.pth`` (all of it), or a
 detection-only ``.pth`` (detection eval only).  ``eval_stats.json`` in the
 run folder keeps each pass's batches, seconds and kernel launches.
+``--mesh DATA,MODEL`` evaluates over DATA x MODEL ranks (``parallel.mesh``):
+scenes split over DATA (an uneven last batch padded), each caption decode's
+targets over MODEL; rank 0 prints, scores and writes, and the scores are
+the single process's.
 """
 
 from __future__ import annotations
@@ -44,7 +48,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "place of the folder's checkpoint")
     p.add_argument("--force", action="store_true")
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
-                   help="not ported")
+                   help="evaluate over DATA x MODEL ranks: scenes over "
+                        "DATA (uneven last batch padded), the caption "
+                        "decode's targets over MODEL")
     p.add_argument("--save_interm", action="store_true",
                    help="dump per-object boxes, captions and attention to "
                         "interm.json")
@@ -106,13 +112,16 @@ def evaluate(args):
                                                parse_predictions_device)
     from scan2cap_torch.eval.eval_helper import eval_cap, prepare_corpus
     from scan2cap_torch.models import CapNet
-    from scan2cap_torch.scripts.train import (NOT_PORTED, dataset_kwargs,
+    from scan2cap_torch.parallel import mesh as pmesh
+    from scan2cap_torch.scripts.train import (dataset_kwargs, mesh_line,
                                               model_config_from_info)
     from scan2cap_torch.train.step import make_eval_step
 
-    if args.mesh:
-        raise SystemExit(NOT_PORTED.format(flag="--mesh"))
-    device = resolve_device(args.device)
+    mesh = pmesh.current()
+    main = pmesh.is_main()
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    if mesh is not None and main:
+        print(mesh_line(mesh), flush=True)
     paths = PathConfig()
     folder = os.path.join(paths.output, args.folder)
     with open(os.path.join(folder, "info.json")) as f:
@@ -141,10 +150,13 @@ def evaluate(args):
                    seed=args.seed)
     load_weights(model, args, paths, folder, vocab_pad)
     if args.save_interm and not args.eval_caption:
-        print("WARNING: --save_interm only produces output with "
-              "--eval_caption; ignoring it")
+        if main:
+            print("WARNING: --save_interm only produces output with "
+                  "--eval_caption; ignoring it")
         args.save_interm = False
     eval_step = make_eval_step(mcfg, model, keep_attn=args.save_interm)
+    if mesh is not None:
+        eval_step = pmesh.mesh_eval_fn(eval_step)
     results, stats = {}, {}
 
     if args.eval_caption:
@@ -162,18 +174,19 @@ def evaluate(args):
                 eval_step, val_ds, val_loader, organized,
                 min_iou=args.min_iou, corpus=corpus, use_nms=not args.no_nms,
                 intermediates=intermediates, device=device)
-        if args.save_interm:
+        if args.save_interm and main:
             interm_path = os.path.join(folder, "interm.json")
             with open(interm_path, "w") as f:
                 json.dump(intermediates, f)
             print(f"saved intermediate results to {interm_path}")
-        print(f"[BLEU-1] {bleu[0][0]:.4f}")
-        print(f"[BLEU-2] {bleu[0][1]:.4f}")
-        print(f"[BLEU-3] {bleu[0][2]:.4f}")
-        print(f"[BLEU-4] {bleu[0][3]:.4f}")
-        print(f"[CIDEr]  {cider[0]:.4f}")
-        print(f"[ROUGE]  {rouge[0]:.4f}")
-        print(f"[METEOR] {meteor[0]:.4f}", flush=True)
+        if main:
+            print(f"[BLEU-1] {bleu[0][0]:.4f}")
+            print(f"[BLEU-2] {bleu[0][1]:.4f}")
+            print(f"[BLEU-3] {bleu[0][2]:.4f}")
+            print(f"[BLEU-4] {bleu[0][3]:.4f}")
+            print(f"[CIDEr]  {cider[0]:.4f}")
+            print(f"[ROUGE]  {rouge[0]:.4f}")
+            print(f"[METEOR] {meteor[0]:.4f}", flush=True)
         results["caption"] = dict(bleu=bleu[0], cider=cider[0],
                                   rouge=rouge[0], meteor=meteor[0])
 
@@ -199,18 +212,27 @@ def evaluate(args):
         for t, c in calcs.items():
             metrics = c.compute_metrics()
             results["detection"][t] = metrics
-            print(f"--- mAP@{t}: {metrics['mAP']:.4f}  "
-                  f"AR@{t}: {metrics['AR']:.4f}", flush=True)
+            if main:
+                print(f"--- mAP@{t}: {metrics['mAP']:.4f}  "
+                      f"AR@{t}: {metrics['AR']:.4f}", flush=True)
     val_loader.close()
-    with open(os.path.join(folder, "eval_stats.json"), "w") as f:
-        json.dump(stats, f)
+    if main:
+        with open(os.path.join(folder, "eval_stats.json"), "w") as f:
+            json.dump(stats, f)
     return results
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
+def _rank(args):
     np.random.seed(args.seed)
     return evaluate(args)
+
+
+def main(argv=None):
+    from scan2cap_torch.scripts import eval as this
+    from scan2cap_torch.scripts.train import on_mesh
+    args = build_parser().parse_args(argv)
+    np.random.seed(args.seed)
+    return on_mesh(args, this._rank)
 
 
 if __name__ == "__main__":

@@ -26,7 +26,9 @@ and power limit), ``torch``, the seconds spent in training steps and in
 each evaluation, the kernels' launches per training step, and the
 backbone's ``storage_dtype`` under ``config``.  ``--bf16_storage`` stores
 the backbone MLPs' inter-layer activations in bfloat16 (every product and
-BN stays float32).  ``--mesh`` is not ported.
+BN stays float32).  ``--mesh DATA,MODEL`` trains over DATA x MODEL ranks
+(``parallel.mesh``), each on its rows of every batch; the evaluations take
+whole batches, and rank 0 prints and writes.
 
 Run on the card (the committed curve's settings):
     python -m scan2cap_torch.scripts.quality_trajectory --eval_batches 4 \\
@@ -72,17 +74,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16_storage", action="store_true",
                    help="storage-only bfloat16 backbone buffers")
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
-                   help="not ported")
+                   help="train over DATA x MODEL ranks (scenes over DATA, "
+                        "the caption classifier and attention over MODEL)")
     p.add_argument("--device", type=str, default="cuda",
                    help="the device to run on (cuda, or cpu)")
     return p
 
 
 def parse_args(argv=None):
-    from scan2cap_torch.scripts.train import refuse_unported
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_unported(args, ("mesh",))
     if args.seeds and len(args.seeds.split(",")) > 1:
         if not (args.out and "{seed}" in args.out):
             p.error("--seeds needs --out with a '{seed}' placeholder")
@@ -175,14 +176,27 @@ def run_seed(args, cfg, seed: int, train_pairs: List[Pair],
              device: torch.device) -> Dict:
     from scan2cap_torch.kernels import launch_counts, reset_launch_counts
     from scan2cap_torch.models import CapNet
+    from scan2cap_torch.parallel import mesh as pmesh
     from scan2cap_torch.train.step import (create_train_state,
                                            make_eval_step, make_train_step)
 
-    model = CapNet(cfg, num_vocabs=NUM_VOCABS, device=device, seed=seed)
+    mesh = pmesh.current()
+    # the vocabulary splits over the model axis (128 divides it already)
+    vocab_pad = (pmesh.padded_vocab(NUM_VOCABS, mesh.n_model)
+                 if mesh is not None and mesh.n_model > 1 else 0)
+    model = CapNet(cfg, num_vocabs=NUM_VOCABS, num_vocabs_padded=vocab_pad,
+                   device=device, seed=seed)
+    if mesh is not None:
+        pmesh.shard_model(model)
     state = create_train_state(cfg, model)
     step = make_train_step(cfg, state, detection=True, caption=True,
                            orientation=True)
     eval_step = make_eval_step(cfg, model)
+    if mesh is not None:
+        eval_step = pmesh.mesh_eval_fn(eval_step)
+    # a rank of a mesh trains on its rows; the evaluations take whole
+    # batches
+    train_batches = [pmesh.local_rows(b) for b, _ in train_pairs]
     curve = {"step": [], "loss": [], "cap_loss": [], "cap_acc": [],
              "map25": [], "ar25": [], "cider_train": []}
     eval_s: List[float] = []
@@ -199,7 +213,8 @@ def run_seed(args, cfg, seed: int, train_pairs: List[Pair],
         curve["map25"].append(round(m25, 4))
         curve["ar25"].append(round(ar, 4))
         curve["cider_train"].append(round(cid, 4))
-        print(f"seed {seed} step {step_i:4d}: loss {curve['loss'][-1]} "
+        if pmesh.is_main():
+            print(f"seed {seed} step {step_i:4d}: loss {curve['loss'][-1]} "
               f"mAP@0.25 {m25:.4f} AR {ar:.4f} CIDEr(train) {cid:.4f}",
               flush=True)
 
@@ -212,7 +227,7 @@ def run_seed(args, cfg, seed: int, train_pairs: List[Pair],
     t_train = time.perf_counter()
     for i in range(1, args.steps + 1):
         t0 = time.perf_counter()
-        metrics = step(train_pairs[(i - 1) % args.num_batches][0], lr, mom)
+        metrics = step(train_batches[(i - 1) % args.num_batches], lr, mom)
         if i % args.eval_every == 0 or i == args.steps:
             float(metrics["loss"])          # the steps have ended
             step_s += time.perf_counter() - t0
@@ -254,23 +269,39 @@ def run_seed(args, cfg, seed: int, train_pairs: List[Pair],
 
 
 def main(argv=None) -> int:
+    from scan2cap_torch.scripts import quality_trajectory as this
+    from scan2cap_torch.scripts.train import on_mesh
+    args = parse_args(argv)
+    if args.mesh:
+        return on_mesh(args, this.run, args.batch_size)
+    return run(args)
+
+
+def run(args) -> int:
     from scan2cap_torch.data.synthetic import (make_scene_batch, make_vocab,
                                                to_device)
     from scan2cap_torch.device import resolve_device
+    from scan2cap_torch.parallel import mesh as pmesh
+    from scan2cap_torch.scripts.train import mesh_line
 
-    args = parse_args(argv)
-    device = resolve_device(args.device)
+    mesh = pmesh.current()
+    main = pmesh.is_main()
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    if mesh is not None and main:
+        print(mesh_line(mesh), flush=True)
     cfg = make_config(args)
     vocab = make_vocab(num_vocabs=NUM_VOCABS, emb_size=cfg.emb_size)
-    print(f"building {args.num_batches}+{args.eval_batches} synthetic "
-          f"batches (N={cfg.num_points}, B={args.batch_size})...",
-          flush=True)
+    if main:
+        print(f"building {args.num_batches}+{args.eval_batches} synthetic "
+              f"batches (N={cfg.num_points}, B={args.batch_size})...",
+              flush=True)
     t0 = time.perf_counter()
     hosts = [make_scene_batch(cfg, batch_size=args.batch_size, num_objects=6,
                               vocab=vocab, seed=s)
              for s in range(args.num_batches + args.eval_batches)]
     pairs = [(to_device(h, device), h) for h in hosts]
-    print(f"staged in {time.perf_counter() - t0:.0f}s", flush=True)
+    if main:
+        print(f"staged in {time.perf_counter() - t0:.0f}s", flush=True)
     nb = args.num_batches
     card = card_line(device)
 
@@ -280,6 +311,8 @@ def main(argv=None) -> int:
         result = run_seed(args, cfg, seed, pairs[:nb], pairs[nb:],
                           vocab["idx2word"], device)
         result.update(card=card, torch=torch.__version__)
+        if not main:
+            continue
         line = json.dumps(result)
         print(line, flush=True)
         if args.out:

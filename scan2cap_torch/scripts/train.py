@@ -9,7 +9,9 @@ builds the Loader, CapNet and the train step on ``--device`` (default
 back), ``log.txt``, ``scalars.json`` and ``ckpt/{best,last,resume}.pt``.
 ``--use_pretrained`` mounts the detection modules of a reference-layout
 ``.pth`` or of a port run; ``--use_checkpoint`` resumes a port run at its
-next global epoch.
+next global epoch.  ``--mesh DATA,MODEL`` runs DATA x MODEL ranks
+(``parallel.mesh``: NCCL on the card, gloo with ``--device cpu``);
+``--spatial`` also splits the SA layers' query axis over MODEL.
 """
 
 from __future__ import annotations
@@ -18,13 +20,12 @@ import argparse
 import json
 import os
 from datetime import datetime
+from typing import Optional
 
 import numpy as np
 
-# what the port does not run (one card): the flags stay so that a JAX
-# command line parses, and stop with this message
-NOT_PORTED = ("{flag} is not ported: the PyTorch port runs on one card "
-              "(ROADMAP.md, Queue 1, item 6)")
+SPATIAL_NEEDS_MESH = ("--spatial requires --mesh DATA,MODEL with MODEL>1 "
+                      "(the SA query axis shards over the model axis)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,9 +72,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "layout .pth or the name of a port run")
     p.add_argument("--use_checkpoint", type=str, default="",
                    help="a port run to resume at its next epoch")
-    p.add_argument("--spatial", action="store_true", help="not ported")
+    p.add_argument("--spatial", action="store_true",
+                   help="with --mesh DATA,MODEL (MODEL>1): also split every "
+                        "SA layer's query axis over the MODEL axis "
+                        "(ModelConfig.spatial_axis)")
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
-                   help="not ported")
+                   help="train over DATA x MODEL ranks: scenes split over "
+                        "DATA, the caption classifier (padded to a "
+                        "divisible width) and attention over MODEL; "
+                        "checkpoints hold whole tensors")
     p.add_argument("--debug", action="store_true")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 backbone MLP chain (compute_dtype; the "
@@ -83,10 +90,40 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args, flags=("mesh", "spatial")) -> None:
-    for flag in flags:
-        if getattr(args, flag, None):
-            raise SystemExit(NOT_PORTED.format(flag=f"--{flag}"))
+def check_spatial(args, mcfg, n_model: int) -> None:
+    """JAX's checks of ``--spatial`` (scripts/train.py:244-253)."""
+    if n_model < 2:
+        raise SystemExit("--spatial shards the SA query axis over the MODEL "
+                         "mesh axis; use --mesh with MODEL>1 (e.g. --mesh "
+                         "4,2)")
+    if [m for m in mcfg.sa_npoints if m % n_model]:
+        raise SystemExit(f"--spatial needs every SA point count to divide "
+                         f"the model axis ({n_model}); got "
+                         f"sa_npoints={mcfg.sa_npoints}")
+
+
+def on_mesh(args, fn, batch_size: Optional[int] = None):
+    """``fn(args)`` in this process, or with ``args.mesh`` on every rank of
+    the mesh (``parallel.mesh.launch``), returning rank 0's result.  A
+    trainer passes its ``batch_size``, which the data axis must divide."""
+    if not getattr(args, "mesh", None):
+        return fn(args)
+    from scan2cap_torch.parallel.mesh import launch, parse_mesh, setup_mesh
+    if batch_size is None:
+        try:
+            spec = parse_mesh(args.mesh, args.device)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    else:
+        spec = setup_mesh(args.mesh, batch_size, args.device)
+    return launch(spec, args.device, fn, args)
+
+
+def mesh_line(mesh, vocab=None, spatial: bool = False) -> str:
+    """The JAX trainers' ``mesh:`` line."""
+    return (f"mesh: data={mesh.n_data} model={mesh.n_model}"
+            + (f" vocab padded {vocab[0]}->{vocab[1]}" if vocab else "")
+            + (" spatial(SA query axis over model)" if spatial else ""))
 
 
 def model_config_from_args(args):
@@ -110,6 +147,8 @@ def model_config_from_args(args):
         no_caption=args.no_caption,
         compute_dtype=("bfloat16" if getattr(args, "bf16", False)
                        else "float32"),
+        # point-axis sharding rides the mesh's model axis (--spatial)
+        spatial_axis="model" if getattr(args, "spatial", False) else "",
     )
     # test hook: shrink the SA pyramid so fixture-size scenes run fast
     if os.environ.get("SCAN2CAP_TEST_TINY"):
@@ -119,8 +158,10 @@ def model_config_from_args(args):
 
 def model_config_from_info(info: dict):
     """The ModelConfig of a saved run (its info.json), for eval, predict,
-    export and visualize: a ``--bf16`` run is rebuilt in bfloat16."""
-    return model_config_from_args(argparse.Namespace(**info))
+    export and visualize: a ``--bf16`` run is rebuilt in bfloat16;
+    ``--spatial`` changed only the training's layout and is dropped."""
+    return model_config_from_args(
+        argparse.Namespace(**{**info, "spatial": False}))
 
 
 def dataset_kwargs(paths, mcfg) -> dict:
@@ -152,13 +193,14 @@ def train(args):
     from scan2cap_torch.device import resolve_device
     from scan2cap_torch.eval.eval_helper import eval_cap, prepare_corpus
     from scan2cap_torch.models import CapNet
-    from scan2cap_torch.train.checkpoints import CheckpointIO
+    from scan2cap_torch.parallel import mesh as pmesh
+    from scan2cap_torch.train.checkpoints import CheckpointIO, restore_resume
     from scan2cap_torch.train.solver import Solver
     from scan2cap_torch.train.step import (create_train_state,
                                            make_eval_step, make_train_step)
 
-    refuse_unported(args)
-    device = resolve_device(args.device)
+    mesh = pmesh.current()
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     paths = PathConfig()
     mcfg = model_config_from_args(args)
 
@@ -186,19 +228,40 @@ def train(args):
     val_ds = ScannetReferenceDataset(
         eval_val, all_scenes, split="val", augment=False,
         vocab=train_ds.vocabulary, glove=train_ds.glove, **common)
-    # the solver's upload copies, so the ring slots can be reused
+    # the solver's upload copies, so the ring slots can be reused; a rank
+    # of a mesh loads its rows of each batch, every rank the whole val set
     train_loader = Loader(train_ds, args.batch_size, shuffle=True,
-                          seed=args.seed, reuse_buffers=True)
+                          seed=args.seed, reuse_buffers=True,
+                          data_shard=(None if mesh is None
+                                      else (mesh.d, mesh.n_data)))
     val_loader = Loader(val_ds, args.batch_size, shuffle=False,
                         seed=args.seed, drop_last=False)
     with open(os.path.join(paths.data,
                            "ScanRefer_filtered_organized.json")) as f:
         organized = json.load(f)
 
+    resume_ckpt = None
+    if args.use_checkpoint:
+        resume_ckpt = os.path.join(paths.output, args.use_checkpoint)
+    vocab_pad = 0
+    if resume_ckpt:
+        # a resumed run keeps its classifier's width
+        with open(os.path.join(resume_ckpt, "info.json")) as f:
+            vocab_pad = int(json.load(f).get("num_vocabs_padded", 0) or 0)
+    if mesh is not None:
+        # the classifier's vocabulary splits over the model axis: pad it
+        # to a divisible width
+        if not vocab_pad and mesh.n_model > 1:
+            vocab_pad = pmesh.padded_vocab(train_ds.num_vocabs, mesh.n_model)
+        if mesh.is_main:
+            print(mesh_line(mesh, (train_ds.num_vocabs, vocab_pad)
+                            if vocab_pad else None, args.spatial),
+                  flush=True)
+
     # ---- model + state ----
-    model = CapNet(mcfg, num_vocabs=train_ds.num_vocabs, device=device,
+    model = CapNet(mcfg, num_vocabs=train_ds.num_vocabs,
+                   num_vocabs_padded=vocab_pad, device=device,
                    seed=args.seed)
-    state = create_train_state(mcfg, model, wd=args.wd)
 
     if args.use_pretrained:
         # warm-start the detection modules (scripts/train.py:82-105)
@@ -211,26 +274,28 @@ def train(args):
             model.load_state_dict(
                 {k: v for k, v in pre.items()
                  if k.split(".")[0] in DETECTION_MODULES}, strict=False)
+    if mesh is not None:
+        pmesh.shard_model(model)
+    state = create_train_state(mcfg, model, wd=args.wd)
 
     start_epoch = 0
-    if args.use_checkpoint:
+    if resume_ckpt:
         # the resume bundle {epoch, model, optimizer, step}
-        # (lib/solver.py:502-510 checkpoint.tar)
-        resume = CheckpointIO(os.path.join(
-            paths.output, args.use_checkpoint, "ckpt")).restore(
-            "resume", map_location=device)
-        model.load_state_dict(resume["model"], strict=True)
-        state.optimizer.load_state_dict(resume["optimizer"])
-        state.step = int(resume["step"])
-        start_epoch = int(resume["epoch"]) + 1
-        print(f"resumed from {args.use_checkpoint} at epoch {start_epoch}",
-              flush=True)
+        # (lib/solver.py:502-510 checkpoint.tar), whole tensors that
+        # restore into any mesh shape
+        start_epoch = restore_resume(state, CheckpointIO(os.path.join(
+            resume_ckpt, "ckpt")).restore("resume", map_location=device))
+        if pmesh.is_main():
+            print(f"resumed from {args.use_checkpoint} at epoch "
+                  f"{start_epoch}", flush=True)
 
     train_step = make_train_step(
         mcfg, state, detection=not args.no_detection,
         caption=not args.no_caption, orientation=args.use_orientation,
         distance=args.use_distance, use_tf=args.use_tf)
     eval_step = make_eval_step(mcfg, model)
+    if mesh is not None:
+        eval_step = pmesh.mesh_eval_fn(eval_step)
 
     with open(val_path) as f:
         val_scenes = {e["scene_id"] for e in eval_val}
@@ -242,7 +307,9 @@ def train(args):
                                         organized, corpus=corpus_val,
                                         device=device))
 
-    stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    # one run folder: rank 0's stamp
+    stamp = pmesh.main_only(datetime.now().strftime,
+                           "%Y-%m-%d_%H-%M-%S")
     if args.tag:
         stamp += "_" + args.tag.upper()
 
@@ -259,11 +326,13 @@ def train(args):
     info = dict(vars(args))
     info["num_train"] = len(train_ds)
     info["num_eval_val"] = len(val_ds)
-    info["num_vocabs_padded"] = 0
-    with open(os.path.join(solver.output, "info.json"), "w") as f:
-        json.dump(info, f, indent=4)
-
-    print(f"start training... stamp: {stamp}", flush=True)
+    # eval, predict and export rebuild the classifier at the width the
+    # checkpoint was saved with
+    info["num_vocabs_padded"] = vocab_pad
+    if pmesh.is_main():
+        with open(os.path.join(solver.output, "info.json"), "w") as f:
+            json.dump(info, f, indent=4)
+        print(f"start training... stamp: {stamp}", flush=True)
     # global epochs: a resume continues the schedules at the restored epoch
     solver(args.epoch, args.verbose, start_epoch=start_epoch)
     train_loader.close()
@@ -271,9 +340,23 @@ def train(args):
     return solver
 
 
+def _rank(args):
+    np.random.seed(args.seed)
+    train(args)
+
+
 def main(argv=None):
+    from scan2cap_torch.scripts import train as this
     args = build_parser().parse_args(argv)
     np.random.seed(args.seed)
+    if args.spatial and not args.mesh:
+        raise SystemExit(SPATIAL_NEEDS_MESH)
+    if args.mesh:
+        from scan2cap_torch.parallel.mesh import launch, setup_mesh
+        spec = setup_mesh(args.mesh, args.batch_size, args.device)
+        if args.spatial:
+            check_spatial(args, model_config_from_args(args), spec.n_model)
+        return launch(spec, args.device, this._rank, args)
     return train(args)
 
 

@@ -12,6 +12,8 @@ ScanRefer JSON, trains ``CapNetPretrained`` on ``--device`` (default
 and ``ckpt/{best,last,resume}.pt``.  The caption eval runs in training
 every ``--val_step`` iterations when the val store (the features' path
 with its basename's last "train" made "val") and the organized JSON exist.
+``--mesh DATA,MODEL`` trains over DATA x MODEL ranks (``parallel.mesh``):
+the caption classifier and attention split over MODEL.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--features", type=str, default=None,
                    help="the feature store (or an HDF5 file, with h5py)")
     p.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
-                   help="not ported")
+                   help="train over DATA x MODEL ranks: scenes over DATA, "
+                        "the caption classifier and attention over MODEL")
     p.add_argument("--device", type=str, default="cuda",
                    help="the device to run on (cuda, or cpu)")
     return p
@@ -108,14 +111,17 @@ def train(args):
     from scan2cap_torch.eval.eval_helper import prepare_corpus
     from scan2cap_torch.eval.eval_pretrained import eval_pretrained_cap
     from scan2cap_torch.models.capnet_pretrained import CapNetPretrained
-    from scan2cap_torch.scripts.train import refuse_unported
+    from scan2cap_torch.parallel import mesh as pmesh
+    from scan2cap_torch.scripts.train import mesh_line
     from scan2cap_torch.train.solver import Solver
     from scan2cap_torch.train.step import (create_train_state,
                                            make_eval_step,
                                            make_pretrained_step)
 
-    refuse_unported(args)
-    device = resolve_device(args.device)
+    mesh = pmesh.current()
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    if mesh is not None and mesh.is_main:
+        print(mesh_line(mesh), flush=True)
     paths = PathConfig()
     mcfg = model_config_from_info(vars(args))
     K = mcfg.num_proposals
@@ -136,13 +142,18 @@ def train(args):
                                               "train")
     train_ds = ds_cls(scanrefer_train, feats, split="train", glove=glove,
                       scan2cad_rotation=scan2cad, K=K)
-    # the solver's upload copies, so the ring slots can be reused
+    # the solver's upload copies, so the ring slots can be reused; a rank
+    # of a mesh loads its rows of each batch
     train_loader = Loader(train_ds, args.batch_size, shuffle=True,
-                          seed=args.seed, reuse_buffers=True)
+                          seed=args.seed, reuse_buffers=True,
+                          data_shard=(None if mesh is None
+                                      else (mesh.d, mesh.n_data)))
 
     model = CapNetPretrained(mcfg, mode=args.mode,
                              num_vocabs=train_ds.num_vocabs, device=device,
                              seed=args.seed)
+    if mesh is not None:
+        pmesh.shard_model(model)
     state = create_train_state(mcfg, model, wd=args.wd)
     train_step = make_pretrained_step(mcfg, state, args.mode,
                                       orientation=args.use_orientation,
@@ -166,6 +177,8 @@ def train(args):
                             seed=args.seed, drop_last=False)
         corpus = prepare_corpus(val_entries)
         eval_step = make_eval_step(mcfg, model, detection_loss=False)
+        if mesh is not None:
+            eval_step = pmesh.mesh_eval_fn(eval_step)
 
         def eval_fn():
             bleu, cider, rouge, meteor = eval_pretrained_cap(
@@ -174,7 +187,8 @@ def train(args):
             return {"bleu-4": bleu[0][3], "cider": cider[0],
                     "rouge": rouge[0], "meteor": meteor[0]}
 
-    stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    stamp = pmesh.main_only(datetime.now().strftime,
+                           "%Y-%m-%d_%H-%M-%S")
     if args.tag:
         stamp += "_" + args.tag.upper()
     solver = Solver(state, train_step, train_loader,
@@ -182,9 +196,11 @@ def train(args):
                     emb_table=train_ds.emb_table, eval_fn=eval_fn,
                     val_step=args.val_step, criterion=args.criterion,
                     verbose=args.verbose)
-    with open(os.path.join(solver.output, "info.json"), "w") as f:
-        json.dump(dict(vars(args), num_train=len(train_ds)), f, indent=4)
-    print(f"start training... stamp: {stamp}", flush=True)
+    if pmesh.is_main():
+        with open(os.path.join(solver.output, "info.json"), "w") as f:
+            json.dump(dict(vars(args), num_train=len(train_ds)), f,
+                      indent=4)
+        print(f"start training... stamp: {stamp}", flush=True)
     solver(args.epoch, args.verbose)
     train_loader.close()
     if val_loader is not None:
@@ -192,9 +208,18 @@ def train(args):
     return solver
 
 
+def _rank(args):
+    np.random.seed(args.seed)
+    train(args)
+
+
 def main(argv=None):
+    from scan2cap_torch.scripts import train_pretrained as this
+    from scan2cap_torch.scripts.train import on_mesh
     args = build_parser().parse_args(argv)
     np.random.seed(args.seed)
+    if args.mesh:
+        return on_mesh(args, this._rank, args.batch_size)
     return train(args)
 
 

@@ -14,7 +14,13 @@ promotes a leftover ``.new`` that loads (a kill between its write and the
 swap) and removes one that does not (a kill during its write); a
 ``<name>.pt.old`` set aside beside it is promoted when ``<name>.pt`` is
 missing and removed otherwise.
+
+A run over a mesh (``parallel.mesh``) writes the same files with whole
+tensors: the bundles gather the caption's split parameters and their Adam
+moments (every rank calls them; rank 0 writes), and ``restore_resume``
+cuts a whole bundle to the shards of any mesh shape.
 """
+
 
 from __future__ import annotations
 
@@ -22,6 +28,11 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+
+from scan2cap_torch.parallel.mesh import (full_optimizer_state,
+                                          full_state_dict,
+                                          shard_optimizer_state,
+                                          shard_state_dict)
 
 
 class CheckpointIO:
@@ -73,9 +84,9 @@ class CheckpointIO:
 
 
 def model_bundle(model: torch.nn.Module) -> Dict[str, Any]:
-    """What ``best.pt`` and ``last.pt`` hold: the model's state dict."""
-    return {"model": {k: v.detach().cpu() for k, v in
-                      model.state_dict().items()}}
+    """What ``best.pt`` and ``last.pt`` hold: the model's state dict, whole
+    (a collective under a mesh)."""
+    return {"model": full_state_dict(model)}
 
 
 def resume_bundle(epoch: int, model: torch.nn.Module,
@@ -84,4 +95,17 @@ def resume_bundle(epoch: int, model: torch.nn.Module,
     """What ``resume.pt`` holds: the epoch (a Python int), the model's and
     the optimizer's state dicts and the number of steps taken."""
     return {"epoch": int(epoch), "step": int(step),
-            **model_bundle(model), "optimizer": optimizer.state_dict()}
+            **model_bundle(model),
+            "optimizer": full_optimizer_state(model, optimizer)}
+
+
+def restore_resume(state, bundle: Dict[str, Any]) -> int:
+    """Load a resume bundle into ``state`` (a ``train.step.TrainState``
+    whose model may hold shards of any mesh shape) and return the epoch to
+    start at, the restored one + 1."""
+    state.model.load_state_dict(
+        shard_state_dict(state.model, bundle["model"]), strict=True)
+    state.optimizer.load_state_dict(
+        shard_optimizer_state(state.model, bundle["optimizer"]))
+    state.step = int(bundle["step"])
+    return int(bundle["epoch"]) + 1

@@ -13,6 +13,12 @@ The step (forward, loss, backward, Adam) is ``train.step.make_train_step``'s
 function.  Its metrics stay on the device: the solver reads step t-1's
 metrics after step t has been issued, in one device-to-host copy of the
 stacked scalars, so the host fetches the next batch while the card works.
+
+Under a mesh (``parallel.mesh``) every rank runs the loop on its rows of
+each batch and the metrics it reads are the global ones; rank 0 alone
+logs and writes files.  Every rank builds the checkpoint bundles (they
+gather the split parameters) and runs the evaluation, whose scores rank 0
+computes and hands to every rank, so all ranks agree on the best model.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from scan2cap_torch.data.synthetic import to_device
 from scan2cap_torch.kernels import launch_counts
+from scan2cap_torch.parallel.mesh import is_main
 from scan2cap_torch.train.checkpoints import (CheckpointIO, model_bundle,
                                               resume_bundle)
 from scan2cap_torch.train.schedules import bn_momentum, multistep_lr
@@ -77,7 +84,8 @@ class Solver:
         self.verbose = verbose
         self.lr_decay = lr_decay
         self.bn_decay = bn_decay
-        self.profile_steps = profile_steps
+        self.main = is_main()             # rank 0 (or no mesh) logs, writes
+        self.profile_steps = profile_steps if self.main else 0
         self.device = self.model.device
         self.emb_table = (None if emb_table is None else
                           torch.as_tensor(np.asarray(emb_table)).to(
@@ -85,11 +93,12 @@ class Solver:
 
         self.output = output
         os.makedirs(self.output, exist_ok=True)
-        self.ckpt = CheckpointIO(os.path.join(self.output, "ckpt"))
+        self.ckpt = (CheckpointIO(os.path.join(self.output, "ckpt"))
+                     if self.main else None)
         self.log_path = os.path.join(self.output, "log.txt")
         self.best = {"epoch": 0, self.criterion: -float("inf")}
         self.global_iter = 0
-        self._writers = self._make_writers()
+        self._writers = {}
         self.log_history: Dict[str, list] = defaultdict(list)
         # host timers of the epoch: seconds per fetch and per step
         self.fetch_times: list = []
@@ -99,6 +108,8 @@ class Solver:
                       "launches": dict.fromkeys(launch_counts(), 0)}
 
     def _make_writers(self):
+        if not self.main:
+            return {}
         try:
             from tensorboardX import SummaryWriter
             return {
@@ -109,6 +120,8 @@ class Solver:
             return {}
 
     def _log(self, msg: str):
+        if not self.main:
+            return
         print(msg, flush=True)
         with open(self.log_path, "a") as f:
             f.write(msg + "\n")
@@ -126,6 +139,7 @@ class Solver:
         schedules and the resume bundle's epoch use global numbering."""
         if verbose is not None:
             self.verbose = verbose
+        self._writers = self._make_writers()
         total_iter = (epochs - start_epoch) * len(self.train_loader)
         start = time.time()
         epoch = start_epoch   # the interrupt handler needs it bound
@@ -145,6 +159,12 @@ class Solver:
             # checkpoint and exit (lib/solver.py:200-203, 497-515)
             self._save_checkpoint(epoch, interrupted=True)
             raise
+        finally:
+            # the writers' threads end with the run (a rank's process exits
+            # right after it)
+            for w in self._writers.values():
+                w.close()
+            self._writers = {}
         return self.best
 
     # ------------------------------------------------------------------
@@ -243,18 +263,24 @@ class Solver:
             self.best = {**scores, "epoch": epoch, self.criterion: crit}
             self._log(f"best {self.criterion} improved -> {crit:.4f}; "
                       f"saving model...")
-            self.ckpt.save("best", model_bundle(self.model))
+            self._save("best", model_bundle(self.model))
 
     def _save_checkpoint(self, epoch, interrupted=False):
         t0 = time.time()
-        self.ckpt.save("last", model_bundle(self.model))
-        self.ckpt.save("resume", resume_bundle(
+        self._save("last", model_bundle(self.model))
+        self._save("resume", resume_bundle(
             epoch, self.model, self.state.optimizer, self.state.step))
         self.stats["save_s"].append(time.time() - t0)
         if interrupted:
             self._log(f"interrupted at epoch {epoch}; checkpoint saved")
 
+    def _save(self, name: str, bundle) -> None:
+        if self.main:
+            self.ckpt.save(name, bundle)
+
     def _dump_log(self):
+        if not self.main:
+            return
         with open(os.path.join(self.output, "scalars.json"), "w") as f:
             json.dump({k: v for k, v in self.log_history.items()}, f)
         with open(os.path.join(self.output, "train_stats.json"), "w") as f:

@@ -14,6 +14,11 @@ package builds from ``add_decayed_weights`` + ``scale_by_adam``; never
 ``AdamW``.  The learning rate and the BN momentum are call arguments, so
 the detection-only schedules (``train/schedules.py``) need no rebuild.
 
+Under a mesh (``parallel.mesh``) a rank's loss is its share of the global
+loss: its gradients and its metrics are SUMMED over the data group (plain
+DDP averages, which would be wrong here), and the split caption
+parameters step on their shards with their own Adam moments.
+
 ``make_eval_step`` returns the function that answers a batch of scenes
 with boxes and a caption per box: one eval forward of CapNet (free-running
 decode, BN running statistics) and, by default, the detection loss's
@@ -31,6 +36,7 @@ from scan2cap_torch.config import ModelConfig
 from scan2cap_torch.losses import get_scene_cap_loss
 from scan2cap_torch.losses.mask_votenet import get_mask_votenet_loss
 from scan2cap_torch.losses.pretrained import get_pretrained_loss
+from scan2cap_torch.parallel.mesh import sum_gradients, sum_metrics
 
 KEEP_KEYS = (
     "lang_cap", "bbox_corner", "bbox_mask", "bbox_feature",
@@ -106,7 +112,7 @@ def make_model_step(cfg: ModelConfig, state: TrainState,
     the data-dict keys to tensors on the model's device
     (``data.synthetic.to_device``).  ``metrics`` holds the
     ``report_keys`` the dict has, as 0-d tensors on that device (no host
-    synchronisation)."""
+    synchronisation); under a mesh the global values."""
     model, optimizer = state.model, state.optimizer
     if cfg != model.cfg:
         raise ValueError("cfg differs from the config the model was built with")
@@ -123,11 +129,13 @@ def make_model_step(cfg: ModelConfig, state: TrainState,
             # under the JAX step, whose gradient tree holds zeros for it
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        sum_gradients(params)
         for group in optimizer.param_groups:
             group["lr"] = float(lr)
         optimizer.step()
         state.step += 1
-        return {k: out[k].detach() for k in report_keys if k in out}
+        return sum_metrics({k: out[k].detach() for k in report_keys
+                            if k in out})
 
     return step
 

@@ -10,6 +10,7 @@ pred.json entry per benchmark scene.
 
 import json
 import pickle
+import re
 
 import numpy as np
 import pytest
@@ -163,10 +164,29 @@ def test_train_resume_eval_predict(cli_env, capsys):
                                                           str)
 
 
+def _first_loss(run):
+    log = (run / "log.txt").read_text()
+    return float(re.search(r"\bloss ([0-9.]+) cap", log).group(1))
+
+
 @pytest.mark.parametrize("flag", [["--mesh", "2,1"], ["--spatial"]])
 def test_unported_flags_exit_with_their_message(cli_env, flag):
-    with pytest.raises(SystemExit, match="Queue 1, item 6"):
-        traincli.main(TINY + ["--epoch", "1"] + flag)
+    # once refused: --mesh runs the epoch over two ranks (gloo) and
+    # records the mesh; --spatial alone stops with the JAX message
+    if flag == ["--spatial"]:
+        with pytest.raises(SystemExit, match="--spatial requires --mesh"):
+            traincli.main(TINY + ["--epoch", "1"] + flag)
+        return
+    traincli.main(TINY + ["--epoch", "1", "--no_caption", "--tag", "one"])
+    traincli.main(TINY + ["--epoch", "1", "--no_caption", "--tag", "two"]
+                  + flag)
+    run = _run(cli_env, "_TWO")
+    info = json.loads((run / "info.json").read_text())
+    assert info["mesh"] == "2,1" and info["num_vocabs_padded"] == 0
+    assert (run / "ckpt" / "last.pt").exists()
+    want, got = _first_loss(_run(cli_env, "_ONE")), _first_loss(run)
+    assert abs(got - want) <= 2e-3 * abs(want), (got, want)
+    assert traincli.build_parser().parse_args([]).device == "cuda"
 
 
 def test_bf16_run_trains_and_is_rebuilt_in_bfloat16(cli_env):

@@ -507,6 +507,16 @@ def test_train_maskvotenet_one_epoch(cli_env):
 
 
 def test_train_maskvotenet_refuses_mesh(cli_env):
-    with pytest.raises(SystemExit, match="Queue 1, item 6"):
-        mvncli.main(TINY + ["--epoch", "1", "--mesh", "2,1"])
+    # once refused: --mesh 2,1 runs the epoch over two ranks (gloo), its
+    # first loss the one process's within 2e-3
+    losses = {}
+    for tag, extra in (("one", []), ("two", ["--mesh", "2,1"])):
+        mvncli.main(TINY + ["--epoch", "1", "--tag", tag] + extra)
+        run = next(p for p in cli_env.iterdir()
+                   if p.name.endswith("_" + tag.upper()))
+        info = json.loads((run / "info.json").read_text())
+        assert info["mesh"] == (extra[1] if extra else None)
+        losses[tag] = json.loads((run / "train_stats.json").read_text())[
+            "epochs"][0]["losses"][0]
+    assert abs(losses["two"] - losses["one"]) <= 2e-3 * abs(losses["one"])
     assert mvncli.build_parser().parse_args([]).device == "cuda"

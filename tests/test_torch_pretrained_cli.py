@@ -126,8 +126,24 @@ def test_votenet_track_extract_train_eval(cli_env):
 
 def test_pretrained_entry_points_refuse_mesh_and_default_to_the_card(
         cli_env):
-    with pytest.raises(SystemExit, match="Queue 1, item 6"):
-        precli.main(TINY + ["--epoch", "1", "--mesh", "2,1"])
+    # once refused: --mesh 2,1 trains over two ranks (gloo), its first
+    # loss the one process's within 2e-3
+    data, outputs = cli_env
+    mvncli.main(TINY + ["--num_points", "2048", "--use_normal", "--epoch",
+                        "1", "--tag", "mvn"])
+    extract_gt_features.main(["--folder", _run(outputs, "_MVN").name,
+                              "--split", "train", "--epoch", "1"]
+                             + TINY[:2] + TINY[4:])
+    losses = {}
+    for tag, extra in (("one", []), ("two", ["--mesh", "2,1"])):
+        precli.main(TINY + PRE_FLAGS + ["--epoch", "1", "--tag", tag]
+                    + extra)
+        run = _run(outputs, "_" + tag.upper())
+        assert json.loads((run / "info.json").read_text())["mesh"] == (
+            extra[1] if extra else None)
+        losses[tag] = json.loads((run / "train_stats.json").read_text())[
+            "epochs"][0]["losses"][0]
+    assert abs(losses["two"] - losses["one"]) <= 2e-3 * abs(losses["one"])
     assert precli.build_parser().parse_args([]).device == "cuda"
     assert evalcli.build_parser().parse_args(
         ["--folder", "x"]).device == "cuda"

@@ -250,11 +250,33 @@ def test_record_functions_match_the_jax_script(one_torch_thread):
     assert max(r[1] for r in records) > 0, records
 
 
-def test_entry_points_refuse_the_unported_flags():
-    with pytest.raises(SystemExit, match="Queue 1, item 6"):
-        qt.main(ARGS + ["--mesh", "2,1"])
-    with pytest.raises(SystemExit, match="Queue 1, item 6"):
-        demo.main(["--device", "cpu", "--mesh", "2,1"])
+def test_entry_points_refuse_the_unported_flags(tmp_path, monkeypatch, capfd,
+                                               one_torch_thread):
+    # once refused: --mesh 2,1 takes the step over two ranks (gloo), its
+    # loss the one process's within 2e-3
+    losses = {}
+    for tag, extra in (("one", []), ("two", ["--mesh", "2,1"])):
+        out = tmp_path / f"{tag}.json"
+        assert qt.main(ARGS + ["--steps", "1", "--eval_every", "1",
+                               "--num_batches", "1", "--out", str(out)]
+                       + extra) == 0
+        art = json.loads(out.read_text())
+        assert art["config"]["mesh"] == (extra[1] if extra else None)
+        losses[tag] = art["curve"]["loss"][1]
+    assert abs(losses["two"] - losses["one"]) <= 2e-3 * abs(losses["one"])
+    monkeypatch.setenv("SCAN2CAP_TEST_TINY", "1")
+    demo_losses = {}
+    for tag, extra in (("one", []), ("two", ["--mesh", "2,1"])):
+        capfd.readouterr()
+        with pytest.raises(SystemExit, match="loss did not decrease"):
+            demo.main(["--device", "cpu", "--steps", "1", "--batch_size",
+                       "2", "--num_points", "512", "--num_batches", "1"]
+                      + extra)
+        line = next(l for l in capfd.readouterr().out.splitlines()
+                    if l.startswith('{"demo"'))
+        demo_losses[tag] = json.loads(line)["demo"]["first"]["loss"]
+    assert abs(demo_losses["two"] - demo_losses["one"]) <= \
+        2e-3 * abs(demo_losses["one"])
     with pytest.raises(SystemExit):
         qt.parse_args(ARGS + ["--seeds", "1,2", "--out", "x.json"])
     assert qt.build_parser().parse_args([]).device == "cuda"
