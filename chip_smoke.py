@@ -143,8 +143,10 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      subprocess, whole and ``--detection_only``, each file read back
      bit-equal to the checkpoint; ``visualize`` on a val scene on the card
      with every FPS, first-k and gather launch held against its plain
-     version, its kept proposals and captions equal to a ``--device cpu``
-     run; then ScanNet's preparation as subprocesses on a raw scene written
+     version, its kept proposals and captions exactly those of its own
+     forward's outputs post-processed on the host, that forward within the
+     serving gates of a ``--device cpu`` run's (the boxes kept by one run
+     only counted); then ScanNet's preparation as subprocesses on a raw scene written
      here (a mesh of 150,000 vertices and 300,000 faces, segments, an
      aggregation of 12 objects, an axis alignment, a label map):
      ``scannet_preprocess.batch_export``, ``check_preprocessed_scene``,
@@ -174,12 +176,28 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      query slices at the four SA layers' shapes, B=2 and 8) equal to the
      unsharded kernel's rows; ms per step with and without the mesh, the
      NCCL version;
- 17. the JSON lines: kernels, serving, training, eval, cli, mesh, mvn,
-     benchmark, pretrained, quality, multiview, tools, bf16, and last the
-     device line.
-Launch counts are set to 0 just before each of the paths 4-7, 9 and 11-15
-and read just after; the entry points of 8, 9, 11-15 and 16 count their
-own (their stats files and output).
+ 17. the serving export (run after phase 16, on phase 8's resumed run):
+     ``scan2cap_torch.scripts.export_model`` traces the eval forward at B=1
+     on the card through the three custom ops of ``ops/library.py``, saves
+     it, ``--load --check``; the loaded program's tokens, boxes and scores
+     on a val scene equal the eager forward's bitwise, its 5 FPS, 5
+     first-k and 6 gather launches each held against its plain version;
+     the same artifact moved to the CPU within the serving gates of the
+     port's CPU forward; export, load and save s, MB, ms per request
+     loaded and eager;
+ 18. the 2D baselines (``scan2cap_torch.twod.main`` in process): a seeded
+     random ResNet101 in torchvision's layout written as a ``.pth``;
+     ``--prep`` of 256 renders (320 x 240, 4 boxes each) on the card, the
+     first 24 renders' features within 1e-3 of a ``--device cpu`` prep;
+     ``snt`` and ``tdbu`` trained at B=64 (hidden 512, GloVe 300) and
+     evaluated, the retrieval bank; ResNet ms per image and per crop, ms
+     per decoder step;
+ 19. the JSON lines: kernels, serving, training, eval, cli, mesh, export,
+     mvn, benchmark, pretrained, quality, multiview, tools, bf16, twod, and
+     last the device line.
+Launch counts are set to 0 just before each of the paths 4-7, 9, 11-15, 17
+and 18 and read just after; the entry points of 8, 9, 11-15 and 16 count
+their own (their stats files and output).
 Subprocesses that are independent and whose speed no path reads run at
 once (``run_together``).  ``--kernels-only`` stops after phase 3 (a short
 first check of a new kernel).  Imports nothing of JAX.
@@ -4073,6 +4091,84 @@ def preparation_tools(np, root, env, logs, rehearse=False):
                 objects=RAW_OBJECTS)
 
 
+# what visualize's post-processing reads of its forward
+VIS_KEYS = ("bbox_corner", "objectness_scores", "sem_cls_scores", "lang_cap",
+            "object_assignment")
+# the card's forward against the CPU's (PERF.md section 2's serving gates)
+VIS_CORNER_TOL = 1e-3
+VIS_AGREE = 0.99
+
+
+def serving_gates(torch, card, cpu, tokens, what):
+    """The card's forward against the CPU's on the same input: corners
+    within ``VIS_CORNER_TOL``, objectness and class argmax and the
+    ``tokens`` equal on ``VIS_AGREE`` of the proposals (steps).  Returns
+    (corners' largest difference, agreement by output)."""
+    card = {k: v.detach().cpu() for k, v in card.items()}
+    cpu = {k: v.detach().cpu() for k, v in cpu.items()}
+    corner_err = float((card["bbox_corner"] - cpu["bbox_corner"]).abs().max())
+    agree = {k: float((torch.argmax(card[k], -1) == torch.argmax(cpu[k], -1))
+                      .float().mean()) for k in ("objectness_scores",
+                                                 "sem_cls_scores")}
+    agree["tokens"] = float((card[tokens] == cpu[tokens]).float().mean())
+    require(corner_err <= VIS_CORNER_TOL, f"{what}: corners differ by "
+            f"{corner_err} between the card and the CPU")
+    require(min(agree.values()) >= VIS_AGREE, f"{what}: the card and the "
+            f"CPU agree on {agree}")
+    return corner_err, agree
+
+
+def held_visualize(np, forwards, caps, files, cpu_files, data):
+    """visualize's card run against its post-processing and the CPU run.
+
+    The card's forward outputs, post-processed on the host by the script's
+    own ``kept_proposals`` and decoded there, must give exactly the boxes
+    and captions the card run kept and wrote.  The card's forward must be
+    the CPU run's within the serving gates: corners 1e-3, objectness and
+    class argmax on 99% of proposals, tokens on 99%.  Boxes whose NMS
+    decision lies a rounding from its threshold may be kept by one run
+    only: their number is reported.  Where both runs keep the same boxes,
+    their files and captions must be equal."""
+    import torch
+
+    from scan2cap_torch.data.dataset import get_scanrefer
+    from scan2cap_torch.data.vocab import build_vocabulary, load_glove
+    from scan2cap_torch.eval.eval_helper import decode_caption
+    from scan2cap_torch.scripts import visualize
+
+    (card, card_keep), (cpu, cpu_keep) = forwards
+    require(np.array_equal(visualize.kept_proposals(card), card_keep),
+            "visualize: the card's outputs post-processed on the host keep "
+            "other boxes than the card run")
+    # the vocabulary the script's dataset builds
+    train = get_scanrefer(*(os.path.join(data, f"ScanRefer_filtered_{s}.json")
+                            for s in ("train", "val")))[0]
+    idx2word = build_vocabulary(train, load_glove(
+        os.path.join(data, "glove.p")))["idx2word"]
+    tokens = card["lang_cap"].numpy()[0]
+    want = {str(int(k)): decode_caption(tokens[k], idx2word)
+            for k in np.where(card_keep)[0]}
+    require(caps[0] == want, f"visualize: the card run's captions are not "
+            f"its forward's: {sorted(caps[0])[:8]} against {sorted(want)[:8]}")
+    corner_err, agree = serving_gates(torch, card, cpu, "lang_cap",
+                                      "visualize")
+    differ = int(np.sum(card_keep != cpu_keep))
+    pred = [f for f in files if f.startswith("pred")]
+    require(sorted(f for f in files if not f.startswith("pred")) ==
+            sorted(f for f in cpu_files if not f.startswith("pred")),
+            f"visualize wrote {files} on the card, {cpu_files} on the CPU")
+    require(bool(pred) == bool(card_keep.any()) and
+            len(pred) <= int(card_keep.sum()) + 1,
+            f"visualize: {len(pred)} box files for {int(card_keep.sum())} "
+            f"kept boxes")
+    if not differ:
+        require(files == cpu_files and caps[0] == caps[1],
+                f"visualize: the same boxes kept, yet the files or captions "
+                f"differ: card {sorted(caps[0])[:8]}, CPU {sorted(caps[1])[:8]}")
+    return dict(kept_cpu=int(cpu_keep.sum()), kept_differ=differ,
+                corner_max_abs_err=corner_err, agree=agree)
+
+
 def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
     """The tools around a trained run and the dataset preparation, on the
     CLI phase's fixture and resumed run (``kept``; else a run trained here
@@ -4081,8 +4177,10 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
     ``visualize`` in process on the card (the run's weights with the
     proposal head conditioned so that boxes pass the objectness gate and
     overlap) with every FPS, first-k and gather launch held against its
-    plain version, its kept proposals and captions equal to a ``--device
-    cpu`` run of the same checkpoint; then ``preparation_tools``."""
+    plain version, its kept proposals and captions those of its own
+    forward post-processed on the host, and its forward within the
+    serving gates of a ``--device cpu`` run of the same checkpoint
+    (``held_visualize``); then ``preparation_tools``."""
     import shutil
     import tempfile
 
@@ -4124,16 +4222,19 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
         sd = CheckpointIO(os.path.join(run_dir, "ckpt")).restore_best_or_last(
             )["model"]
 
-        # export: the whole model and its detection modules, read back
-        walls = {}
-        for what, extra, name, keys in (
-                ("full", [], "model.pth", set(sd)),
-                ("detection_only", ["--detection_only"], "votenet.pth",
-                 {k for k in sd if k.split(".")[0] in
-                  convert.DETECTION_MODULES})):
-            _, walls[f"export_{what}"] = run_entry_point(
-                "scan2cap_torch.scripts.export_pth",
-                ["--folder", run, *extra], env, logs)
+        # export: the whole model and its detection modules at once, each
+        # read back
+        exports = (("full", [], "model.pth", set(sd)),
+                   ("detection_only", ["--detection_only"], "votenet.pth",
+                    {k for k in sd if k.split(".")[0] in
+                     convert.DETECTION_MODULES}))
+        ran = run_together(*(entry_job(
+            "scan2cap_torch.scripts.export_pth", ["--folder", run, *extra],
+            env, logs, name=f"export_pth_{what}")
+            for what, extra, _, _ in exports))
+        walls = {f"export_{what}": wall
+                 for (what, _, _, _), (_, wall) in zip(exports, ran)}
+        for what, extra, name, keys in exports:
             back = convert.state_dict_from_reference(
                 os.path.join(run_dir, name))
             require(set(back) == keys and all(torch.equal(back[k], sd[k])
@@ -4162,32 +4263,46 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
         if rehearse:
             os.environ["SCAN2CAP_TEST_TINY"] = "1"
         argv = ["--folder", vis_run, "--scene_id", val[0]]
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        if dev == "cuda":
-            with HeldAgainstPlain(torch) as held:
-                vis_dir = visualize.main([*argv, "--device", dev])
-            torch.cuda.synchronize()
-        else:
-            held, vis_dir = None, visualize.main([*argv, "--device", dev])
-        card_s = time.perf_counter() - t0
-        launches = {k: v for k, v in launch_counts().items() if v}
-        card_dir = vis_dir + "_card"
-        shutil.move(vis_dir, card_dir)
-        t0 = time.perf_counter()
-        visualize.main([*argv, "--device", "cpu"])
-        cpu_s = time.perf_counter() - t0
-        files = sorted(os.listdir(card_dir))
-        require(files == sorted(os.listdir(vis_dir)),
-                f"visualize wrote {files} on the card, "
-                f"{sorted(os.listdir(vis_dir))} on the CPU")
+        # each run's forward outputs, as the script's kept_proposals sees
+        # them, and what it kept
+        forwards = []
+        kept_proposals = visualize.kept_proposals
+
+        def recording(out):
+            keep = kept_proposals(out)
+            forwards.append(({k: out[k].detach().cpu() for k in VIS_KEYS},
+                             keep))
+            return keep
+
+        visualize.kept_proposals = recording
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            if dev == "cuda":
+                with HeldAgainstPlain(torch) as held:
+                    vis_dir = visualize.main([*argv, "--device", dev])
+                torch.cuda.synchronize()
+            else:
+                held, vis_dir = None, visualize.main([*argv, "--device",
+                                                      dev])
+            card_s = time.perf_counter() - t0
+            launches = {k: v for k, v in launch_counts().items() if v}
+            card_dir = vis_dir + "_card"
+            shutil.move(vis_dir, card_dir)
+            t0 = time.perf_counter()
+            visualize.main([*argv, "--device", "cpu"])
+            cpu_s = time.perf_counter() - t0
+        finally:
+            visualize.kept_proposals = kept_proposals
+        require(len(forwards) == 2, f"visualize ran {len(forwards)} "
+                f"forwards for 2 runs")
+        files, cpu_files = (sorted(os.listdir(d)) for d in (card_dir,
+                                                            vis_dir))
         caps = []
         for d in (card_dir, vis_dir):
             with open(os.path.join(d, "captions.json")) as f:
                 caps.append(json.load(f))
-        require(caps[0] == caps[1], f"visualize's kept proposals and "
-                f"captions differ: card {sorted(caps[0])[:8]}, CPU "
-                f"{sorted(caps[1])[:8]}")
+        vis = held_visualize(np, forwards, caps, files, cpu_files, data)
         if held is not None:
             by_kernel = {}
             for kernel, _ in held.checked:
@@ -4199,7 +4314,7 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
         report["visualize"] = dict(
             scene=val[0], card_s=card_s, cpu_s=cpu_s, files=files,
             kept=len(caps[0]), launches=launches,
-            held=len(held.checked) if held is not None else 0)
+            held=len(held.checked) if held is not None else 0, **vis)
         report["launches"] = launch_counts()
         release_card(torch)
 
@@ -4215,6 +4330,483 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
             else:
                 os.environ[k] = v
         shutil.rmtree(root, ignore_errors=True)
+
+
+# -------------------------------------------------------------------- phase 17
+# the serving export of the CLI phase's resumed run: B=1, the requests
+# timed for the loaded program and the eager forward each
+EXPORT_BATCH = 1
+EXPORT_REQUESTS = 10
+EXPORT_KEYS = ("tokens", "bbox_corner", "objectness_scores", "sem_cls_scores")
+# the forward's index stages, in order: the backbone's samples, the
+# aggregation's picks, the graph's neighbours
+EXPORT_STAGES = ("sa1_inds", "sa2_inds", "fp2_inds", "aggregated_vote_inds",
+                 "edge_nbr_idx", "lang_cap")
+OVERHEAD_CALLS = 200
+
+
+def op_overhead_us(torch):
+    """Host us per call of each custom op and of its wrapper alone, on
+    inputs too small for the kernel's time to count (64 points, 8 picks,
+    8 queries, 4 samples, 4 channels): what the op's dispatch adds.  The
+    wrappers' launch counts are put back."""
+    from scan2cap_torch.kernels import (ball_query_cuda,
+                                        furthest_point_sample_cuda,
+                                        group_points_cuda, launch_counts)
+    from scan2cap_torch.ops.grouping import radius_squared
+    g = torch.Generator().manual_seed(0)
+    xyz = torch.rand(1, 64, 3, generator=g).cuda()
+    q = xyz[:, :8].contiguous()
+    feats = torch.rand(1, 64, 4, generator=g).cuda()
+    idx = torch.randint(0, 64, (1, 8, 4), generator=g,
+                        dtype=torch.int32).cuda()
+    r2 = radius_squared(0.3)
+    pairs = dict(
+        furthest_point_sample=(
+            lambda: torch.ops.scan2cap.furthest_point_sample(xyz, 8),
+            lambda: furthest_point_sample_cuda(xyz, 8)),
+        ball_query=(lambda: torch.ops.scan2cap.ball_query(xyz, q, 0.3, 4),
+                    lambda: ball_query_cuda(xyz, q, r2, 4)),
+        group_points=(lambda: torch.ops.scan2cap.group_points(feats, idx),
+                      lambda: group_points_cuda(feats, idx)))
+    before = launch_counts()
+    out = {}
+    for name, (op, wrapper) in pairs.items():
+        for what, fn in (("op", op), ("wrapper", wrapper)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(OVERHEAD_CALLS):
+                fn()
+            torch.cuda.synchronize()
+            out[f"{name}_{what}"] = ((time.perf_counter() - t0) * 1e6
+                                     / OVERHEAD_CALLS)
+    for w in (furthest_point_sample_cuda, ball_query_cuda,
+              group_points_cuda):
+        w.launches = before[w.__name__]
+    ball_query_cuda.ordered_launches = before["ball_query_ordered"]
+    return out
+
+
+def export_phase(torch, np, card, kept=None, dev="cuda", rehearse=False):
+    """``scan2cap_torch.scripts.export_model`` on the CLI phase's resumed
+    run (``kept``; else one trained here as the tools phase does): the eval
+    forward exported at B=1 on ``dev`` and saved, ``--load --check``
+    through the entry point; the loaded program on a val scene equal to the
+    eager ``Serve`` forward bitwise, its every FPS, first-k and gather
+    launch held against its plain version (5, 5 and 6: the CLI
+    configuration's forward); the same artifact moved to the CPU against
+    the port's CPU forward (the serving gates, and whether bitwise); the
+    card's forward against the CPU's, reported with the index stage where
+    they part; export, load and save s, the artifact's MB, ms per request
+    loaded and eager, the ops' dispatch cost per call."""
+    import shutil
+    import tempfile
+
+    from scan2cap_torch.config import PathConfig
+    from scan2cap_torch.data.dataset import ScannetReferenceDataset
+    from scan2cap_torch.kernels import launch_counts, reset_launch_counts
+    from scan2cap_torch.scripts import export_model
+    from scan2cap_torch.scripts.train import dataset_kwargs
+
+    logs = os.path.join(ROOT, "chiprun_out", "export")
+    os.makedirs(logs, exist_ok=True)
+    own = kept is None
+    if own:
+        root = tempfile.mkdtemp(prefix="scan2cap_export_")
+        data, _, val = write_scannet_fixture(
+            np, root, points=3000 if rehearse else CLI_SCENE_POINTS)
+        out = os.path.join(root, "outputs")
+    else:
+        root, data, out, val = (kept[k] for k in ("root", "data", "outputs",
+                                                  "val"))
+    env = dict(os.environ, SCAN2CAP_DATA=data, SCAN2CAP_OUTPUT=out,
+               PYTHONPATH=ROOT)
+    env.pop("SCAN2CAP_TEST_TINY", None)
+    if rehearse:
+        env["SCAN2CAP_TEST_TINY"] = "1"
+    saved_env = {k: os.environ.get(k) for k in
+                 ("SCAN2CAP_DATA", "SCAN2CAP_OUTPUT", "SCAN2CAP_TEST_TINY")}
+    report = dict(card=card)
+    try:
+        if own:
+            flags = [*CLI_FLAGS, "--device", dev]
+            if rehearse:
+                flags += ["--num_points", "1024", "--num_proposals", "32"]
+            run_entry_point("scan2cap_torch.scripts.train",
+                            [*flags, "--epoch", "1", "--val_step", "1000",
+                             "--tag", "export"], env, logs)
+            run = next(d for d in os.listdir(out) if d.endswith("_EXPORT"))
+        else:
+            run = kept["run"]
+        os.environ.update({k: env[k] for k in ("SCAN2CAP_DATA",
+                                               "SCAN2CAP_OUTPUT")})
+        if rehearse:
+            os.environ["SCAN2CAP_TEST_TINY"] = "1"
+        folder = os.path.join(out, run)
+        art = os.path.join(root, "model.pt2")
+        t0 = time.perf_counter()
+        serve, cfg, idx2word = export_model.build_serve(folder, dev)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ep = export_model.export(serve, EXPORT_BATCH)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        export_model.save(ep, art, idx2word)
+        save_s = time.perf_counter() - t0
+        del ep
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        module, checked = export_model.main(["--load", art, "--check",
+                                             "--device", dev])
+        load_s = time.perf_counter() - t0
+        require(all(bool(torch.isfinite(checked[k]).all())
+                    for k in EXPORT_KEYS[1:]), "--check: outputs not finite")
+
+        with open(os.path.join(data, "ScanRefer_filtered_val.json")) as f:
+            entries = [e for e in json.load(f) if e["scene_id"] == val[0]]
+        ds = ScannetReferenceDataset(entries[:1], [val[0]], split="val",
+                                     **dataset_kwargs(PathConfig(), cfg))
+        pc = torch.from_numpy(np.asarray(ds.__getitem__(
+            0, rs=np.random.RandomState(0))["point_clouds"]))[None].to(dev)
+        with torch.no_grad():
+            # the eager forward's every output (Serve keeps four), for the
+            # stage where the card and the CPU part below
+            card_full = serve.model(serve.batch(pc), use_tf=False,
+                                    is_eval=True, train=False)
+            eager = export_model.Serve.outputs(card_full)
+            reset_launch_counts()
+            if dev == "cuda":
+                with HeldAgainstPlain(torch) as held:
+                    loaded = module(pc)
+                torch.cuda.synchronize()
+            else:
+                held, loaded = None, module(pc)
+            per_forward = {k: v for k, v in launch_counts().items() if v}
+            for k in EXPORT_KEYS:
+                require(loaded[k].dtype == eager[k].dtype
+                        and torch.equal(loaded[k], eager[k]),
+                        f"export: the loaded program's {k} differs from the "
+                        f"eager forward's")
+            if held is not None:
+                by_kernel = {}
+                for kernel, _ in held.checked:
+                    by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+                want = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
+                            group_points_cuda=6)
+                require(by_kernel == per_forward == want, f"export: the "
+                        f"loaded program held {by_kernel}, launched "
+                        f"{per_forward}, want {want}")
+            # each called once above
+            ms = dict(eager=host_ms(torch, lambda: serve(pc),
+                                    EXPORT_REQUESTS, torch.device(dev)),
+                      loaded=host_ms(torch, lambda: module(pc),
+                                     EXPORT_REQUESTS, torch.device(dev)))
+            launches = launch_counts()
+            # the same artifact on the CPU, against the port's CPU forward
+            t0 = time.perf_counter()
+            cpu_module = export_model.load(art, "cpu")
+            cpu_loaded = cpu_module(pc.cpu())
+            cpu_loaded_s = time.perf_counter() - t0
+            cpu_serve = export_model.build_serve(folder, "cpu")[0]
+            cpu_full = cpu_serve.model(cpu_serve.batch(pc.cpu()),
+                                       use_tf=False, is_eval=True,
+                                       train=False)
+            cpu_eager = export_model.Serve.outputs(cpu_full)
+            # the card's forward against the CPU's, reported: where they
+            # part, which of the forward's index stages parted first
+            stages = {k: int((card_full[k].cpu() != cpu_full[k]).sum())
+                      for k in EXPORT_STAGES if k in cpu_full}
+            overhead = op_overhead_us(torch) if dev == "cuda" else None
+        cpu_err, cpu_agree = serving_gates(torch, cpu_loaded, cpu_eager,
+                                           "tokens", "export (CPU)")
+        card_err = float((loaded["bbox_corner"].cpu()
+                          - cpu_loaded["bbox_corner"]).abs().max())
+        card_far = int(((loaded["bbox_corner"].cpu()
+                         - cpu_loaded["bbox_corner"]).abs()
+                        .amax(dim=(-1, -2)) > VIS_CORNER_TOL).sum())
+        card_agree = {k: float((torch.argmax(loaded[k].cpu(), -1)
+                                == torch.argmax(cpu_loaded[k], -1))
+                               .float().mean())
+                      for k in ("objectness_scores", "sem_cls_scores")}
+        card_agree["tokens"] = float((loaded["tokens"].cpu()
+                                      == cpu_loaded["tokens"]).float().mean())
+        report.update(
+            run=run, batch=EXPORT_BATCH, points=cfg.num_points,
+            columns=3 + cfg.input_feature_dim, build_s=build_s,
+            export_s=export_s, save_s=save_s, load_and_check_s=load_s,
+            artifact_mb=os.path.getsize(art) / 1e6,
+            ms_per_request=ms, launches_per_forward=per_forward,
+            held=len(held.checked) if held is not None else 0,
+            bitwise=True, cpu_bitwise=all(
+                torch.equal(cpu_loaded[k], cpu_eager[k])
+                for k in EXPORT_KEYS),
+            cpu_corner_max_abs_err=cpu_err, cpu_agree=cpu_agree,
+            cpu_load_and_forward_s=cpu_loaded_s,
+            card_vs_cpu_corner_max_abs_err=card_err,
+            card_vs_cpu_proposals_apart=card_far,
+            card_vs_cpu_agree=card_agree,
+            card_vs_cpu_index_entries_apart=stages,
+            op_overhead_us=overhead, launches=launches)
+        del module, cpu_module, serve, cpu_serve
+        release_card(torch)
+        return report
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if own:
+            shutil.rmtree(root, ignore_errors=True)
+        elif os.path.exists(os.path.join(root, "model.pt2")):
+            os.remove(os.path.join(root, "model.pt2"))
+
+
+def print_export(r):
+    print(f"  export: {r['run']} at B={r['batch']} over {r['points']} points "
+          f"x {r['columns']}: build {r['build_s']:.1f} s, export "
+          f"{r['export_s']:.1f} s, save {r['save_s']:.1f} s, "
+          f"{r['artifact_mb']:.1f} MB, load and --check "
+          f"{r['load_and_check_s']:.1f} s; ms per request loaded "
+          f"{r['ms_per_request']['loaded']:.2f} against eager "
+          f"{r['ms_per_request']['eager']:.2f}; launches per forward "
+          f"{r['launches_per_forward']} ({r['held']} held), bitwise equal "
+          f"to eager; on the CPU bitwise {r['cpu_bitwise']}, agreement "
+          f"{r['cpu_agree']}; card against CPU (reported) corners "
+          f"{r['card_vs_cpu_corner_max_abs_err']:.2e}, "
+          f"{r['card_vs_cpu_proposals_apart']} proposals apart, agreement "
+          f"{r['card_vs_cpu_agree']}, index entries apart by stage "
+          f"{r['card_vs_cpu_index_entries_apart']}; op dispatch us "
+          f"{r['op_overhead_us']}", flush=True)
+
+
+# -------------------------------------------------------------------- phase 18
+# the 2D baselines at their published widths: ResNet101 over 320 x 240
+# renders and 64 x 64 crops (one target and three context boxes a render),
+# hidden 512, GloVe 300, B=64 (three steps an epoch)
+TWOD_TRAIN = 192
+TWOD_VAL = 64
+TWOD_BOXES = 4
+# the renders also extracted on the CPU, and the tolerance of each stored
+# vector against the CPU's: 1e-3 of its largest entry
+TWOD_CPU_RENDERS = 24
+TWOD_TOL = 1e-3
+TWOD_EPOCHS = 2
+TWOD_TIMED = 20
+TWOD_WORDS = ["the", "a", "chair", "table", "is", "next", "to", "brown",
+              "white", "wooden", "large", "small", "in", "of", "corner",
+              "room", "near", "window", "door", "desk", "left", "right",
+              "on", "black", "with", "sofa", "bed", "lamp", "shelf", "wall"]
+
+
+def write_twod_fixture(np, root, n_train, n_val, seed=0):
+    """Renders ``<sample_id>.jpg`` (320 x 240: noise and a few filled
+    rectangles), their boxes (one target, ``TWOD_BOXES - 1`` context), the
+    ScanRefer splits and a GloVe pickle of 300-d vectors.  Returns (data
+    dir, renders dir, box JSON, train entries, val entries)."""
+    import pickle
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    data = os.path.join(root, "data")
+    renders = os.path.join(root, "renders")
+    os.makedirs(data)
+    os.makedirs(renders)
+    glove = {w: rs.randn(300).astype(np.float32)
+             for w in TWOD_WORDS + ["pad_", "unk", "sos", "eos"]}
+    with open(os.path.join(data, "glove.p"), "wb") as f:
+        pickle.dump(glove, f)
+    entries, boxes = [], {}
+    for i in range(n_train + n_val):
+        e = {"scene_id": f"scene{i // 4:04d}_00", "object_id": str(i % 4),
+             "object_name": "chair", "ann_id": "0",
+             "token": [TWOD_WORDS[j] for j in
+                       rs.randint(0, len(TWOD_WORDS), rs.randint(5, 16))]}
+        e["description"] = " ".join(e["token"])
+        entries.append(e)
+        sid = "{}-{}_{}".format(e["scene_id"], e["object_id"], e["ann_id"])
+        img = (rs.rand(240, 320, 3) * 96).astype(np.uint8)
+        bs = []
+        for b in range(TWOD_BOXES):
+            x1, y1 = int(rs.randint(0, 280)), int(rs.randint(0, 200))
+            x2 = x1 + int(rs.randint(16, 120))
+            y2 = y1 + int(rs.randint(16, 100))
+            img[y1:y2, x1:x2] = rs.randint(96, 256, 3)
+            bs.append({"box": [x1, y1, x2, y2], "is_target": b == 0})
+        boxes[sid] = bs
+        Image.fromarray(img).save(os.path.join(renders, sid + ".jpg"))
+    path = os.path.join(root, "boxes.json")
+    with open(path, "w") as f:
+        json.dump(boxes, f)
+    train, val = entries[:n_train], entries[n_train:]
+    for name, split in (("train", train), ("val", val)):
+        with open(os.path.join(data, f"ScanRefer_filtered_{name}.json"),
+                  "w") as f:
+            json.dump(split, f)
+    return data, renders, path, train, val
+
+
+def twod_call(argv, what):
+    """``scan2cap_torch.twod.main.main(argv)`` in process, its output
+    printed and returned beside its result."""
+    import contextlib
+    import io
+
+    from scan2cap_torch.twod import main as twod_main
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = twod_main.main(argv)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    print("\n".join(f"    [{what}] {line}" for line in
+                    text.strip().splitlines()[-4:]), flush=True)
+    return result, text, wall
+
+
+def twod_phase(torch, np, card, dev="cuda", rehearse=False):
+    """``python -m scan2cap_torch.twod.main`` in process at full width: a
+    seeded random ResNet101 in torchvision's layout written as a ``.pth``
+    by the port (``twod.resnet.random_torchvision_state_dict``); ``--prep``
+    of the fixture's renders on ``dev``, each stored vector of the first
+    ``TWOD_CPU_RENDERS`` renders within ``TWOD_TOL`` of its largest entry
+    of a ``--device cpu`` prep, the store tagged ``resnet:pth``; ``snt``
+    and ``tdbu`` trained (``TWOD_EPOCHS`` epochs of 3 steps at B=64) and
+    evaluated (the four scores), the retrieval bank; ResNet ms per image
+    and per crop, ms per decoder step, the wall time."""
+    import shutil
+    import tempfile
+
+    from scan2cap_torch.data.feature_store import open_feature_store
+    from scan2cap_torch.twod import resnet
+    from scan2cap_torch.twod.main import load_render
+
+    t_phase = time.perf_counter()
+    n_train, n_val, n_cpu, batch = ((8, 4, 4, 4) if rehearse else
+                                    (TWOD_TRAIN, TWOD_VAL, TWOD_CPU_RENDERS,
+                                     64))
+    blocks, width = ((1, 1, 1, 1), 64) if rehearse else ((3, 4, 23, 3), 64)
+    root = tempfile.mkdtemp(prefix="scan2cap_twod_")
+    saved_env = {k: os.environ.get(k) for k in
+                 ("SCAN2CAP_DATA", "SCAN2CAP_OUTPUT", "SCAN2CAP_2D_DATA")}
+    report = dict(card=card)
+    try:
+        data, renders, boxes, train, val = write_twod_fixture(
+            np, root, n_train, n_val)
+        pth = os.path.join(root, "resnet101.pth")
+        torch.save(resnet.random_torchvision_state_dict(blocks, width,
+                                                        seed=0), pth)
+        # the CPU's prep: the first renders, in a split of their own
+        data_cpu = os.path.join(root, "data_cpu")
+        shutil.copytree(data, data_cpu)
+        for name, split in (("train", train[:n_cpu]), ("val", [])):
+            with open(os.path.join(data_cpu,
+                                   f"ScanRefer_filtered_{name}.json"),
+                      "w") as f:
+                json.dump(split, f)
+        os.environ["SCAN2CAP_OUTPUT"] = os.path.join(root, "outputs")
+        prep = ["--prep", "--images_root", renders, "--boxes", boxes,
+                "--resnet_pth", pth]
+        stores = {}
+        for where, d, device in (("card", data, dev),
+                                 ("cpu", data_cpu, "cpu")):
+            os.environ["SCAN2CAP_DATA"] = d
+            os.environ["SCAN2CAP_2D_DATA"] = os.path.join(root, "2d_" + where)
+            stores[where], _, report[f"prep_{where}_s"] = twod_call(
+                [*prep, "--device", device], f"prep {where}")
+        worst = 0.0
+        with open_feature_store(stores["card"]) as got, \
+                open_feature_store(stores["cpu"]) as want:
+            require(got.attrs.get("extractor_backend") == "resnet:pth" ==
+                    want.attrs.get("extractor_backend"),
+                    f"twod: the stores are tagged {got.attrs}, {want.attrs}")
+            require(len(got) == 3 * (n_train + n_val) and
+                    set(want.keys()) <= set(got.keys()),
+                    f"twod: {len(got)} keys on the card, {len(want)} on the "
+                    f"CPU")
+            for k in sorted(want.keys()):
+                a, b = got[k], want[k]
+                require(a.shape == b.shape and np.isfinite(a).all(),
+                        f"twod: {k} {a.shape} against {b.shape}")
+                if b.size:
+                    err = float(np.abs(a - b).max() / np.abs(b).max())
+                    worst = max(worst, err)
+                    require(err <= TWOD_TOL, f"twod: {k} differs from the "
+                            f"CPU's by {err} of its largest entry")
+            report["stored_keys"] = len(got)
+        report["cpu_checked_keys"] = 3 * n_cpu
+        report["max_rel_err_vs_cpu"] = worst
+
+        # the extractor alone: ms per render and per crop on the card
+        extract = resnet.make_pth_extractor(pth, device=dev)
+        img = load_render(renders, "{}-{}_{}".format(
+            train[0]["scene_id"], train[0]["object_id"], train[0]["ann_id"]))
+        crop = np.ascontiguousarray(img[:64, :64])
+        for name, x in (("image", img[None]), ("crop", crop[None])):
+            extract(x)
+            report[f"resnet_ms_per_{name}"] = host_ms(
+                torch, lambda: extract(x), TWOD_TIMED, torch.device(dev))
+        del extract
+        release_card(torch)
+
+        os.environ["SCAN2CAP_DATA"] = data
+        os.environ["SCAN2CAP_2D_DATA"] = os.path.join(root, "2d_card")
+        common = ["--batch_size", str(batch), "--tag", "smoke", "--device",
+                  dev]
+        report["decoders"] = {}
+        for model in ("snt", "tdbu"):
+            _, text, train_s = twod_call(
+                ["--train", "--epoch", str(TWOD_EPOCHS), "--model", model,
+                 *common], f"train {model}")
+            losses = [float(line.split(" loss ")[1].split()[0])
+                      for line in text.splitlines() if " loss " in line]
+            require(losses and all(np.isfinite(losses)),
+                    f"twod {model}: losses {losses}")
+            ms = float(text.split(" ms per step median")[0].rsplit(", ", 1)[1])
+            scores, _, eval_s = twod_call(
+                ["--eval", "--model", model, *common], f"eval {model}")
+            require(all(np.isfinite(scores[k]) for k in
+                        ("bleu-4", "cider", "rouge", "meteor")),
+                    f"twod {model}: scores {scores}")
+            report["decoders"][model] = dict(
+                ms_per_step=ms, losses=losses, train_s=train_s,
+                eval_s=eval_s, scores={k: scores[k] for k in
+                                       ("bleu-4", "cider", "rouge",
+                                        "meteor")})
+        bank, _, report["retrieval_s"] = twod_call(
+            ["--train", "--model", "retr", "--device", dev], "retr")
+        require(len(bank.keys) == n_train, f"twod: a bank of "
+                f"{len(bank.keys)} samples, want {n_train}")
+        report.update(renders=n_train + n_val, boxes_per_render=TWOD_BOXES,
+                      resnet_blocks=list(blocks), batch=batch,
+                      bank=len(bank.keys),
+                      wall_s=time.perf_counter() - t_phase)
+        release_card(torch)
+        return report
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def print_twod(r):
+    d = r["decoders"]
+    print(f"  twod: {r['renders']} renders of 320 x 240, "
+          f"{r['boxes_per_render']} boxes each, ResNet {r['resnet_blocks']}: "
+          f"prep {r['prep_card_s']:.1f} s on the card, "
+          f"{r['prep_cpu_s']:.1f} s on the CPU for {r['cpu_checked_keys']} "
+          f"keys (largest difference {r['max_rel_err_vs_cpu']:.2e} of a "
+          f"vector's largest entry); ResNet {r['resnet_ms_per_image']:.2f} "
+          f"ms per image, {r['resnet_ms_per_crop']:.2f} ms per crop; "
+          + "; ".join(f"{m} {v['ms_per_step']:.2f} ms per step at B="
+                      f"{r['batch']}, scores {v['scores']}"
+                      for m, v in d.items())
+          + f"; retrieval bank {r['bank']}; wall {r['wall_s']:.1f} s",
+          flush=True)
 
 
 # -------------------------------------------------------------------- phase 15
@@ -4460,8 +5052,10 @@ def print_tools(r):
     print(f"  tools: export {e['wall_s']} s ({e['tensors']} tensors read "
           f"back bit-equal); visualize {v['scene']} {v['card_s']:.1f} s on "
           f"the card ({v['held']} launches held), {v['cpu_s']:.1f} s on the "
-          f"CPU, {v['kept']} boxes kept, files {v['files']}; preparation "
-          f"{p['wall_s']}", flush=True)
+          f"CPU, {v['kept']} boxes kept on the card, {v['kept_cpu']} on the "
+          f"CPU, {v['kept_differ']} kept by one run only; corners "
+          f"{v['corner_max_abs_err']:.2e} apart, agreement {v['agree']}; "
+          f"files {v['files']}; preparation {p['wall_s']}", flush=True)
 
 
 def print_bf16(r):
@@ -4510,8 +5104,9 @@ def main(argv=None) -> int:
                     help="stop after the kernel checks (phase 3)")
     ap.add_argument("--skip", nargs="+", default=[],
                     choices=["serve", "train", "eval", "probes", "cli",
-                             "mesh", "mvn", "benchmark", "pretrained",
-                             "quality", "multiview", "tools", "bf16"],
+                             "mesh", "export", "mvn", "benchmark",
+                             "pretrained", "quality", "multiview", "tools",
+                             "bf16", "twod"],
                     help="leave out a path while bringing up another "
                          "(exit 3 by design: not a whole run)")
     args = ap.parse_args(argv)
@@ -4598,6 +5193,7 @@ def main(argv=None) -> int:
     paths = {}
     serve = train = evaluation = probes = cli = mvn = bench = pre = None
     quality = multiview = tools = bf16 = kept = mesh = None
+    exported = twod = None
     if not args.kernels_only:
         if "serve" not in args.skip:
             t0 = time.perf_counter()
@@ -4622,9 +5218,11 @@ def main(argv=None) -> int:
             print(f"probe phase: {time.perf_counter() - t0:.1f} s", flush=True)
         if "cli" not in args.skip:
             t0 = time.perf_counter()
-            # the mesh phase trains on the fixture, the tools phase reads
-            # the resumed run; the last of them removes the fixture
-            cli = cli_phase(torch, np, card, keep=not {"tools", "mesh"}
+            # the mesh phase trains on the fixture, the export and tools
+            # phases read the resumed run; the last of them removes the
+            # fixture
+            cli = cli_phase(torch, np, card, keep=not {"tools", "mesh",
+                                                       "export"}
                             <= set(args.skip))
             kept = cli.pop("kept")
             paths["cli"] = cli["launches"]
@@ -4644,6 +5242,14 @@ def main(argv=None) -> int:
             paths["mesh"] = mesh["launches"]
             print_mesh(mesh)
             print(f"mesh phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        if "export" not in args.skip:
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            exported = export_phase(torch, np, card, kept=kept)
+            paths["export"] = exported["launches"]
+            print_export(exported)
+            print(f"export phase: {time.perf_counter() - t0:.1f} s",
                   flush=True)
         if kept is not None and "tools" in args.skip:
             import shutil
@@ -4714,6 +5320,14 @@ def main(argv=None) -> int:
             print_bf16(bf16)
             print(f"bf16 phase: {time.perf_counter() - t0:.1f} s",
                   flush=True)
+        if "twod" not in args.skip:
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            twod = twod_phase(torch, np, card)
+            paths["twod"] = launch_counts()
+            print_twod(twod)
+            print(f"twod phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
 
     def launches(wrapper):
         return {path: run[wrapper] for path, run in paths.items()} or None
@@ -4772,6 +5386,8 @@ def main(argv=None) -> int:
         print(json.dumps({"cli": cli, "card": card}))
     if mesh is not None:
         print(json.dumps({"mesh": mesh, "card": card}))
+    if exported is not None:
+        print(json.dumps({"export": exported, "card": card}))
     if mvn is not None:
         print(json.dumps({"mvn": mvn, "card": card}))
     if bench is not None:
@@ -4786,6 +5402,8 @@ def main(argv=None) -> int:
         print(json.dumps({"tools": tools, "card": card}))
     if bf16 is not None:
         print(json.dumps({"bf16": bf16, "card": card}))
+    if twod is not None:
+        print(json.dumps({"twod": twod, "card": card}))
     if partial:
         return 3
     print(card)

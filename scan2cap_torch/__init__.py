@@ -15,16 +15,19 @@ encoder and dataset) over a feature store that numpy alone reads
 backbone (``ModelConfig.compute_dtype``, ``storage_dtype``,
 ``bf16_components``), ScanNet's preprocessing
 (``data.scannet_preprocess``), ``--mesh DATA,MODEL`` and ``--spatial``
-over ``torch.distributed`` (``parallel``), and the command-line entry
-points under
+over ``torch.distributed`` (``parallel``), the 2D captioning baselines
+over ResNet features of rendered views (``twod``), and the command-line
+entry points under
 ``scan2cap_torch.scripts`` (the training-quality trajectory, the export to
-a reference ``.pth``, the visualizer and the dataset-preparation tools
-among them) and ``scan2cap_torch.benchmark``.  It imports torch and numpy only
+a reference ``.pth``, the serving export through ``torch.export``, the
+visualizer, the profiling reports and the dataset-preparation tools among
+them) and ``scan2cap_torch.benchmark``.  It imports torch and numpy only
 — never JAX, Flax or anything of ``scan2cap_tpu``; what it needs from there
 it keeps as its own copy.  The TPU kernels of the JAX repository (furthest-point
 sampling, the exact ball query, the row gather of ``group_points`` and the
 two pack-tile probes) are hand-written CUDA under ``csrc/``, built with
-``nvcc`` at first use (``kernels/_build.py``).
+``nvcc`` at first use (``kernels/_build.py``); the three that the model
+runs are the ``torch.library`` custom ops of ``ops/library.py``.
 
 Entry points run on the card: they take an explicit ``device`` that
 defaults to ``"cuda"`` and raise when CUDA is missing unless the caller

@@ -695,3 +695,31 @@ def convert_enet_checkpoint(sd, include_classifier: bool = False
                   "classifier": {"kernel": _conv2d_kernel(sd["26.0.weight"])}}
         stats = {"encoder": stats}
     return state_dict_from_flax(params, stats)
+
+
+# --- the 2D baselines (scan2cap_torch/twod)
+# The decoders' Flax parameters carry over with ``state_dict_from_flax``:
+# ``twod.models`` names its modules after the Flax tree.
+
+
+def resnet_state_dict(params: dict) -> Dict[str, torch.Tensor]:
+    """``twod.resnet.convert_resnet_checkpoint``'s tree -> a state dict of
+    ``twod.resnet.ResNet``: each HWIO kernel as a Conv2d weight (O, I, kh,
+    kw) beside its folded scale and shift; it loads with
+    ``load_state_dict(strict=True)``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(prefix: str, p: dict) -> None:
+        sd[prefix + ".weight"] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1)))
+        for leaf in ("scale", "shift"):
+            sd[f"{prefix}.{leaf}"] = torch.from_numpy(
+                np.array(p[leaf], np.float32))
+
+    conv("stem", params["stem"])
+    for layer in (1, 2, 3, 4):
+        for i, block in enumerate(params[f"layer{layer}"]):
+            for name in ("conv1", "conv2", "conv3", "downsample"):
+                if name in block:
+                    conv(f"layer{layer}.{i}.{name}", block[name])
+    return sd

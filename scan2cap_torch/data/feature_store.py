@@ -5,14 +5,22 @@ The JAX package keeps its feature databases in HDF5: the GT-box features of
 ``_features``, ``_bbox_corners``, ``_gt_corners``), the VoteNet proposals of
 ``scripts/extract_votenet_features.py`` (``"0|{scene_id}_object_ids"``,
 ``_features``, ``_bbox_corners``, ``_gt_ids``, ``_gt_corners``) and the
-multiview features (one (P, 128) float32 array per ``scene_id``).  The port
-keeps the same keys, dtypes and shapes in an uncompressed ``.npz``: a zip of
-``.npy`` members, one per key, which plain ``np.load`` also reads.
+multiview features (one (P, 128) float32 array per ``scene_id``), and the
+2D baselines' databases of ``scan2cap_tpu/twod/preprocessing.py``, one
+HDF5 group per sample (``"{sample_id}/g_feat"``, ``/t_feat`` and, where
+there are context boxes, ``/c_feats``) with a file attribute
+``extractor_backend``.  The port keeps the same keys (a group's datasets
+by their paths), dtypes and shapes in an uncompressed ``.npz``: a zip of
+``.npy`` members, one per key, which plain ``np.load`` also reads.  The
+file's attributes are members under ``__attrs__/`` (a string as a 0-d
+unicode array), so ``np.load`` reads them back too; ``keys()`` leaves them
+out and ``attrs`` gives them by name.
 
 ``FeatureStoreWriter(path)`` appends one array at a time, so an extraction
-never holds its database in memory.  ``open_feature_store(path)`` returns a
-read-only mapping (``keys()``, ``in``, ``[key]`` -> ``np.ndarray``, and
-``read_into(key, out)`` for a caller's buffer).  Its reads use ``os.pread``
+never holds its database in memory; ``set_attr(name, value)`` writes a
+file attribute.  ``open_feature_store(path)`` returns a read-only mapping
+(``keys()``, ``in``, ``[key]`` -> ``np.ndarray``, ``read_into(key, out)``
+for a caller's buffer, and ``attrs``).  Its reads use ``os.pread``
 at each member's offset, found once from the zip's directory, so threads
 share one handle without a seek between them.
 
@@ -38,6 +46,22 @@ CONVERTER = "python -m scan2cap_torch.scripts.convert_feature_db"
 # field lengths (APPNOTE 4.3.7)
 _LOCAL_HEADER = struct.Struct("<4s2B4HL2L2H")
 _LOCAL_MAGIC = b"PK\x03\x04"
+# the members that hold the file's attributes
+ATTRS_PREFIX = "__attrs__/"
+
+
+def _attr_value(value):
+    """An attribute as read back: a string as ``str``, bytes decoded, a
+    0-d number as its Python scalar, any other array as it is."""
+    if isinstance(value, bytes):
+        return value.decode()
+    arr = np.asarray(value)
+    if arr.ndim == 0 and arr.dtype.kind in "US":
+        v = arr[()]
+        return v.decode() if isinstance(v, bytes) else str(v)
+    if arr.ndim == 0:
+        return arr[()].item()
+    return arr
 
 
 def is_hdf5(path: str) -> bool:
@@ -86,6 +110,16 @@ class FeatureStoreWriter:
                 np.lib.format.write_array(f, arr, allow_pickle=False)
         self._keys.add(key)
 
+    def set_attr(self, name: str, value) -> None:
+        """A file attribute (HDF5's ``attrs[name] = value``)."""
+        if self._h5 is not None:
+            self._h5.attrs[name] = value
+            return
+        with self._zip.open(ATTRS_PREFIX + name + ".npy", "w",
+                            force_zip64=True) as f:
+            np.lib.format.write_array(f, np.asarray(value),
+                                      allow_pickle=False)
+
     def close(self) -> None:
         if self._h5 is not None:
             self._h5.close()
@@ -114,6 +148,7 @@ class NpzFeatureStore:
             # starts after that header, whose extra field may differ from
             # the directory's
             self._members: Dict[str, int] = {}
+            attr_names = []
             for info in infos:
                 if not info.filename.endswith(".npy"):
                     continue
@@ -121,12 +156,18 @@ class NpzFeatureStore:
                     raise ValueError(f"{self.path}: {info.filename} is "
                                      f"compressed; the store is not")
                 self._members[info.filename[:-4]] = info.header_offset
+                if info.filename.startswith(ATTRS_PREFIX):
+                    attr_names.append(info.filename[:-4])
         except BaseException:
             os.close(self._fd)
             raise
         # key -> (dtype, shape, fortran_order, data offset); filled on first
         # read (a race fills it twice with the same value)
         self._layout: Dict[str, Tuple] = {}
+        self.attrs = {name[len(ATTRS_PREFIX):]: _attr_value(self[name])
+                      for name in attr_names}
+        for name in attr_names:
+            del self._members[name]
 
     def _pread(self, n: int, offset: int) -> bytes:
         out = os.pread(self._fd, n, offset)
@@ -228,7 +269,14 @@ class H5FeatureStore:
 
     def __init__(self, path: str):
         self.path = str(path)
-        self._db = _h5py().File(self.path, "r", libver="latest", swmr=True)
+        h5py = _h5py()
+        self._db = h5py.File(self.path, "r", libver="latest", swmr=True)
+        self.attrs = {k: _attr_value(v) for k, v in self._db.attrs.items()}
+        # every dataset by its path, a group's too ("sample/g_feat")
+        self._keys = []
+        self._db.visititems(
+            lambda name, obj: self._keys.append(name)
+            if isinstance(obj, h5py.Dataset) else None)
 
     def __getitem__(self, key: str) -> np.ndarray:
         return np.asarray(self._db[key])
@@ -244,13 +292,13 @@ class H5FeatureStore:
         return self._db[key].dtype
 
     def keys(self):
-        return self._db.keys()
+        return list(self._keys)
 
     def __contains__(self, key: str) -> bool:
         return key in self._db
 
     def __len__(self) -> int:
-        return len(self._db)
+        return len(self._keys)
 
     def close(self) -> None:
         self._db.close()

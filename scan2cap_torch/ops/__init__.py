@@ -1,9 +1,10 @@
 """Point-cloud ops in PyTorch (counterpart of ``scan2cap_tpu/ops``).
 
 Batched, channels-last.  FPS, the ball query and the row gather of
-``group_points`` dispatch CUDA tensors to
-the hand-written kernels in ``scan2cap_torch.kernels`` and CPU tensors to
-their plain PyTorch versions, which live beside them here.
+``group_points`` run as the custom ops of ``ops/library.py``, which
+dispatch CUDA tensors to the hand-written kernels in
+``scan2cap_torch.kernels`` and CPU tensors to their plain PyTorch
+versions, which live beside them here.
 """
 
 from scan2cap_torch.ops.boxes import (box3d_iou_batch, box3d_iou_matrix,
@@ -14,6 +15,8 @@ from scan2cap_torch.ops.nn_distance import huber_loss, nn_distance
 from scan2cap_torch.ops.interpolate import (interpolation_weights,
                                             three_interpolate, three_nn)
 from scan2cap_torch.ops.sampling import furthest_point_sample, gather_points
+# registers the scan2cap:: custom ops that sampling and grouping call
+from scan2cap_torch.ops import library  # noqa: F401
 
 __all__ = [
     "furthest_point_sample", "gather_points", "ball_query",

@@ -14,8 +14,10 @@ with its gradient, a scatter-add into the table (``index_add_``; on CUDA
 that sums with atomics in no fixed order, so the gradient is not
 bit-stable between runs).
 
-A CUDA tensor goes to the hand-written kernels (``kernels/ballquery.py``,
-``kernels/gather.py``), a CPU tensor to the plain versions below.
+Both run as custom ops, ``scan2cap::ball_query`` and
+``scan2cap::group_points`` (``ops/library.py``): a CUDA tensor goes to the
+hand-written kernels (``kernels/ballquery.py``, ``kernels/gather.py``), a
+CPU tensor to the plain versions below.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from scan2cap_torch.kernels.ballquery import ball_query_cuda
-from scan2cap_torch.kernels.gather import group_points_cuda
+# looked up here at each call by the ops' CUDA implementations
+from scan2cap_torch.kernels.ballquery import ball_query_cuda  # noqa: F401
+from scan2cap_torch.kernels.gather import group_points_cuda  # noqa: F401
 from scan2cap_torch.ops.distance import sq_dist_elementwise
 
 # queries per hit-test slab in the plain versions: a (512, N) bool slab
@@ -104,14 +107,9 @@ def ball_query_pack_plain(xyz: torch.Tensor, new_xyz: torch.Tensor,
 def ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
                nsample: int) -> torch.Tensor:
     """(B, N, 3) points, (B, M, 3) queries -> (B, M, nsample) int32."""
-    if xyz.is_cuda:
-        # no cast: the kernel takes float32 alone and refuses the rest
-        return ball_query_cuda(xyz.detach().contiguous(),
-                               new_xyz.detach().contiguous(),
-                               radius_squared(radius), nsample)
-    if xyz.device.type != "cpu":
-        raise ValueError(f"unsupported device {xyz.device}")
-    return ball_query_plain(xyz, new_xyz, radius, nsample)
+    # no cast: the kernel takes float32 alone and refuses the rest
+    return torch.ops.scan2cap.ball_query(xyz.detach(), new_xyz.detach(),
+                                         float(radius), int(nsample))
 
 
 def group_points_plain(features: torch.Tensor, idx: torch.Tensor
@@ -128,38 +126,16 @@ def group_points_plain(features: torch.Tensor, idx: torch.Tensor
 
 def group_points_forward(features: torch.Tensor, idx: torch.Tensor
                          ) -> torch.Tensor:
-    """The gather without a gradient: the kernel on a CUDA tensor (or an
-    error), the plain version on a CPU tensor."""
-    if features.is_cuda:
-        return group_points_cuda(features.detach().contiguous(),
-                                 idx.to(torch.int32).contiguous())
-    if features.device.type != "cpu":
-        raise ValueError(f"unsupported device {features.device}")
-    return group_points_plain(features.detach(), idx)
-
-
-class _GroupPoints(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, features, idx):
-        ctx.save_for_backward(idx)
-        ctx.table_shape = features.shape
-        return group_points_forward(features, idx)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (idx,) = ctx.saved_tensors
-        B, N, C = ctx.table_shape
-        rows = idx.reshape(B, -1).long() + N * torch.arange(
-            B, device=idx.device)[:, None]
-        table = grad.new_zeros((B * N, C))
-        table.index_add_(0, rows.reshape(-1), grad.reshape(-1, C))
-        return table.reshape(B, N, C), None
+    """The gather without a gradient: the kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    return torch.ops.scan2cap.group_points(features.detach(), idx)
 
 
 def group_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """features (B, N, C), idx (B, M, S) -> (B, M, S, C), differentiable in
-    ``features``.  Indices must lie in [0, N)."""
-    return _GroupPoints.apply(features, idx)
+    ``features`` (the op's ``register_autograd``).  Indices must lie in
+    [0, N)."""
+    return torch.ops.scan2cap.group_points(features, idx)
 
 
 def query_and_group(xyz: torch.Tensor, new_xyz: torch.Tensor,

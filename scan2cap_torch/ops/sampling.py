@@ -6,27 +6,23 @@
 selected; each step takes the argmax of the running min squared distance,
 ties to the lowest index; int32 (B, npoint) output; no gradient.
 
-A CUDA tensor goes to the hand-written kernel (``kernels/fps.py``), a CPU
-tensor to the plain version below.
+It runs as the custom op ``scan2cap::furthest_point_sample``
+(``ops/library.py``): a CUDA tensor goes to the hand-written kernel
+(``kernels/fps.py``), a CPU tensor to the plain version below.
 """
 
 from __future__ import annotations
 
 import torch
 
-from scan2cap_torch.kernels.fps import furthest_point_sample_cuda
+# looked up here at each call by the op's CUDA implementation
+from scan2cap_torch.kernels.fps import furthest_point_sample_cuda  # noqa: F401
 from scan2cap_torch.ops.distance import sq_dist_reduce
 
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """(B, N, 3) -> (B, npoint) int32 indices into N."""
-    xyz = xyz.detach()
-    if xyz.is_cuda:
-        # no cast: the kernel takes float32 alone and refuses the rest
-        return furthest_point_sample_cuda(xyz.contiguous(), npoint)
-    if xyz.device.type != "cpu":
-        raise ValueError(f"unsupported device {xyz.device}")
-    return furthest_point_sample_plain(xyz, npoint)
+    return torch.ops.scan2cap.furthest_point_sample(xyz.detach(), npoint)
 
 
 def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:

@@ -3,8 +3,10 @@
 
 Either side may be HDF5 (``.hdf5`` / ``.h5``, read or written through
 ``h5py``) or the store (any other suffix; ``data/feature_store.py``).  Every
-key is copied with its dtype, shape and bytes unchanged, so a database that
-the JAX package's extractors wrote, or the released
+key, a dataset inside a group by its path (``"{sample_id}/g_feat"``), is
+copied with its dtype, shape and bytes unchanged, and so is every file
+attribute (the 2D databases' ``extractor_backend``), so a database that
+the JAX package's extractors or its 2D ``--prep`` wrote, or the released
 ``enet_feats_maxpool.hdf5`` of multiview features, becomes a store that the
 port reads where ``h5py`` is missing, and back.  Needs ``h5py`` when
 either side is HDF5.
@@ -21,6 +23,8 @@ def convert(src: str, dst: str) -> int:
     from scan2cap_torch.data.feature_store import (FeatureStoreWriter,
                                                    open_feature_store)
     with open_feature_store(src) as db, FeatureStoreWriter(dst) as out:
+        for name, value in db.attrs.items():
+            out.set_attr(name, value)
         keys = sorted(db.keys())
         for key in keys:
             out[key] = db[key]

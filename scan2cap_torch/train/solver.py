@@ -38,6 +38,7 @@ from scan2cap_torch.parallel.mesh import is_main
 from scan2cap_torch.train.checkpoints import (CheckpointIO, model_bundle,
                                               resume_bundle)
 from scan2cap_torch.train.schedules import bn_momentum, multistep_lr
+from scan2cap_torch.utils import profiling
 from scan2cap_torch.utils.eta import format_eta
 
 ITER_REPORT = (
@@ -217,7 +218,7 @@ class Solver:
                 if pending is not None:
                     consume(pending)      # step 1 ends before the trace
                     pending = None
-                profiler = _start_profiler(self.device)
+                profiler = profiling.start(self.device)
             t0 = time.time()
             before = launch_counts()
             metrics = self.train_step(tbatch, lr, mom)
@@ -233,7 +234,7 @@ class Solver:
                 consume(pending)          # drain before stopping the trace
                 pending = None
                 trace = os.path.join(self.output, "profile")
-                _stop_profiler(profiler, trace)
+                profiling.stop(profiler, trace)
                 profiler = None
                 self._log(f"profiler trace written to {trace}")
 
@@ -247,7 +248,7 @@ class Solver:
         if pending is not None:
             consume(pending)
         if profiler is not None:          # the epoch ended inside the trace
-            _stop_profiler(profiler, os.path.join(self.output, "profile"))
+            profiling.stop(profiler, os.path.join(self.output, "profile"))
         self.stats["epochs"].append(dict(
             epoch=epoch, fetch_s=self.fetch_times, step_s=self.step_times,
             losses=self.losses))
@@ -285,20 +286,3 @@ class Solver:
             json.dump({k: v for k, v in self.log_history.items()}, f)
         with open(os.path.join(self.output, "train_stats.json"), "w") as f:
             json.dump(self.stats, f)
-
-
-def _start_profiler(device: torch.device):
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    profiler = torch.profiler.profile(activities=activities)
-    profiler.__enter__()
-    return profiler
-
-
-def _stop_profiler(profiler, folder: str) -> None:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    profiler.__exit__(None, None, None)
-    os.makedirs(folder, exist_ok=True)
-    profiler.export_chrome_trace(os.path.join(folder, "trace.json"))
