@@ -50,7 +50,7 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      the port on the CPU (loss 1e-3, norms 1e-2 relative); the loss must be
      finite and fall;
   6. evaluate as scripts/eval.py --eval_caption --eval_detection does:
-     the flagship (conditioned as in 5) over three synthetic batches
+     the flagship (conditioned as in 5) over two synthetic batches
      through ``eval_helper.eval_cap`` and the AP loop at 0.25 and 0.5, then
      one batch each of the CLI's default caption heads at full width
      (``SceneCaptionModule``; top-down with ``num_locals=-1``) against the
@@ -92,7 +92,7 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      1 through the ordered scan, 6 gathers), ms per step over three
      spans, kernel ms and busy share from a profiled step; then
      ``scan2cap_torch.scripts.train_maskvotenet`` as a subprocess on the
-     fixture of 8 at B=16 with --use_normal for two epochs: the same
+     fixture of 8 at B=16 with --use_normal for one epoch: the same
      launches per step, last.pt and its reference-layout export reloaded
      bit-equal, ms per iteration, fetch s, save ms, __getitem__ ms;
  10. the offline scorer on tests/fixtures/benchmark_mini with NMS and the
@@ -125,10 +125,11 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      (5, 5 and 6 a step); the entry point as a subprocess for 60 steps
      with an evaluation every 30 over one held-out batch (every loss
      finite, the loss at step 60 below step 30's, 5, 5 and 6 launches a
-     step; the curve printed); ``demo_synthetic_train`` for 30
+     step; the curve printed); at the same time ``demo_synthetic_train``
+     for 29
      detection-only steps (the loss and the box loss fall);
  13. multiview features from frames: ScanNet-layout frames for 2 of the
-     CLI fixture's scenes (200 poses each inside the room looking at its
+     CLI fixture's scenes (100 poses each inside the room looking at its
      points, PNG colour at 328 x 256, 16-bit PNG depth at 41 x 32 rendered
      from the scene's points with a z-buffer), ``compute_multiview_features``
      on the card (a few frames' features against the port's ENet on the
@@ -160,14 +161,15 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      backbone's FPS and first-k indices exact, the share of the vote
      stage's indices that differ reported, the loss within 3e-2 and the
      gradient's norm within 5e-2), ms per step, kernel ms and busy share
-     beside phase 5's float32 step; ``demo_synthetic_train --bf16`` for 30
-     steps and ``quality_trajectory --bf16_storage`` for 20 as
+     beside phase 5's float32 step; ``demo_synthetic_train --bf16`` for 15
+     steps and ``quality_trajectory --bf16_storage`` for 10 as
      subprocesses;
- 16. the mesh (``--mesh 1,1`` over NCCL: one rank, size-1 groups; run
-     after phase 8, on its fixture): ``train --mesh 1,1`` for 15 steps at
+ 16. the mesh (``--mesh 1,1`` over NCCL: one rank, size-1 groups, whose
+     collectives are elided; run after phase 8, on its fixture):
+     ``train --mesh 1,1`` for 15 steps at
      B=8 (the ``mesh:`` line, its first loss within 2e-3 of phase 8's
      same-seed run without ``--mesh``, 5 FPS, 5 first-k and 6 gathers a
-     step, a traced step's collectives, ``last.pt`` read back bit-equal
+     step, no collective in a traced step, ``last.pt`` read back bit-equal
      without ``--mesh``); then at once ``eval --mesh 1,1`` of phase 8's
      resumed run printing phase 8's scores, ``train --mesh 2,1`` refused
      with the device-count message, and in this process one step as the
@@ -176,7 +178,22 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      query slices at the four SA layers' shapes, B=2 and 8) equal to the
      unsharded kernel's rows; ms per step with and without the mesh, the
      NCCL version;
- 17. the serving export (run after phase 16, on phase 8's resumed run):
+ 17. the mesh across cards (with two or more cards present; ``--cards N``
+     asks for N and fails with fewer; with one card the ``multicard`` line
+     reads ``"ran": false``): ``scan2cap_torch.scripts.dryrun_multicard``
+     over the N cards (the flagship at (N/2, 2) and (N, 1) against one
+     card, every rank's step held launch by launch on its own card, the
+     spatial stage at 80,000 points over N ranks and the dp-spatial stage
+     at (2, N/2), the kernels launched on every other card from this
+     process, ms per step at each mesh shape with NCCL's kernel ms), then
+     on phase 8's fixture ``train --mesh N/2,2``, ``--mesh N,1`` and
+     ``--mesh N/2,2 --spatial`` (15 steps at B=8: first loss within 2e-3 +
+     1e-3 of phase 8's, 5 FPS, 5 first-k and 6 gathers a step on every
+     rank), the N/2,2 run resumed at (N, 1), both last.pt read back
+     without ``--mesh`` bit for bit, and ``eval --mesh N/2,2`` of phase 8's
+     resumed run (its scores, or its captions' tokens at 99% of phase 8's
+     eval);
+ 18. the serving export (run after phase 16, on phase 8's resumed run):
      ``scan2cap_torch.scripts.export_model`` traces the eval forward at B=1
      on the card through the three custom ops of ``ops/library.py``, saves
      it, ``--load --check``; the loaded program's tokens, boxes and scores
@@ -185,19 +202,19 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      the same artifact moved to the CPU within the serving gates of the
      port's CPU forward; export, load and save s, MB, ms per request
      loaded and eager;
- 18. the 2D baselines (``scan2cap_torch.twod.main`` in process): a seeded
+ 19. the 2D baselines (``scan2cap_torch.twod.main`` in process): a seeded
      random ResNet101 in torchvision's layout written as a ``.pth``;
      ``--prep`` of 256 renders (320 x 240, 4 boxes each) on the card, the
      first 24 renders' features within 1e-3 of a ``--device cpu`` prep;
      ``snt`` and ``tdbu`` trained at B=64 (hidden 512, GloVe 300) and
      evaluated, the retrieval bank; ResNet ms per image and per crop, ms
      per decoder step;
- 19. the JSON lines: kernels, serving, training, eval, cli, mesh, export,
-     mvn, benchmark, pretrained, quality, multiview, tools, bf16, twod, and
-     last the device line.
-Launch counts are set to 0 just before each of the paths 4-7, 9, 11-15, 17
-and 18 and read just after; the entry points of 8, 9, 11-15 and 16 count
-their own (their stats files and output).
+ 20. the JSON lines: kernels, serving, training, eval, cli, mesh,
+     multicard, export, mvn, benchmark, pretrained, quality, multiview,
+     tools, bf16, twod, and last the device line.
+Launch counts are set to 0 just before each of the paths 4-7, 9, 11-15,
+17-19 and read just after; the entry points of 8, 9, 11-15, 16 and 17 and
+the ranks of 17 count their own (their stats files and reports).
 Subprocesses that are independent and whose speed no path reads run at
 once (``run_together``).  ``--kernels-only`` stops after phase 3 (a short
 first check of a new kernel).  Imports nothing of JAX.
@@ -208,6 +225,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -965,14 +983,9 @@ def serve_flagship(torch, np, requests=30, windows=3):
 # --------------------------------------------------------------------- phase 5
 def condition_weights(torch, model):
     """Bring two layers of the seeded random model into a trained model's
-    range (the same on every device): a fresh voting head throws its votes
-    metres away, so that no proposal is a positive, and the sum-aggregated
-    graph messages reach the hundreds, where float32 has 5 digits left."""
-    with torch.no_grad():
-        model.vgen.conv3.weight.mul_(0.02)
-        for layer in (model.graph.gc_0, model.graph.gc_1,
-                      model.graph.edge_layer):
-            layer.map_edge_1.weight.mul_(0.1)
+    range (``scripts.dryrun_multicard.condition_weights``)."""
+    from scan2cap_torch.scripts.dryrun_multicard import condition_weights
+    condition_weights(model)
 
 
 def grad_norms(model):
@@ -1327,7 +1340,7 @@ def serve_decoder(torch, np, kind, dev, sizes, num_vocabs, requests):
 
 
 def eval_flagship(torch, np, dev="cuda", sizes=None, num_vocabs=NUM_VOCABS,
-                  nb=3, requests=5):
+                  nb=2, requests=5):
     """The evaluation of scripts/eval.py --eval_caption --eval_detection
     through the port: the flagship's ``eval_cap`` and AP loop on ``dev``,
     the two CLI-default caption heads served, the post-processing of the
@@ -1792,6 +1805,13 @@ def getitem_ms(np, data, train, native_on, num_points=40000):
         native._lib, native._tried = saved
 
 
+def score_lines(text):
+    """An eval's score lines ("[CIDEr]  0.1234", "[score_captions] METEOR
+    backend: ..."), not the log lines of its libraries ("[rank0]:[W...")."""
+    return [l for l in text.splitlines()
+            if re.match(r"\[[\w-]+\]\s", l)]
+
+
 def per_call(launches, calls):
     return {k: v / calls for k, v in launches.items() if calls}
 
@@ -1880,22 +1900,28 @@ def cli_phase(torch, np, card, dev="cuda", rehearse=False, keep=False):
         require(f"resumed from {run_a} at epoch 1" in text,
                 "the resume did not start at global epoch 2")
         run_b = next(d for d in os.listdir(out) if d.endswith("_SMOKE_B"))
-        text, walls["eval"] = run_entry_point(
-            "scan2cap_torch.scripts.eval",
-            ["--folder", run_b, "--eval_caption", "--eval_detection",
-             "--device", dev], env, logs)
+        # at once, as none reads another's output: eval, predict and the
+        # offline flow's GT boxes (launch/benchmark.sh); their timers are
+        # taken beside one another
+        (text, walls["eval"]), (_, walls["predict"]), \
+            (_, walls["build_benchmark_gt"]) = run_together(
+                entry_job("scan2cap_torch.scripts.eval",
+                          ["--folder", run_b, "--eval_caption",
+                           "--eval_detection", "--save_interm", "--device",
+                           dev], env, logs),
+                entry_job("scan2cap_torch.benchmark.predict",
+                          ["--folder", run_b, "--device", dev], env, logs),
+                entry_job("scan2cap_torch.scripts.build_benchmark_gt",
+                          ["--split", "val", "--data", data], env, logs))
         for tag in ("[BLEU-4]", "[CIDEr]", "[ROUGE]", "[METEOR]",
                     "mAP@0.25", "mAP@0.5"):
             require(tag in text, f"eval printed no {tag}")
-        # the mesh phase evaluates this run again under --mesh 1,1
-        eval_scores = [l for l in text.splitlines() if l.startswith("[")]
-        _, walls["predict"] = run_entry_point(
-            "scan2cap_torch.benchmark.predict",
-            ["--folder", run_b, "--device", dev], env, logs)
-        # the offline flow of launch/benchmark.sh: GT boxes, then the scorer
-        _, walls["build_benchmark_gt"] = run_entry_point(
-            "scan2cap_torch.scripts.build_benchmark_gt",
-            ["--split", "val", "--data", data], env, logs)
+        # the mesh phases evaluate this run again under --mesh: the scores
+        # and the kept objects' captions
+        eval_scores = score_lines(text)
+        with open(os.path.join(out, run_b, "interm.json")) as f:
+            interm = json.load(f)
+        # then the scorer on the predictions and the GT boxes
         _, walls["benchmark_eval"] = run_entry_point(
             "scan2cap_torch.benchmark.eval",
             ["--path", os.path.join(out, run_b, "pred.json"), "--gt_path",
@@ -2026,7 +2052,8 @@ def cli_phase(torch, np, card, dev="cuda", rehearse=False, keep=False):
                 cider_f1_at_05=scored["captioning"]["0.5"]["f1-score"][
                     "cider"]),
             kept=dict(root=root, data=data, outputs=out, run=run_b,
-                      val=val, eval_scores=eval_scores) if keep else None)
+                      val=val, eval_scores=eval_scores, interm=interm)
+            if keep else None)
     except BaseException:
         shutil.rmtree(root, ignore_errors=True)
         raise
@@ -2190,6 +2217,9 @@ def mesh_phase(torch, np, card, kept=None, dev="cuda", rehearse=False):
         trace = os.path.join(out, run, "profile", "trace.json")
         profile = dict(trace_kernels(trace, CLI_PROFILED_STEPS),
                        **trace_collectives(trace, CLI_PROFILED_STEPS))
+        # every group of --mesh 1,1 holds one rank: nothing is issued
+        require(profile["host_ops"] == 0 and profile["nccl_kernels"] == 0,
+                f"--mesh 1,1 issued collectives: {profile}")
 
         # at once: the evals, the refusal, and this process's work
         evaluated = run if own else kept["run"]
@@ -2271,9 +2301,6 @@ def mesh_phase(torch, np, card, kept=None, dev="cuda", rehearse=False):
                 f"train --mesh {n},1 exited {res.returncode}:\n"
                 f"{(res.stderr + res.stdout)[-2000:]}")
 
-        def score_lines(text):
-            return [l for l in text.splitlines() if l.startswith("[")]
-
         scores = dict(mesh=score_lines(evals[0][0]),
                       one=(score_lines(evals[1][0]) if own
                            else kept["eval_scores"]))
@@ -2323,6 +2350,254 @@ def print_mesh(r):
           f"checks in {r['spatial_shards_s']:.1f} s", flush=True)
 
 
+# ------------------------------------------------------- the multicard phase
+def interm_tokens(interm):
+    """Caption tokens by (scene, object) from an ``eval --save_interm``
+    dump."""
+    return {(scene, obj): entry["token"] for scene, objs in interm.items()
+            for obj, entry in objs.items()}
+
+
+def token_agreement(got, want):
+    """Tokens of the kept objects that agree, position by position (an
+    object kept by one run only counts all its tokens as differing); the
+    share that agrees and the objects that differ."""
+    total = same = 0
+    differ = []
+    for key in sorted(set(got) | set(want)):
+        a, b = got.get(key, []), want.get(key, [])
+        n = max(len(a), len(b))
+        k = sum(1 for x, y in zip(a, b) if x == y)
+        total, same = total + n, same + k
+        if k != n:
+            differ.append(dict(scene=key[0], object=key[1],
+                               got=" ".join(a), want=" ".join(b)))
+    return (same / total if total else 1.0), differ
+
+
+def multicard_phase(torch, np, card, n, kept=None, dev="cuda",
+                    rehearse=False):
+    """The mesh across ``n`` cards, a rank a card over NCCL.  First the
+    dryrun (``scan2cap_torch.scripts.dryrun_multicard``, in this process):
+    the flagship at (n/2, 2) and (n, 1) against one card, every rank's
+    step held launch by launch against the plain versions on its own
+    card, the spatial and dp-spatial stages, the kernels launched on every
+    other card from this process, the step's ms at each mesh shape with
+    NCCL's kernel ms.  Then the entry points as subprocesses on the CLI
+    fixture, at once: train --mesh n/2,2, --mesh n,1 and --mesh n/2,2
+    --spatial, 15 steps at B=8 (each first loss within 2e-3 + 1e-3 of the
+    run without --mesh, 5 FPS, 5 first-k and 6 gathers a step on every
+    rank), the n/2,2 run resumed at (n, 1) for epoch 2, and eval --mesh
+    n/2,2 --save_interm of the CLI phase's resumed run (its scores, or
+    where they differ its caption tokens held to 99% of that phase's eval
+    with each differing caption listed); the saved and the resumed
+    last.pt read back without --mesh bit for bit.  On the CLI phase's
+    fixture and runs (``kept``; written here when that phase was
+    skipped).  ``rehearse`` runs it on the CPU (gloo) at the CLI phase's
+    rehearsal sizes; launches are then not counted."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.scripts import dryrun_multicard
+    from scan2cap_torch.scripts.train import model_config_from_info
+    from scan2cap_torch.train.checkpoints import CheckpointIO
+
+    release_card(torch)
+    t0 = time.perf_counter()
+    dry = dryrun_multicard.run(n, dev)
+    dry.pop("outputs")
+    dry["wall_s"] = time.perf_counter() - t0
+    for line in dryrun_multicard.summary(dry):
+        print(f"  {line}", flush=True)
+    require(not dry["failed"], f"dryrun over {n} cards: {dry['failed']}")
+    require(rehearse or all(
+        r["held"] == dict(furthest_point_sample_cuda=1, ball_query_cuda=1,
+                          group_points_cuda=1)
+        for r in dry["other_cards"]),
+        f"kernels on the other cards: {dry.get('other_cards')}")
+
+    logs = os.path.join(ROOT, "chiprun_out", "multicard")
+    os.makedirs(logs, exist_ok=True)
+    own = kept is None
+    if own:
+        root = tempfile.mkdtemp(prefix="scan2cap_multicard_")
+        data, _, _ = write_scannet_fixture(
+            np, root, points=3000 if rehearse else CLI_SCENE_POINTS)
+        out = os.path.join(root, "outputs")
+    else:
+        root, data, out = kept["root"], kept["data"], kept["outputs"]
+    try:
+        env = dict(os.environ, SCAN2CAP_DATA=data, SCAN2CAP_OUTPUT=out,
+                   PYTHONPATH=ROOT)
+        env.pop("SCAN2CAP_TEST_TINY", None)
+        flags = [*CLI_FLAGS, "--device", dev, "--epoch", "1", "--val_step",
+                 "1000", "--verbose", "1"]
+        if rehearse:
+            env["SCAN2CAP_TEST_TINY"] = "1"
+            flags += ["--num_points", "1024", "--num_proposals", "32"]
+        steps = CLI_TRAIN_ENTRIES // CLI_BATCH
+        tp, dp = f"{n // 2},2", f"{n},1"
+        train = "scan2cap_torch.scripts.train"
+        eval_args = ["--eval_caption", "--save_interm", "--device", dev]
+        walls = {}
+        if own:
+            # the run without --mesh, and its eval, which the mesh's are
+            # held to
+            _, walls["train"] = run_entry_point(
+                train, [*flags, "--tag", "smoke_a"], env, logs)
+            evaluated = next(d for d in os.listdir(out)
+                             if d.endswith("_SMOKE_A"))
+            text, walls["eval"] = run_python(
+                "eval_one", ["-m", "scan2cap_torch.scripts.eval",
+                             "--folder", evaluated, *eval_args], env, logs)
+            one_scores = score_lines(text)
+            with open(os.path.join(out, evaluated, "interm.json")) as f:
+                one_interm = json.load(f)
+        else:
+            evaluated = kept["run"]
+            one_scores, one_interm = kept["eval_scores"], kept["interm"]
+        one = next(d for d in os.listdir(out) if d.endswith("_SMOKE_A"))
+
+        def run_dir(tag):
+            return next(d for d in os.listdir(out)
+                        if d.endswith("_" + tag.upper()))
+
+        def tp_then_resume():
+            first = run_python("train_tp", ["-m", train, *flags, "--mesh",
+                                            tp, "--tag", "smoke_tp"],
+                               env, logs)
+            second = run_python(
+                "resume_dp", ["-m", train, *flags, "--epoch", "2", "--mesh",
+                              dp, "--use_checkpoint", run_dir("smoke_tp"),
+                              "--tag", "smoke_dpr"], env, logs)
+            return first, second
+
+        # at once: the walls are not read as a path's speed
+        with ThreadPoolExecutor(4) as pool:
+            chain = pool.submit(tp_then_resume)
+            alone = [pool.submit(run_python, *job) for job in (
+                ("train_dp", ["-m", train, *flags, "--mesh", dp, "--tag",
+                              "smoke_dp"], env, logs),
+                ("train_spatial", ["-m", train, *flags, "--mesh", tp,
+                                   "--spatial", "--tag", "smoke_sp"],
+                 env, logs),
+                ("eval_tp", ["-m", "scan2cap_torch.scripts.eval", "--folder",
+                             evaluated, *eval_args, "--mesh", tp], env,
+                 logs))]
+            (tp_run, resumed), results = chain.result(), [f.result()
+                                                          for f in alone]
+        (dp_run, spatial_run, eval_run) = results
+        walls.update(train_tp=tp_run[1], resume_dp=resumed[1],
+                     train_dp=dp_run[1], train_spatial=spatial_run[1],
+                     eval_tp=eval_run[1])
+        require(f"mesh: data={n // 2} model=2" in tp_run[0]
+                and f"mesh: data={n} model=1" in dp_run[0]
+                and "spatial(SA query axis over model)" in spatial_run[0],
+                "a train run printed no mesh line")
+        require(f"resumed from {run_dir('smoke_tp')} at epoch 1"
+                in resumed[0], "the (n, 1) run did not resume the (n/2, 2) "
+                "run at global epoch 2")
+
+        def read(r, name):
+            with open(os.path.join(out, r, name)) as f:
+                return json.load(f)
+
+        loss_1 = read(one, "train_stats.json")["epochs"][0]["losses"][0]
+        want = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
+                    group_points_cuda=6)
+        runs = {}
+        # every rank's launches: the dryrun's held steps and the runs'
+        launches = sum_launches(*(c for f in dry["flagship"]
+                                  for c in f["launches_per_rank"]))
+        for tag, what in (("smoke_tp", tp), ("smoke_dp", dp),
+                          ("smoke_sp", tp + " --spatial"),
+                          ("smoke_dpr", dp + " resumed")):
+            st = read(run_dir(tag), "train_stats.json")
+            losses = st["epochs"][0]["losses"]
+            require(len(losses) == steps and all(np.isfinite(losses)),
+                    f"--mesh {what} losses {losses}")
+            per_rank = [{k: v for k, v in per_call(c, st["steps"]).items()
+                         if v} for c in st["launches_by_rank"]]
+            launches = sum_launches(launches, *st["launches_by_rank"])
+            require(len(per_rank) == n, f"--mesh {what}: launches of "
+                    f"{len(per_rank)} ranks")
+            row = dict(loss_first=losses[0], losses=losses,
+                       launches_per_step_by_rank=per_rank,
+                       ms_per_step=sorted(st["epochs"][0]["step_s"][2:])[
+                           (steps - 2) // 2] * 1e3)
+            if tag != "smoke_dpr":
+                row["loss_first_rel_diff"] = abs(losses[0] - loss_1) / abs(
+                    loss_1)
+                require(abs(losses[0] - loss_1) <= 2e-3 * abs(loss_1) + 1e-3,
+                        f"--mesh {what}: first loss {losses[0]}, {loss_1} "
+                        f"without --mesh")
+            if tag != "smoke_sp":
+                for r, counts in enumerate(per_rank):
+                    for k, v in want.items():
+                        require(rehearse or counts.get(k) == v,
+                                f"--mesh {what} rank {r}: {k} "
+                                f"{counts.get(k)} launches a step, want {v}")
+            runs[tag] = row
+
+        # last.pt of the (n/2, 2) run and of its resume at (n, 1), read
+        # back in this process without --mesh
+        info = read(run_dir("smoke_tp"), "info.json")
+        if rehearse:
+            os.environ["SCAN2CAP_TEST_TINY"] = "1"
+        model = CapNet(model_config_from_info(info), num_vocabs=NUM_VOCABS,
+                       num_vocabs_padded=info["num_vocabs_padded"],
+                       device=dev, seed=1)
+        os.environ.pop("SCAN2CAP_TEST_TINY", None)
+        for tag in ("smoke_tp", "smoke_dpr"):
+            ckpt = CheckpointIO(os.path.join(out, run_dir(tag), "ckpt"))
+            last = ckpt.restore("last")["model"]
+            model.load_state_dict(last, strict=True)
+            require(all(torch.equal(v.cpu(), last[k])
+                        for k, v in model.state_dict().items()),
+                    f"the {tag} last.pt does not load bit-equal")
+        resume = CheckpointIO(os.path.join(out, run_dir("smoke_dpr"),
+                                           "ckpt")).restore("resume")
+        require(resume["epoch"] == 1 and resume["step"] == 2 * steps,
+                f"the resumed run's bundle: epoch {resume['epoch']}, step "
+                f"{resume['step']}")
+        del model
+        release_card(torch)
+
+        scores = score_lines(eval_run[0])
+        require(f"mesh: data={n // 2} model=2" in eval_run[0] and scores,
+                f"eval --mesh {tp} printed no mesh line or scores")
+        with open(os.path.join(out, evaluated, "interm.json")) as f:
+            agree, differ = token_agreement(interm_tokens(json.load(f)),
+                                            interm_tokens(one_interm))
+        require(scores == one_scores or agree >= 0.99,
+                f"eval --mesh {tp}: scores {scores} against {one_scores}, "
+                f"tokens {agree:.4f} equal: {differ[:5]}")
+        return dict(
+            ran=True, cards=n, card=card, dryrun=dry, config=" ".join(flags),
+            batch=CLI_BATCH, steps=steps, loss_first_without=loss_1,
+            runs=runs, eval_scores=scores, eval_scores_one_card=one_scores,
+            eval_scores_equal=scores == one_scores,
+            eval_tokens_equal=agree, eval_captions_differing=differ,
+            evaluated=evaluated, launches=launches, entry_point_wall_s=walls)
+    finally:
+        if own:
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def print_multicard(r):
+    runs = r["runs"]
+    print(f"  multicard ({r['cards']} cards, NCCL "
+          f"{r['dryrun'].get('nccl')}): "
+          + "; ".join(f"{tag} first loss {row['loss_first']:.6f}, "
+                      f"{row['ms_per_step']:.1f} ms a step"
+                      for tag, row in runs.items())
+          + f"; eval scores {'equal' if r['eval_scores_equal'] else 'differ'}"
+          f", tokens {r['eval_tokens_equal']:.4f} equal; dryrun "
+          f"{r['dryrun']['wall_s']:.1f} s", flush=True)
+
+
 # --------------------------------------------------------------------- phase 9
 # launch/train_maskvotenet.sh: B=16, multiview + normal + height and the
 # mask channel, 136 columns with xyz
@@ -2332,8 +2607,8 @@ MVN_BATCH = 16
 # against the plain versions on the card instead (HeldAgainstPlain)
 MVN_PARITY_BATCH = 4
 # the entry point's run on the CLI fixture: --use_normal (no multiview:
-# its features come from an HDF5 file through h5py), two epochs
-MVN_CLI_EPOCHS = 2
+# its features come from an HDF5 file through h5py), one epoch
+MVN_CLI_EPOCHS = 1
 
 
 def mvn_config(**overrides):
@@ -2366,84 +2641,23 @@ def mvn_launches_right(per_step, where):
                 f"launches per step, want {v}")
 
 
-class HeldAgainstPlain:
-    """While open, every launch of the path's three kernels through
-    ``scan2cap_torch.ops`` (FPS, the first-k ball query, the row gather)
-    must receive float32 and is held against its plain version on the same
-    inputs on the card, and must equal it exactly; ``checked`` lists
-    (kernel, shape) per launch, ``outputs`` (with ``record``) the kernels'
-    results on the host, by kernel, in launch order.  The plain versions
-    launch no wrapper, so the counts stay the path's."""
-
-    def __init__(self, torch, record=False):
-        from scan2cap_torch.ops import grouping, sampling
-        self.torch, self.grouping, self.sampling = torch, grouping, sampling
-        self.checked = []
-        self.outputs = {} if record else None
-
-    def fps(self, xyz, npoint, **kw):
-        self._float32("furthest_point_sample_cuda", xyz)
-        got = self.kernels["fps"](xyz, npoint, **kw)
-        want = self.sampling.furthest_point_sample_plain(xyz, npoint)
-        self._hold("furthest_point_sample_cuda", got, want,
-                   [*xyz.shape[:2], npoint])
-        return got
-
-    def first_k(self, xyz, new_xyz, r2, nsample, **kw):
-        self._float32("ball_query_cuda", xyz, new_xyz)
-        got = self.kernels["first_k"](xyz, new_xyz, r2, nsample, **kw)
-        radius = float(r2) ** 0.5
-        require(self.grouping.radius_squared(radius) == r2,
-                f"radius {radius} does not give back r2 {r2}")
-        want = self.grouping.ball_query_plain(xyz, new_xyz, radius, nsample)
-        self._hold("ball_query_cuda", got, want,
-                   [xyz.shape[0], xyz.shape[1], new_xyz.shape[1], nsample])
-        return got
-
-    def gather(self, features, idx, **kw):
-        self._float32("group_points_cuda", features)
-        got = self.kernels["gather"](features, idx, **kw)
-        want = self.grouping.group_points_plain(features, idx)
-        self._hold("group_points_cuda", got, want,
-                   [*features.shape, *idx.shape[1:]])
-        return got
-
-    def _float32(self, kernel, *tensors):
-        require(all(t.dtype == self.torch.float32 for t in tensors),
-                f"{kernel} received {[t.dtype for t in tensors]}")
-
-    def _hold(self, kernel, got, want, shape):
-        require(self.torch.equal(got, want), f"{kernel} at {shape} on the "
-                f"path: kernel != plain")
-        self.checked.append((kernel, shape))
-        if self.outputs is not None:
-            self.outputs.setdefault(kernel, []).append(got.cpu())
-
-    def __enter__(self):
-        g, s = self.grouping, self.sampling
-        self.saved = dict(fps=s.furthest_point_sample_cuda,
-                          first_k=g.ball_query_cuda,
-                          gather=g.group_points_cuda)
-        self.kernels = dict(self.saved)
-        s.furthest_point_sample_cuda = self.fps
-        g.ball_query_cuda, g.group_points_cuda = self.first_k, self.gather
-        return self
-
-    def __exit__(self, *exc):
-        s, g, k = self.sampling, self.grouping, self.saved
-        s.furthest_point_sample_cuda = k["fps"]
-        g.ball_query_cuda, g.group_points_cuda = k["first_k"], k["gather"]
+def HeldAgainstPlain(torch, record=False):
+    """``scan2cap_torch.probes.held.HeldAgainstPlain``: while open, every
+    FPS, first-k and gather launch of the path is held exactly against its
+    plain version on the same inputs on the card (a mismatch fails the
+    phase)."""
+    from scan2cap_torch.probes.held import HeldAgainstPlain as Held
+    return Held(record=record, error=PhaseError)
 
 
 def train_mask_votenet(torch, np, dev="cuda", cfg=None, B=MVN_BATCH,
-                       parity_batch=MVN_PARITY_BATCH, warmup=2, steps=5,
-                       windows=3, lr=1e-3, bn_momentum=0.1):
+                       warmup=2, steps=5, windows=3, lr=1e-3,
+                       bn_momentum=0.1):
     """MaskVoteNet's train step at the launch script's width on a repeated
     synthetic batch: step 2 with every kernel launch held against its plain
-    version on the card, step 1 of a fresh model at ``parity_batch``
-    against the port on the CPU, launches per step, ms per step over
-    ``windows`` spans, a profiled step.  ``dev="cpu"`` rehearses the
-    control flow (no kernels, no launch counts, no profile)."""
+    version on the card, launches per step, ms per step over ``windows``
+    spans, a profiled step.  ``dev="cpu"`` rehearses the control flow (no
+    kernels, no launch counts, no profile)."""
     from scan2cap_torch.data.synthetic import to_device
     from scan2cap_torch.kernels import launch_counts, reset_launch_counts
     from scan2cap_torch.models.mask_votenet import MaskVoteNet
@@ -2483,7 +2697,7 @@ def train_mask_votenet(torch, np, dev="cuda", cfg=None, B=MVN_BATCH,
     require(first["vote_loss"] > 0 and first["box_loss"] > 0
             and 0 <= first["miou"] <= 1, f"degenerate training batch: {first}")
 
-    cpu_ref = held_report = None
+    held_report = None
     if card:
         # step 2: every FPS, first-k and gather launch of a whole step at
         # B=16 (forward and backward) against its plain version on the same
@@ -2491,9 +2705,7 @@ def train_mask_votenet(torch, np, dev="cuda", cfg=None, B=MVN_BATCH,
         with HeldAgainstPlain(torch) as held:
             step(batch, lr, bn_momentum)
         sync()
-        by_kernel = {}
-        for kernel, _ in held.checked:
-            by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+        by_kernel = held.counts()
         ordered = sum(1 for k, shape in held.checked
                       if k == "ball_query_cuda" and shape[-1] == 512)
         require(by_kernel == dict(furthest_point_sample_cuda=5,
@@ -2503,31 +2715,6 @@ def train_mask_votenet(torch, np, dev="cuda", cfg=None, B=MVN_BATCH,
         held_report = dict(batch=B, exact=len(held.checked),
                            by_kernel=by_kernel,
                            shapes=[[k, shape] for k, shape in held.checked])
-
-        # step 1 of a fresh model on the card and on the CPU at
-        # parity_batch: the same weights and batch, the CPU through the
-        # port's plain versions, at full width
-        small = mvn_batch(np, cfg, parity_batch)
-        p_model, _, p_step = build(dev)
-        p_first = {k: float(v) for k, v in
-                   p_step(to_device(small, dev), lr, bn_momentum).items()}
-        p_norms = grad_norms(p_model)
-        del p_model, p_step
-        t0 = time.perf_counter()
-        cpu_model, _, cpu_step = build("cpu")
-        cpu_first = {k: float(v) for k, v in
-                     cpu_step(to_device(small, "cpu"), lr, bn_momentum).items()}
-        cpu_norms = grad_norms(cpu_model)
-        cpu_ms = (time.perf_counter() - t0) * 1e3
-        del cpu_model, cpu_step
-        loss_rel, worst_name, worst_rel = step1_parity(
-            np, p_first, cpu_first, p_norms, cpu_norms, "MaskVoteNet")
-        cpu_ref = dict(batch=parity_batch, num_points=cfg.num_points,
-                       ms=cpu_ms, loss=cpu_first["loss"],
-                       miou=cpu_first["miou"], loss_rel_err=loss_rel,
-                       worst_grad_norm_rel_err=worst_rel,
-                       worst_grad_norm_tensor=worst_name,
-                       tensors=len(cpu_norms))
     else:
         step(batch, lr, bn_momentum)
 
@@ -2564,7 +2751,7 @@ def train_mask_votenet(torch, np, dev="cuda", cfg=None, B=MVN_BATCH,
                   scenes_per_s=B / ms * 1e3, first_step_ms=first_ms,
                   launches_per_step=per_step, launches=launches,
                   step1=first, loss_by_step=losses, miou_by_step=mious,
-                  held_against_plain=held_report, cpu_reference=cpu_ref)
+                  held_against_plain=held_report)
     if card:
         # device busy share: summed kernel time of one profiled step
         profile = profile_step(lambda: step(batch, lr, bn_momentum),
@@ -2573,6 +2760,39 @@ def train_mask_votenet(torch, np, dev="cuda", cfg=None, B=MVN_BATCH,
         report.update(profile=profile,
                       peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     return report
+
+
+def mvn_step1_parity(torch, np, dev="cuda", cfg=None,
+                     parity_batch=MVN_PARITY_BATCH, lr=1e-3,
+                     bn_momentum=0.1):
+    """Step 1 of a fresh MaskVoteNet on the card and on the CPU at
+    ``parity_batch``: the same weights and batch, the CPU through the
+    port's plain versions, at full width (``step1_parity``'s gates)."""
+    from scan2cap_torch.data.synthetic import to_device
+    from scan2cap_torch.models.mask_votenet import MaskVoteNet
+    from scan2cap_torch.train.step import (create_train_state,
+                                           make_mask_votenet_step)
+
+    cfg = cfg or mvn_config()
+    small = mvn_batch(np, cfg, parity_batch)
+
+    def first_step(device):
+        model = MaskVoteNet(cfg, device=device, seed=0)
+        step = make_mask_votenet_step(cfg, create_train_state(cfg, model))
+        first = {k: float(v) for k, v in
+                 step(to_device(small, device), lr, bn_momentum).items()}
+        return first, grad_norms(model)
+
+    p_first, p_norms = first_step(dev)
+    t0 = time.perf_counter()
+    cpu_first, cpu_norms = first_step("cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    loss_rel, worst_name, worst_rel = step1_parity(
+        np, p_first, cpu_first, p_norms, cpu_norms, "MaskVoteNet")
+    return dict(batch=parity_batch, num_points=cfg.num_points, ms=cpu_ms,
+                loss=cpu_first["loss"], miou=cpu_first["miou"],
+                loss_rel_err=loss_rel, worst_grad_norm_rel_err=worst_rel,
+                worst_grad_norm_tensor=worst_name, tensors=len(cpu_norms))
 
 
 def mask_getitem_ms(np, data, train, num_points):
@@ -2599,7 +2819,7 @@ def mask_getitem_ms(np, data, train, num_points):
 def mvn_cli(torch, np, card, dev="cuda", rehearse=False):
     """``python -m scan2cap_torch.scripts.train_maskvotenet`` as a
     subprocess on the CLI phase's ScanNet-layout fixture at B=16 with
-    --use_normal, two epochs: every loss finite, launches per step the
+    --use_normal, one epoch: every loss finite, launches per step the
     structure's, last.pt and its reference-layout export reloaded
     bit-equal.  ``rehearse`` shrinks scenes and model for the CPU."""
     import shutil
@@ -2689,9 +2909,20 @@ def mvn_cli(torch, np, card, dev="cuda", rehearse=False):
 
 def mvn_phase(torch, np, card):
     """Phase 9: MaskVoteNet in process at full width, then its entry
-    point."""
+    point beside the step-1 parity check on the CPU."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
     train = train_mask_votenet(torch, np)
+    train["phase_s"] = time.perf_counter() - t0
+    # the entry point on the card beside the CPU's step 1 of the parity
+    # check (host work), so its timers are taken beside it
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        cli_done = pool.submit(mvn_cli, torch, np, card)
+        train["cpu_reference"] = mvn_step1_parity(torch, np)
+        cli = cli_done.result()
+    cli["phase_s"] = time.perf_counter() - t0
     print(f"  mvn: {train['ms_per_step']:.1f} ms per step at B={train['batch']} "
           f"(spans {[round(x, 2) for x in train['window_ms_per_step']]}), "
           f"first step {train['first_step_ms']:.0f} ms, kernels "
@@ -2702,10 +2933,6 @@ def mvn_phase(torch, np, card):
           f"B={train['batch']} equal to the plain versions "
           f"({train['held_against_plain']['by_kernel']}); step-1 parity "
           f"{train['cpu_reference']}", flush=True)
-    train["phase_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    cli = mvn_cli(torch, np, card)
-    cli["phase_s"] = time.perf_counter() - t0
     print(f"  mvn cli: {cli['ms_per_iteration']:.1f} ms per iteration at "
           f"B={cli['batch']}, fetch {cli['fetch_s_median']:.4f} s, "
           f"__getitem__ {cli['getitem_ms']:.1f} ms, saves "
@@ -3022,9 +3249,7 @@ def held_forward(torch, fn, want, what):
     with HeldAgainstPlain(torch) as held:
         out = fn()
     torch.cuda.synchronize()
-    by_kernel = {}
-    for kernel, _ in held.checked:
-        by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+    by_kernel = held.counts()
     require(by_kernel == want, f"{what} held against the plain versions: "
             f"{by_kernel}, want {want}")
     return out, dict(exact=len(held.checked), by_kernel=by_kernel,
@@ -3106,6 +3331,119 @@ def extraction_check(torch, card, forward, loader_batch, want, what):
                                                 what)), out
 
 
+def votenet_leg(torch, np, dev, env, data, out, train, val, glove, scannet,
+                mv_path, num_points, train_entries, mask_ds, pre_steps,
+                report, run, run_both, run_folder, train_stats,
+                extract_stats, keys_present):
+    """The pretrained phase's votenet leg (``pretrained_cli``'s step 5):
+    a multiview detector's run folder, extract_votenet_features,
+    train_pretrained and eval_pretrained in votenet mode; its readings go
+    into ``report``."""
+    from scan2cap_torch.data.dataset import Loader, ScannetReferenceDataset
+    from scan2cap_torch.data.dataset_pretrained import (
+        PretrainedVoteNetDataset)
+    from scan2cap_torch.data.feature_store import open_feature_store
+    from scan2cap_torch.data.synthetic import to_device
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.scripts.train import model_config_from_info
+    from scan2cap_torch.train.checkpoints import CheckpointIO, model_bundle
+    from scan2cap_torch.train.step import make_eval_step
+
+    on_card = dev != "cpu"
+    # 5. the votenet leg: a multiview detector's run folder (seeded,
+    # its voting head conditioned so that some proposals are objects)
+    det_info = dict(num_points=num_points, num_proposals=256,
+                    num_locals=-1, num_graph_steps=0, query_mode="center",
+                    graph_mode="edge_conv", graph_aggr="add",
+                    use_relation=False, use_orientation=False,
+                    use_distance=False, use_topdown=False,
+                    use_color=False, use_normal=True, use_multiview=True,
+                    no_height=False, no_caption=True)
+    os.environ.update({k: env[k] for k in ("SCAN2CAP_TEST_TINY",)
+                       if k in env})
+    det_cfg = model_config_from_info(det_info)
+    os.environ.pop("SCAN2CAP_TEST_TINY", None)
+    det_run = "smoke_pre_detector"
+    detector = CapNet(det_cfg, num_vocabs=NUM_VOCABS, device=dev, seed=0)
+    det_ds = ScannetReferenceDataset(
+        [next(e for e in train_entries if e["scene_id"] == s)
+         for s in train], train, scannet_data_dir=scannet,
+        glove_path=glove, num_points=num_points, use_height=True,
+        use_normal=True, use_multiview=True, multiview_path=mv_path)
+    loader = Loader(det_ds, 8, shuffle=False, drop_last=False)
+    det_batch = next(iter(loader))
+    loader.close()
+    with torch.no_grad():
+        # votes and boxes near the seeds, with their class's mean size
+        # (a fresh head throws them metres away), so that some stored
+        # proposals overlap the described object
+        detector.vgen.conv3.weight.mul_(0.02)
+        detector.proposal.conv3.weight.mul_(0.02)
+        # and it calls every proposal background: move the objectness
+        # bias by the median margin, so that about half are objects
+        scores = make_eval_step(det_cfg, detector, detection_loss=False)(
+            to_device(det_batch, dev))["objectness_scores"]
+        detector.proposal.conv3.bias[1] += torch.median(
+            scores[..., 0] - scores[..., 1])
+    os.makedirs(os.path.join(out, det_run))
+    CheckpointIO(os.path.join(out, det_run, "ckpt")).save(
+        "last", model_bundle(detector))
+    with open(os.path.join(out, det_run, "info.json"), "w") as f:
+        json.dump(det_info, f)
+    vn = {}
+    texts = run_both("extract_votenet_features", {
+        f"extract_votenet_{split}": [
+            "--folder", det_run, "--split", split, "--batch_size", "8"]
+        for split in ("train", "val")})
+    for split, text in zip(("train", "val"), texts):
+        vn[split] = extract_stats(
+            text, 1, EXTRACT_FORWARD,
+            f"extract_votenet_features ({split})")
+        vn[split]["keys"], vn[split]["bytes"] = keys_present(
+            os.path.join(data, f"votenet_ScanRefer_predictions_{split}"
+                               f".npz"),
+            [f"0|{s}{x}" for s in (train if split == "train" else val)
+             for x in ("_object_ids", "_features", "_bbox_corners",
+                       "_gt_ids", "_gt_corners")],
+            f"the VoteNet {split} store")
+    vn_store = os.path.join(data, "votenet_ScanRefer_predictions_train"
+                                  ".npz")
+    with open_feature_store(vn_store) as db:
+        vn["proposals_kept"] = {s: int(db.shape(f"0|{s}_object_ids")[0])
+                                for s in train}
+    require(sum(vn["proposals_kept"].values()) > 0, "the detector kept "
+            "no proposal in any scene")
+
+    # one detector forward in process, held and traced
+    vn["forward"], _ = extraction_check(torch, on_card,
+                                        make_eval_step(det_cfg, detector),
+                                        det_batch, EXTRACT_FORWARD,
+                                        "detector extraction")
+    vn_ds = PretrainedVoteNetDataset(train_entries, vn_store,
+                                     split="train", glove=mask_ds.glove)
+    t0 = time.perf_counter()
+    for i in range(16):
+        vn_ds.__getitem__(i)
+    report["votenet_getitem_ms"] = (time.perf_counter() - t0) * 1e3 / 16
+    report["extract_votenet"] = vn
+
+    run("train_pretrained", [
+        "--mode", "votenet", *PRE_FLAGS, "--batch_size", str(PRE_BATCH),
+        "--epoch", "1", "--verbose", "1", "--val_step", str(pre_steps),
+        "--tag", "smoke_pre_vn"], "train_pretrained_votenet")
+    vn_run = run_folder("smoke_pre_vn")
+    stats, losses, step_ms = train_stats(vn_run)
+    # the IoU gate found a target in some batch: the captions trained
+    require(max(losses) > 0, f"train_pretrained (votenet): no stored "
+            f"proposal passed the IoU gate in any batch: {losses}")
+    report["train_pretrained_votenet"] = dict(
+        steps=stats["steps"], losses=losses, ms_per_step=step_ms)
+    text = run("eval_pretrained", ["--folder", vn_run, "--batch_size",
+                                   str(PRE_BATCH)],
+               "eval_pretrained_votenet")
+    report["eval_pretrained_votenet"] = eval_report(text, out, vn_run)
+
+
 def pretrained_cli(torch, np, dev="cuda", rehearse=False):
     """The pretrained track through the port's entry points as subprocesses
     on the CLI fixture with a multiview store beside it: MaskVoteNet at the
@@ -3135,6 +3473,8 @@ def pretrained_cli(torch, np, dev="cuda", rehearse=False):
         model_config_from_args)
     from scan2cap_torch.train.checkpoints import CheckpointIO, model_bundle
     from scan2cap_torch.train.step import make_eval_step
+
+    from concurrent.futures import ThreadPoolExecutor
 
     on_card = dev != "cpu"
     root = tempfile.mkdtemp(prefix="scan2cap_pre_")
@@ -3343,116 +3683,38 @@ def pretrained_cli(torch, np, dev="cuda", rehearse=False):
         require(gt_ds.num_preset_epochs == 2, f"the GT dataset draws from "
                 f"{gt_ds.num_preset_epochs} stored passes, want 2")
 
-        # 3. train_pretrained (gt) with an in-training eval, 4. eval
+        # 3. train_pretrained (gt) with an in-training eval, 4. eval: in a
+        # thread beside the votenet leg (5), as neither reads the other's
+        # output; their timers are taken beside each other
         pre_steps = len(train_entries) // PRE_BATCH
-        run("train_pretrained", [
-            "--mode", "gt", *PRE_FLAGS, "--batch_size", str(PRE_BATCH),
-            "--epoch", "1", "--verbose", "1", "--val_step", str(pre_steps),
-            "--tag", "smoke_pre_gt"], "train_pretrained_gt")
-        gt_run = run_folder("smoke_pre_gt")
-        stats, losses, step_ms = train_stats(gt_run)
-        with open(os.path.join(out, gt_run, "log.txt")) as f:
-            require("[eval @ iter" in f.read(), "train_pretrained (gt): the "
-                    "in-training eval did not fire")
-        report["train_pretrained_gt"] = dict(steps=stats["steps"],
-                                             losses=losses,
-                                             ms_per_step=step_ms)
-        text = run("eval_pretrained", ["--folder", gt_run, "--batch_size",
-                                       str(PRE_BATCH)], "eval_pretrained_gt")
-        report["eval_pretrained_gt"] = eval_report(text, out, gt_run)
 
-        # 5. the votenet leg: a multiview detector's run folder (seeded,
-        # its voting head conditioned so that some proposals are objects)
-        det_info = dict(num_points=num_points, num_proposals=256,
-                        num_locals=-1, num_graph_steps=0, query_mode="center",
-                        graph_mode="edge_conv", graph_aggr="add",
-                        use_relation=False, use_orientation=False,
-                        use_distance=False, use_topdown=False,
-                        use_color=False, use_normal=True, use_multiview=True,
-                        no_height=False, no_caption=True)
-        os.environ.update({k: env[k] for k in ("SCAN2CAP_TEST_TINY",)
-                           if k in env})
-        det_cfg = model_config_from_info(det_info)
-        os.environ.pop("SCAN2CAP_TEST_TINY", None)
-        det_run = "smoke_pre_detector"
-        detector = CapNet(det_cfg, num_vocabs=NUM_VOCABS, device=dev, seed=0)
-        det_ds = ScannetReferenceDataset(
-            [next(e for e in train_entries if e["scene_id"] == s)
-             for s in train], train, scannet_data_dir=scannet,
-            glove_path=glove, num_points=num_points, use_height=True,
-            use_normal=True, use_multiview=True, multiview_path=mv_path)
-        loader = Loader(det_ds, 8, shuffle=False, drop_last=False)
-        det_batch = next(iter(loader))
-        loader.close()
-        with torch.no_grad():
-            # votes and boxes near the seeds, with their class's mean size
-            # (a fresh head throws them metres away), so that some stored
-            # proposals overlap the described object
-            detector.vgen.conv3.weight.mul_(0.02)
-            detector.proposal.conv3.weight.mul_(0.02)
-            # and it calls every proposal background: move the objectness
-            # bias by the median margin, so that about half are objects
-            scores = make_eval_step(det_cfg, detector, detection_loss=False)(
-                to_device(det_batch, dev))["objectness_scores"]
-            detector.proposal.conv3.bias[1] += torch.median(
-                scores[..., 0] - scores[..., 1])
-        os.makedirs(os.path.join(out, det_run))
-        CheckpointIO(os.path.join(out, det_run, "ckpt")).save(
-            "last", model_bundle(detector))
-        with open(os.path.join(out, det_run, "info.json"), "w") as f:
-            json.dump(det_info, f)
-        vn = {}
-        texts = run_both("extract_votenet_features", {
-            f"extract_votenet_{split}": [
-                "--folder", det_run, "--split", split, "--batch_size", "8"]
-            for split in ("train", "val")})
-        for split, text in zip(("train", "val"), texts):
-            vn[split] = extract_stats(
-                text, 1, EXTRACT_FORWARD,
-                f"extract_votenet_features ({split})")
-            vn[split]["keys"], vn[split]["bytes"] = keys_present(
-                os.path.join(data, f"votenet_ScanRefer_predictions_{split}"
-                                   f".npz"),
-                [f"0|{s}{x}" for s in (train if split == "train" else val)
-                 for x in ("_object_ids", "_features", "_bbox_corners",
-                           "_gt_ids", "_gt_corners")],
-                f"the VoteNet {split} store")
-        vn_store = os.path.join(data, "votenet_ScanRefer_predictions_train"
-                                      ".npz")
-        with open_feature_store(vn_store) as db:
-            vn["proposals_kept"] = {s: int(db.shape(f"0|{s}_object_ids")[0])
-                                    for s in train}
-        require(sum(vn["proposals_kept"].values()) > 0, "the detector kept "
-                "no proposal in any scene")
+        def gt_leg():
+            run("train_pretrained", [
+                "--mode", "gt", *PRE_FLAGS, "--batch_size", str(PRE_BATCH),
+                "--epoch", "1", "--verbose", "1", "--val_step",
+                str(pre_steps), "--tag", "smoke_pre_gt"],
+                "train_pretrained_gt")
+            gt_run = run_folder("smoke_pre_gt")
+            stats, losses, step_ms = train_stats(gt_run)
+            with open(os.path.join(out, gt_run, "log.txt")) as f:
+                require("[eval @ iter" in f.read(), "train_pretrained (gt): "
+                        "the in-training eval did not fire")
+            report["train_pretrained_gt"] = dict(steps=stats["steps"],
+                                                 losses=losses,
+                                                 ms_per_step=step_ms)
+            text = run("eval_pretrained", ["--folder", gt_run,
+                                           "--batch_size", str(PRE_BATCH)],
+                       "eval_pretrained_gt")
+            report["eval_pretrained_gt"] = eval_report(text, out, gt_run)
 
-        # one detector forward in process, held and traced
-        vn["forward"], _ = extraction_check(torch, on_card,
-                                            make_eval_step(det_cfg, detector),
-                                            det_batch, EXTRACT_FORWARD,
-                                            "detector extraction")
-        vn_ds = PretrainedVoteNetDataset(train_entries, vn_store,
-                                         split="train", glove=mask_ds.glove)
-        t0 = time.perf_counter()
-        for i in range(16):
-            vn_ds.__getitem__(i)
-        report["votenet_getitem_ms"] = (time.perf_counter() - t0) * 1e3 / 16
-        report["extract_votenet"] = vn
-
-        run("train_pretrained", [
-            "--mode", "votenet", *PRE_FLAGS, "--batch_size", str(PRE_BATCH),
-            "--epoch", "1", "--verbose", "1", "--val_step", str(pre_steps),
-            "--tag", "smoke_pre_vn"], "train_pretrained_votenet")
-        vn_run = run_folder("smoke_pre_vn")
-        stats, losses, step_ms = train_stats(vn_run)
-        # the IoU gate found a target in some batch: the captions trained
-        require(max(losses) > 0, f"train_pretrained (votenet): no stored "
-                f"proposal passed the IoU gate in any batch: {losses}")
-        report["train_pretrained_votenet"] = dict(
-            steps=stats["steps"], losses=losses, ms_per_step=step_ms)
-        text = run("eval_pretrained", ["--folder", vn_run, "--batch_size",
-                                       str(PRE_BATCH)],
-                   "eval_pretrained_votenet")
-        report["eval_pretrained_votenet"] = eval_report(text, out, vn_run)
+        with ThreadPoolExecutor(1) as pool:
+            gt_done = pool.submit(gt_leg)
+            votenet_leg(torch, np, dev, env, data, out, train, val, glove,
+                        scannet, mv_path, num_points, train_entries,
+                        mask_ds, pre_steps, report, run, run_both,
+                        run_folder, train_stats, extract_stats, keys_present)
+            gt_done.result()
+        vn = report["extract_votenet"]
 
         # the object encoder on the fixture's crops
         report["encoder"] = encoder_on_card(torch, np, data, train, on_card,
@@ -3582,12 +3844,15 @@ def print_eval(r):
 # 60 steps with an evaluation every 30 over one held-out batch
 QUALITY_STEPS = 60
 QUALITY_EVAL_EVERY = 30
-DEMO_STEPS = 30
-# multiview features from frames: 200 poses a scene for 2 of the CLI
+# the demo cycles over its 4 batches: its last step (28) trains on the
+# batch of its first, so the first and last losses it compares are of one
+# batch
+DEMO_STEPS = 29
+# multiview features from frames: 100 poses a scene for 2 of the CLI
 # fixture's scenes, colour 328 x 256 PNG, depth 41 x 32 16-bit PNG; ENet at
 # the CLI's batch of 64; every 20th frame projected
 MV_SCENES = 2
-MV_FRAMES = 200
+MV_FRAMES = 100
 MV_CPU_FRAMES = 4
 # the ENet tolerance of tests/test_torch_enet.py: 1e-4 of the largest value
 ENET_TOL = 1e-4
@@ -3598,9 +3863,9 @@ def quality_phase(torch, np, card, dev="cuda", rehearse=False):
     first-k and gather launch held against its plain version on the card
     (5, 5, 6 a step); the trajectory entry point for ``QUALITY_STEPS``
     steps (every loss finite, the loss at the second evaluation below the
-    first's); the demo entry point for ``DEMO_STEPS`` detection-only steps
-    (the loss and the box loss fall).  ``rehearse`` runs both entry points
-    at the trajectory's tiny size on the CPU."""
+    first's); at the same time the demo entry point for ``DEMO_STEPS``
+    detection-only steps (the loss and the box loss fall).  ``rehearse``
+    runs both entry points at the trajectory's tiny size on the CPU."""
     import shutil
     import tempfile
 
@@ -3632,9 +3897,7 @@ def quality_phase(torch, np, card, dev="cuda", rehearse=False):
             metrics = step(batch, args.lr, 0.1)
         torch.cuda.synchronize()
         per_step = {k: v for k, v in launch_counts().items() if v}
-        by_kernel = {}
-        for kernel, _ in held.checked:
-            by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+        by_kernel = held.counts()
         want = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
                     group_points_cuda=6)
         require(by_kernel == want and per_step == want,
@@ -3656,10 +3919,16 @@ def quality_phase(torch, np, card, dev="cuda", rehearse=False):
                  "512"] if rehearse else
                 ["--steps", str(QUALITY_STEPS), "--eval_every",
                  str(QUALITY_EVAL_EVERY)])
-        _, wall = run_entry_point(
-            "scan2cap_torch.scripts.quality_trajectory",
-            [*size, "--eval_batches", "1", "--out", out, "--device", dev],
-            env, logs)
+        demo_size = (["--steps", "3", "--batch_size", "2", "--num_points",
+                      "2048", "--num_batches", "1"] if rehearse
+                     else ["--steps", str(DEMO_STEPS)])
+        # the trajectory and the demo at once: their step times overlap
+        (_, wall), (text, demo_wall) = run_together(
+            entry_job("scan2cap_torch.scripts.quality_trajectory",
+                      [*size, "--eval_batches", "1", "--out", out,
+                       "--device", dev], env, logs),
+            entry_job("scan2cap_torch.scripts.demo_synthetic_train",
+                      [*demo_size, "--device", dev], env, logs))
         with open(out) as f:
             traj = json.load(f)
         curve = traj["curve"]
@@ -3686,19 +3955,13 @@ def quality_phase(torch, np, card, dev="cuda", rehearse=False):
         for k, v in traj["eval_launches"].items():
             launches[k] = launches.get(k, 0) + v
 
-        demo_size = (["--steps", "3", "--batch_size", "2", "--num_points",
-                      "2048", "--num_batches", "1"] if rehearse
-                     else ["--steps", str(DEMO_STEPS)])
-        text, wall = run_entry_point(
-            "scan2cap_torch.scripts.demo_synthetic_train",
-            [*demo_size, "--device", dev], env, logs)
         demo = json.loads(next(l for l in text.splitlines()[::-1]
                                if l.startswith('{"demo"')))["demo"]
         first, last = demo["first"], demo["last"]
         require(last["loss"] < first["loss"]
                 and last["box_loss"] < first["box_loss"],
                 f"the demo's losses did not fall: {first} -> {last}")
-        report["demo"] = dict(wall_s=wall, steps=demo["steps"],
+        report["demo"] = dict(wall_s=demo_wall, steps=demo["steps"],
                               logged=demo["logged"], map25=demo["map25"],
                               ar25=demo["ar25"],
                               scenes_per_s=demo["scenes_per_sec"])
@@ -3791,6 +4054,7 @@ def multiview_phase(torch, np, card, dev="cuda", rehearse=False):
     ``rehearse`` shrinks scenes and frames for the CPU."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from scan2cap_torch.data.feature_store import open_feature_store
     from scan2cap_torch.data.frames import load_image
@@ -3833,18 +4097,21 @@ def multiview_phase(torch, np, card, dev="cuda", rehearse=False):
             return json.loads(line)[key]
 
         feats = os.path.join(root, "feats")
-        enet = stats(run("compute_multiview_features",
-                         ["--frames_root", frames_root, "--out_root", feats,
-                          "--device", dev]), "compute_multiview_features")
+        # a few frames through the port's ENet on the CPU, beside the run on
+        # the card
+        with ThreadPoolExecutor(1) as pool:
+            computed = pool.submit(run, "compute_multiview_features",
+                                   ["--frames_root", frames_root,
+                                    "--out_root", feats, "--device", dev])
+            cpu = ENetEncoder(device="cpu")
+            color = os.path.join(frames_root, scenes[0], "color")
+            names = sorted(os.listdir(color))[:MV_CPU_FRAMES]
+            x = np.stack([load_image(os.path.join(color, f)) for f in names])
+            with torch.inference_mode():
+                want = cpu(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
+            enet = stats(computed.result(), "compute_multiview_features")
         require(enet["frames"] == MV_SCENES * frames,
                 f"ENet ran {enet['frames']} frames")
-        # a few frames again through the port's ENet on the CPU
-        cpu = ENetEncoder(device="cpu")
-        color = os.path.join(frames_root, scenes[0], "color")
-        names = sorted(os.listdir(color))[:MV_CPU_FRAMES]
-        x = np.stack([load_image(os.path.join(color, f)) for f in names])
-        with torch.inference_mode():
-            want = cpu(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
         got = np.stack([np.load(os.path.join(feats, scenes[0],
                                              f[:-4] + ".npy"))
                         for f in names])
@@ -3857,11 +4124,13 @@ def multiview_phase(torch, np, card, dev="cuda", rehearse=False):
         store = os.path.join(scannet, "enet_feats_maxpool.npz")
         proj_args = ["--scannet_data", scannet, "--frames_root", frames_root,
                      "--features_root", feats, "--maxpool"]
-        proj = stats(run("project_multiview_features",
-                         [*proj_args, "--out", store]),
-                     "project_multiview_features")
+        # the script's store, and a second run in this process beside it
         again = os.path.join(root, "again.npz")
-        project_multiview_features.main([*proj_args, "--out", again])
+        with ThreadPoolExecutor(1) as pool:
+            projected = pool.submit(run, "project_multiview_features",
+                                    [*proj_args, "--out", store])
+            project_multiview_features.main([*proj_args, "--out", again])
+            proj = stats(projected.result(), "project_multiview_features")
         with open_feature_store(store) as a, open_feature_store(again) as b:
             keys = sorted(a.keys())
             require(keys == sorted(b.keys()) and all(
@@ -4180,9 +4449,10 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
     plain version, its kept proposals and captions those of its own
     forward post-processed on the host, and its forward within the
     serving gates of a ``--device cpu`` run of the same checkpoint
-    (``held_visualize``); then ``preparation_tools``."""
+    (``held_visualize``); beside them ``preparation_tools``."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from scan2cap_torch import convert
     from scan2cap_torch.kernels import launch_counts, reset_launch_counts
@@ -4207,7 +4477,14 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
         env["SCAN2CAP_TEST_TINY"] = "1"
     saved_env = {k: os.environ.get(k) for k in
                  ("SCAN2CAP_DATA", "SCAN2CAP_OUTPUT", "SCAN2CAP_TEST_TINY")}
+    # the preparation tools (their own raw scene, subprocesses on the host)
+    # and the export beside visualize, none reading another's files
+    pool = ThreadPoolExecutor(2)
     try:
+        prep_root = os.path.join(root, "raw")
+        os.makedirs(prep_root)
+        preparation = pool.submit(preparation_tools, np, prep_root, env,
+                                  logs, rehearse)
         if kept is None:
             flags = [*CLI_FLAGS, "--device", dev]
             if rehearse:
@@ -4222,26 +4499,16 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
         sd = CheckpointIO(os.path.join(run_dir, "ckpt")).restore_best_or_last(
             )["model"]
 
-        # export: the whole model and its detection modules at once, each
-        # read back
+        # export: the whole model and its detection modules at once, beside
+        # visualize, each read back after it
         exports = (("full", [], "model.pth", set(sd)),
                    ("detection_only", ["--detection_only"], "votenet.pth",
                     {k for k in sd if k.split(".")[0] in
                      convert.DETECTION_MODULES}))
-        ran = run_together(*(entry_job(
+        exported = pool.submit(run_together, *(entry_job(
             "scan2cap_torch.scripts.export_pth", ["--folder", run, *extra],
             env, logs, name=f"export_pth_{what}")
             for what, extra, _, _ in exports))
-        walls = {f"export_{what}": wall
-                 for (what, _, _, _), (_, wall) in zip(exports, ran)}
-        for what, extra, name, keys in exports:
-            back = convert.state_dict_from_reference(
-                os.path.join(run_dir, name))
-            require(set(back) == keys and all(torch.equal(back[k], sd[k])
-                                              for k in keys),
-                    f"export_pth {what}: {name} does not read back "
-                    f"bit-equal to the checkpoint")
-        report["export"] = dict(wall_s=walls, tensors=len(sd))
 
         # visualize on the card, held, then on the CPU, on a copy of the
         # run whose proposals pass the objectness gate and overlap (the
@@ -4304,9 +4571,7 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
                 caps.append(json.load(f))
         vis = held_visualize(np, forwards, caps, files, cpu_files, data)
         if held is not None:
-            by_kernel = {}
-            for kernel, _ in held.checked:
-                by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+            by_kernel = held.counts()
             require(by_kernel == launches and
                     launches.get("furthest_point_sample_cuda") == 5
                     and launches.get("ball_query_cuda") == 5,
@@ -4316,14 +4581,21 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
             kept=len(caps[0]), launches=launches,
             held=len(held.checked) if held is not None else 0, **vis)
         report["launches"] = launch_counts()
+        walls = {f"export_{what}": wall for (what, _, _, _), (_, wall)
+                 in zip(exports, exported.result())}
+        for what, extra, name, keys in exports:
+            back = convert.state_dict_from_reference(
+                os.path.join(run_dir, name))
+            require(set(back) == keys and all(torch.equal(back[k], sd[k])
+                                              for k in keys),
+                    f"export_pth {what}: {name} does not read back "
+                    f"bit-equal to the checkpoint")
+        report["export"] = dict(wall_s=walls, tensors=len(sd))
         release_card(torch)
-
-        prep_root = os.path.join(root, "raw")
-        os.makedirs(prep_root)
-        report["preparation"] = preparation_tools(np, prep_root, env, logs,
-                                                  rehearse)
+        report["preparation"] = preparation.result()
         return report
     finally:
+        pool.shutdown()
         for k, v in saved_env.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -4332,7 +4604,7 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
         shutil.rmtree(root, ignore_errors=True)
 
 
-# -------------------------------------------------------------------- phase 17
+# -------------------------------------------------------------------- phase 18
 # the serving export of the CLI phase's resumed run: B=1, the requests
 # timed for the loaded program and the eager forward each
 EXPORT_BATCH = 1
@@ -4489,9 +4761,7 @@ def export_phase(torch, np, card, kept=None, dev="cuda", rehearse=False):
                         f"export: the loaded program's {k} differs from the "
                         f"eager forward's")
             if held is not None:
-                by_kernel = {}
-                for kernel, _ in held.checked:
-                    by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+                by_kernel = held.counts()
                 want = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
                             group_points_cuda=6)
                 require(by_kernel == per_forward == want, f"export: the "
@@ -4581,7 +4851,7 @@ def print_export(r):
           f"{r['op_overhead_us']}", flush=True)
 
 
-# -------------------------------------------------------------------- phase 18
+# -------------------------------------------------------------------- phase 19
 # the 2D baselines at their published widths: ResNet101 over 320 x 240
 # renders and 64 x 64 crops (one target and three context boxes a render),
 # hidden 512, GloVe 300, B=64 (three steps an epoch)
@@ -4823,8 +5093,8 @@ BF16_LOSS_TOL = 3e-2
 BF16_NORM_TOL = 5e-2
 BF16_WINDOWS = 2
 BF16_STEPS = 10
-BF16_DEMO_STEPS = 30
-BF16_QUALITY_STEPS = 20
+BF16_DEMO_STEPS = 15
+BF16_QUALITY_STEPS = 10
 
 
 class PlainRecorder:
@@ -4857,8 +5127,75 @@ class PlainRecorder:
             self.grouping.ball_query_plain = self.saved
 
 
+BF16_BATCH = 2
+
+
+def bf16_config(mode, rehearse=False):
+    """The flagship of phase 5 in ``mode`` (``BF16_MODES``); a small one
+    to rehearse on the CPU."""
+    import dataclasses
+
+    from scan2cap_torch.config import flagship_config
+    base = flagship_config(min_iou=0.0, **dict(BF16_MODES)[mode])
+    if rehearse:
+        base = dataclasses.replace(base, num_points=2048,
+                                   sa_npoints=(256, 128, 64, 32),
+                                   num_proposals=32, hidden_size=64,
+                                   emb_size=32)
+    return base
+
+
+def bf16_model(cfg, device):
+    """The seeded, conditioned flagship and its train step."""
+    import torch
+
+    from scan2cap_torch.models import CapNet
+    from scan2cap_torch.train.step import create_train_state, make_train_step
+    model = CapNet(cfg, num_vocabs=NUM_VOCABS, device=device, seed=0)
+    condition_weights(torch, model)
+    state = create_train_state(cfg, model)
+    return model, make_train_step(cfg, state, **TRAIN_LOSSES)
+
+
+def bf16_cpu_step(mode, rehearse=False, lr=1e-3, bn_momentum=0.1,
+                  threads=None):
+    """Step 1 of the bfloat16 phase's model in ``mode`` on the CPU: its
+    metrics, gradient norms and the plain FPS and first-k outputs.  Runs
+    in a process of its own too (``bf16_cpu_steps``), on ``threads``
+    torch threads."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from scan2cap_torch.data.synthetic import to_device
+    if threads:
+        torch.set_num_threads(threads)
+    cfg = bf16_config(mode, rehearse)
+    host = flagship_batch(np, cfg, BF16_BATCH)
+    model, step = bf16_model(cfg, "cpu")
+    with PlainRecorder() as rec:
+        first = {k: float(v) for k, v in step(
+            to_device(host, "cpu"), lr, bn_momentum).items()}
+    return first, grad_norms(model), rec.outputs
+
+
+def bf16_cpu_steps():
+    """``bf16_cpu_step`` of each mode started at once, each in a spawned
+    process on its share of the host's cores less one (a CPU step spends
+    much of its time in one thread); the pool and the futures by mode."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(len(BF16_MODES),
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"))
+    threads = max(1, (os.cpu_count() or 2) // len(BF16_MODES) - 1)
+    return pool, {mode: pool.submit(bf16_cpu_step, mode, threads=threads)
+                  for mode, _ in BF16_MODES}
+
+
 def bf16_phase(torch, np, card, dev="cuda", rehearse=False, float32=None,
-               lr=1e-3, bn_momentum=0.1):
+               lr=1e-3, bn_momentum=0.1, cpu_steps=None):
     """The bfloat16 backbone on the flagship at B=2, each mode
     (``BF16_MODES``): step 1 with every FPS, first-k and gather launch
     held against its plain version and receiving float32 (5, 5, 6);
@@ -4867,50 +5204,36 @@ def bf16_phase(torch, np, card, dev="cuda", rehearse=False, float32=None,
     reported, the loss and the gradient's norm within ``BF16_LOSS_TOL`` and
     ``BF16_NORM_TOL``); ms per step over ``BF16_WINDOWS`` spans, kernel ms
     and busy share of a profiled step, beside phase 5's float32 step
-    (``float32``); then ``demo_synthetic_train --bf16`` and
-    ``quality_trajectory --bf16_storage`` as subprocesses.  ``rehearse``
-    runs a small model on the CPU."""
-    import dataclasses
-    import shutil
-    import tempfile
+    (``float32``); ``demo_synthetic_train --bf16`` and
+    ``quality_trajectory --bf16_storage`` as subprocesses, beside the CPU's
+    steps (the card's steps run after both, alone).  ``rehearse`` runs a
+    small model on the CPU."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    from scan2cap_torch.config import flagship_config
     from scan2cap_torch.data.synthetic import to_device
     from scan2cap_torch.kernels import launch_counts, reset_launch_counts
-    from scan2cap_torch.models import CapNet
-    from scan2cap_torch.train.step import create_train_state, make_train_step
 
     report = dict(card=card, modes={})
     total = dict.fromkeys(launch_counts(), 0)
-    base = flagship_config(min_iou=0.0)
-    if rehearse:
-        base = dataclasses.replace(base, num_points=2048,
-                                   sa_npoints=(256, 128, 64, 32),
-                                   num_proposals=32, hidden_size=64,
-                                   emb_size=32)
-    B = 2
+    # the entry points on the card beside the CPU's step 1 of each mode
+    # (``cpu_steps``: started in processes of their own before this phase,
+    # else here), so their timers are taken beside them
+    with ThreadPoolExecutor(1) as pool:
+        entry_points = pool.submit(bf16_entry_points, np, dev, rehearse)
+        cpu = {mode: (cpu_steps[mode].result() if cpu_steps
+                      else bf16_cpu_step(mode, rehearse, lr, bn_momentum))
+               for mode, _ in BF16_MODES}
+        done = entry_points.result()
     for mode, dtypes in BF16_MODES:
-        cfg = dataclasses.replace(base, **dtypes)
-        host = flagship_batch(np, cfg, B)
-
-        def build(device):
-            model = CapNet(cfg, num_vocabs=NUM_VOCABS, device=device, seed=0)
-            condition_weights(torch, model)
-            state = create_train_state(cfg, model)
-            return model, make_train_step(cfg, state, **TRAIN_LOSSES)
-
-        row = dict(batch=B, **dtypes)
-        cpu_model, cpu_step = build("cpu")
-        with PlainRecorder() as cpu_rec:
-            cpu_first = {k: float(v) for k, v in cpu_step(
-                to_device(host, "cpu"), lr, bn_momentum).items()}
-        cpu_norms = grad_norms(cpu_model)
-        del cpu_model, cpu_step
+        cfg = bf16_config(mode, rehearse)
+        cpu_first, cpu_norms, cpu_outputs = cpu[mode]
+        row = dict(batch=BF16_BATCH, **dtypes)
         if dev == "cpu":
             row["step1"] = cpu_first
             report["modes"][mode] = row
             continue
-        model, step = build(dev)
+        model, step = bf16_model(cfg, dev)
+        host = flagship_batch(np, cfg, BF16_BATCH)
         batch = to_device(host, dev)
         reset_launch_counts()
         with HeldAgainstPlain(torch, record=True) as held:
@@ -4918,9 +5241,7 @@ def bf16_phase(torch, np, card, dev="cuda", rehearse=False, float32=None,
         torch.cuda.synchronize()
         first = {k: float(v) for k, v in first.items()}
         per_step = {k: v for k, v in launch_counts().items() if v}
-        by_kernel = {}
-        for kernel, _ in held.checked:
-            by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
+        by_kernel = held.counts()
         want = dict(furthest_point_sample_cuda=5, ball_query_cuda=5,
                     group_points_cuda=6)
         require(by_kernel == want and per_step == want,
@@ -4932,7 +5253,7 @@ def bf16_phase(torch, np, card, dev="cuda", rehearse=False, float32=None,
         # indices: the backbone's sites exact, the vote stage reported
         vote_diff = {}
         for kernel in ("furthest_point_sample_cuda", "ball_query_cuda"):
-            got, want_ = held.outputs[kernel], cpu_rec.outputs[kernel]
+            got, want_ = held.outputs[kernel], cpu_outputs[kernel]
             require(len(got) == len(want_) == 5, f"bf16 {mode}: {kernel} "
                     f"{len(got)} on the card, {len(want_)} on the CPU")
             for i in range(4):
@@ -4989,6 +5310,22 @@ def bf16_phase(torch, np, card, dev="cuda", rehearse=False, float32=None,
         del model, step, batch, held
         release_card(torch)
 
+    report.update(done)
+    steps = done["trajectory"]["steps"]
+    for k, v in done["trajectory"]["launches_per_step"].items():
+        total[k] = total.get(k, 0) + v * steps
+    for k, v in done["trajectory"]["eval_launches"].items():
+        total[k] = total.get(k, 0) + v
+    report["launches"] = total
+    return report
+
+
+def bf16_entry_points(np, dev, rehearse):
+    """The bfloat16 phase's entry points at once: ``demo_synthetic_train
+    --bf16`` and ``quality_trajectory --bf16_storage``; their readings."""
+    import shutil
+    import tempfile
+
     logs = os.path.join(ROOT, "chiprun_out", "bf16")
     os.makedirs(logs, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -5017,6 +5354,7 @@ def bf16_phase(torch, np, card, dev="cuda", rehearse=False, float32=None,
                 and all(np.isfinite([demo["first"]["loss"],
                                      demo["last"]["loss"]])),
                 f"the bf16 demo: {demo['first']} -> {demo['last']}")
+        report = {}
         report["demo"] = dict(wall_s=wall, steps=demo["steps"],
                               first=demo["first"]["loss"],
                               last=demo["last"]["loss"], map25=demo["map25"],
@@ -5035,13 +5373,9 @@ def bf16_phase(torch, np, card, dev="cuda", rehearse=False, float32=None,
                 f"the bf16-storage trajectory's launches per step {per}")
         report["trajectory"] = dict(wall_s=traj_wall, curve=traj["curve"],
                                     ms_per_step=traj["ms_per_step"],
-                                    launches_per_step=per)
-        steps = traj["config"]["steps"]
-        for k, v in per.items():
-            total[k] = total.get(k, 0) + v * steps
-        for k, v in traj["eval_launches"].items():
-            total[k] = total.get(k, 0) + v
-        report["launches"] = total
+                                    launches_per_step=per,
+                                    steps=traj["config"]["steps"],
+                                    eval_launches=traj["eval_launches"])
         return report
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5104,11 +5438,15 @@ def main(argv=None) -> int:
                     help="stop after the kernel checks (phase 3)")
     ap.add_argument("--skip", nargs="+", default=[],
                     choices=["serve", "train", "eval", "probes", "cli",
-                             "mesh", "export", "mvn", "benchmark",
-                             "pretrained", "quality", "multiview", "tools",
-                             "bf16", "twod"],
+                             "mesh", "multicard", "export", "mvn",
+                             "benchmark", "pretrained", "quality",
+                             "multiview", "tools", "bf16", "twod"],
                     help="leave out a path while bringing up another "
                          "(exit 3 by design: not a whole run)")
+    ap.add_argument("--cards", type=int, default=None,
+                    help="the multicard phase's cards (default: every card "
+                         "present; it runs with two or more); fewer cards "
+                         "present than asked for is an error")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -5123,6 +5461,12 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from scan2cap_torch.kernels import (_build, launch_counts,
                                         reset_launch_counts)
+    cards = torch.cuda.device_count()
+    if args.cards is not None and args.cards > cards:
+        print(f"chip_smoke: --cards {args.cards}, but {cards} present",
+              file=sys.stderr)
+        return 1
+    cards = args.cards or cards
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5193,7 +5537,7 @@ def main(argv=None) -> int:
     paths = {}
     serve = train = evaluation = probes = cli = mvn = bench = pre = None
     quality = multiview = tools = bf16 = kept = mesh = None
-    exported = twod = None
+    exported = twod = multicard = None
     if not args.kernels_only:
         if "serve" not in args.skip:
             t0 = time.perf_counter()
@@ -5222,7 +5566,7 @@ def main(argv=None) -> int:
             # phases read the resumed run; the last of them removes the
             # fixture
             cli = cli_phase(torch, np, card, keep=not {"tools", "mesh",
-                                                       "export"}
+                                                       "multicard", "export"}
                             <= set(args.skip))
             kept = cli.pop("kept")
             paths["cli"] = cli["launches"]
@@ -5242,6 +5586,19 @@ def main(argv=None) -> int:
             paths["mesh"] = mesh["launches"]
             print_mesh(mesh)
             print(f"mesh phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        if "multicard" not in args.skip and cards < 2:
+            multicard = dict(ran=False, cards=cards)
+        elif "multicard" not in args.skip:
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            multicard = multicard_phase(torch, np, card, cards, kept=kept)
+            # the kernels on the other cards from this process, and every
+            # rank's
+            paths["multicard"] = sum_launches(launch_counts(),
+                                              multicard["launches"])
+            print_multicard(multicard)
+            print(f"multicard phase: {time.perf_counter() - t0:.1f} s",
                   flush=True)
         if "export" not in args.skip:
             t0 = time.perf_counter()
@@ -5283,6 +5640,10 @@ def main(argv=None) -> int:
             print_pretrained(pre)
             print(f"pretrained phase: {time.perf_counter() - t0:.1f} s",
                   flush=True)
+        # the bf16 phase's CPU steps start here, in processes of their own,
+        # and run beside the quality, multiview and tools phases
+        bf16_pool, bf16_cpu = (bf16_cpu_steps() if "bf16" not in args.skip
+                               else (None, None))
         if "quality" not in args.skip:
             t0 = time.perf_counter()
             reset_launch_counts()
@@ -5315,7 +5676,9 @@ def main(argv=None) -> int:
         if "bf16" not in args.skip:
             t0 = time.perf_counter()
             reset_launch_counts()
-            bf16 = bf16_phase(torch, np, card, float32=train)
+            bf16 = bf16_phase(torch, np, card, float32=train,
+                              cpu_steps=bf16_cpu)
+            bf16_pool.shutdown()
             paths["bf16"] = bf16["launches"]
             print_bf16(bf16)
             print(f"bf16 phase: {time.perf_counter() - t0:.1f} s",
@@ -5386,6 +5749,8 @@ def main(argv=None) -> int:
         print(json.dumps({"cli": cli, "card": card}))
     if mesh is not None:
         print(json.dumps({"mesh": mesh, "card": card}))
+    if multicard is not None:
+        print(json.dumps({"multicard": multicard, "card": card}))
     if exported is not None:
         print(json.dumps({"export": exported, "card": card}))
     if mvn is not None:

@@ -6,6 +6,14 @@ and the nvcc flags — so a changed source rebuilds, and a checkout builds
 everything it needs on first use.  ``build_all`` starts one nvcc per source
 at once and waits for all of them.  Nothing here runs at import time.
 
+Processes may build at once (the ranks of a mesh, spawned together, each
+load the kernels at first use): a builder holds an exclusive ``flock`` on
+``<name>-<hash>.lock`` from the check for the library to its rename, and a
+process that waited for it finds the library built.  nvcc writes into a
+temporary library and a temporary log, which are renamed into place, the
+log first; the lock file stays (the kernel drops the lock of a process
+that dies).
+
 ``bind`` and ``launch`` are the launch path every wrapper shares: the typed
 C function is resolved once per process, and a call costs the argument
 conversions, one read of the current stream's raw handle, and the call.
@@ -14,6 +22,7 @@ conversions, one read of the current stream's raw handle, and the call.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -60,31 +69,53 @@ def _paths(name: str):
 
 def _start(name: str):
     """Start nvcc for one source unless its library is already built.
-    Returns (proc or None, tmp_path, so_path, log_path); the log of the
-    build that made the library stays beside it."""
+    Returns (proc or None, tmp_path, so_path, log_path, lock); the log of
+    the build that made the library stays beside it.  While nvcc runs this
+    process holds the source's build lock (``_finish`` releases it)."""
     src, so = _paths(name)
     log = so[:-3] + ".log"
     if os.path.exists(so):
-        return None, None, so, log
+        return None, None, so, log, None
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    with open(log, "w") as logf:
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                stdout=logf, stderr=subprocess.STDOUT)
-    return proc, tmp, so, log
+    lock = open(so[:-3] + ".lock", "a")
+    tmp = None
+    try:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(so):          # built while this process waited
+            lock.close()
+            return None, None, so, log, None
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        with open(tmp[:-3] + ".log", "w") as logf:
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                    stdout=logf, stderr=subprocess.STDOUT)
+    except BaseException:
+        for path in ((tmp, tmp[:-3] + ".log") if tmp else ()):
+            if os.path.exists(path):
+                os.unlink(path)
+        lock.close()
+        raise
+    return proc, tmp, so, log, lock
 
 
-def _finish(name: str, proc, tmp, so, log) -> None:
+def _finish(name: str, proc, tmp, so, log, lock) -> None:
     if proc is None:
         return
-    rc = proc.wait()
-    if rc != 0:
-        os.unlink(tmp)
-        with open(log) as f:
+    try:
+        rc = proc.wait()
+        tmp_log = tmp[:-3] + ".log"
+        if rc != 0:
+            with open(tmp_log) as f:
+                text = f.read()
+            os.unlink(tmp)
+            os.unlink(tmp_log)
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                               f"(rc={rc}):\n{f.read()}")
-    os.replace(tmp, so)          # atomic: concurrent builders never see half a file
+                               f"(rc={rc}):\n{text}")
+        # atomic renames: a library that exists has its whole log beside it
+        os.replace(tmp_log, log)
+        os.replace(tmp, so)
+    finally:
+        lock.close()
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:

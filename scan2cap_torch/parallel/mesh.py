@@ -34,10 +34,20 @@ What keeps the single-process function:
   (``full_state_dict``, ``full_optimizer_state``) and restores into any
   mesh shape (``shard_state_dict``, ``shard_optimizer_state``).
 
-A size-1 group still runs its collectives, and no collective is skipped
-or caught.  The entry points start the ranks themselves (``launch``);
-the process group is initialised through a ``FileStore`` in a temporary
-directory, so no port is picked.  A rank that fails ends every rank.
+A group of one rank issues no collective: its all-reduce and all-gather
+return a detached contiguous copy of their input without calling
+``torch.distributed``, as XLA emits no collective on a mesh axis of size
+1.  Every other collective is issued, and none is skipped or caught.
+``COLLECTIVES`` counts the calls issued by axis and ``COLLECTIVE_BYTES``
+the bytes they deliver to each rank (an all-reduce's tensor, an
+all-gather's concatenation: the output bytes that the JAX package's
+``__graft_entry__._collective_bytes`` reads off the HLO).
+
+The entry points start the ranks themselves (``launch``); the process
+group is initialised through a ``FileStore`` in a temporary directory, so
+no port is picked.  A rank that fails ends every rank.  Inside one running
+group, ``sub_mesh`` builds a mesh of another shape over its first ranks
+(``scripts/dryrun_multicard`` holds several shapes in one launch).
 """
 
 from __future__ import annotations
@@ -59,8 +69,11 @@ import torch.distributed as dist
 CPU_DEVICES = 8
 # keys of a batch that every rank holds whole (mesh.py _REPLICATED_KEYS)
 REPLICATED_KEYS = frozenset({"glove_emb_table"})
-# collectives issued, by axis ("data", "model" or "world")
+# collectives issued, and the bytes they delivered to this rank, by axis
+# ("data", "model" or "world"); an object broadcast (``main_only``) counts
+# as a call only
 COLLECTIVES: collections.Counter = collections.Counter()
+COLLECTIVE_BYTES: collections.Counter = collections.Counter()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,17 +149,17 @@ def padded_vocab(num_vocabs: int, n_model: int, multiple: int = 128) -> int:
 
 
 class Mesh:
-    """One rank's view of the mesh: its indices and its two groups."""
+    """One rank's view of the mesh: its indices and its groups."""
 
     def __init__(self, spec: MeshSpec, rank: int, device: torch.device,
-                 data_group, model_group):
+                 data_group, model_group, world_group=None):
         self.spec = spec
         self.n_data, self.n_model = spec.n_data, spec.n_model
         self.rank = rank
         self.d, self.m = divmod(rank, spec.n_model)
         self.device = device
         self.groups = {"data": data_group, "model": model_group,
-                       "world": dist.group.WORLD}
+                       "world": world_group or dist.group.WORLD}
 
     @property
     def is_main(self) -> bool:
@@ -197,9 +210,21 @@ def init_rank(spec: MeshSpec, rank: int, device: str | torch.device,
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=spec.size,
                             timeout=datetime.timedelta(hours=2))
+    _CURRENT = _build_mesh(spec, rank, dev)
+    return _CURRENT
+
+
+def _build_mesh(spec: MeshSpec, rank: int, device: torch.device
+                ) -> Optional[Mesh]:
+    """The groups of ``spec`` over ranks 0 .. spec.size - 1 of the running
+    process group; every rank of it builds every group, in the same
+    order.  This rank's mesh, or None when the mesh leaves it out."""
     D, M = spec.n_data, spec.n_model
+    world = dist.get_world_size()
+    if spec.size > world:
+        raise ValueError(f"a ({D}, {M}) mesh needs {spec.size} ranks; the "
+                         f"process group has {world}")
     data_group = model_group = None
-    # every rank builds every group, in the same order
     for m in range(M):
         g = dist.new_group([d * M + m for d in range(D)])
         if rank % M == m:
@@ -208,8 +233,32 @@ def init_rank(spec: MeshSpec, rank: int, device: str | torch.device,
         g = dist.new_group([d * M + m for m in range(M)])
         if rank // M == d:
             model_group = g
-    _CURRENT = Mesh(spec, rank, dev, data_group, model_group)
-    return _CURRENT
+    world_group = (None if spec.size == world
+                   else dist.new_group(list(range(spec.size))))
+    if rank >= spec.size:
+        return None
+    return Mesh(spec, rank, device, data_group, model_group, world_group)
+
+
+def sub_mesh(spec: MeshSpec) -> Optional[Mesh]:
+    """A mesh of shape ``spec`` over the first ``spec.size`` ranks of the
+    current one's process group (every rank of it calls this, in the same
+    order); this rank's view, or None on a rank the mesh leaves out.
+    Make it current with ``using``."""
+    mesh = _require()
+    return _build_mesh(spec, dist.get_rank(), mesh.device)
+
+
+@contextlib.contextmanager
+def using(mesh: Optional[Mesh]):
+    """``mesh`` (a ``sub_mesh``) as the current mesh while the block
+    runs."""
+    global _CURRENT
+    saved, _CURRENT = _CURRENT, mesh
+    try:
+        yield mesh
+    finally:
+        _CURRENT = saved
 
 
 @contextlib.contextmanager
@@ -236,7 +285,7 @@ def _rank_main(rank: int, spec: MeshSpec, device: str, workdir: str,
             result = fn(*args)
             if rank == 0 and result is not None:
                 torch.save(result, os.path.join(workdir, "result.pt"))
-            dist.barrier()
+            barrier()
         except SystemExit as e:
             # the entry point's own exit (a CLI check): launch() raises it
             torch.save(e.code, os.path.join(workdir, f"exit{rank}.pt"))
@@ -269,12 +318,25 @@ def launch(spec: MeshSpec, device: str | torch.device, fn: Callable,
 
 
 # ---------------------------------------------------------------- collectives
+def _alone(mesh: Mesh, axis: str) -> bool:
+    """True when this rank is the only one in the group of ``axis``: a
+    collective over it is the identity and is not issued."""
+    return mesh.size(axis) == 1
+
+
+def _issued(axis: str, out: torch.Tensor) -> None:
+    COLLECTIVES[axis] += 1
+    COLLECTIVE_BYTES[axis] += out.numel() * out.element_size()
+
+
 def all_reduce(x: torch.Tensor, axis: str,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """A reduced copy of ``x`` over the group of ``axis`` (no autograd)."""
     mesh = _require()
     y = x.detach().clone(memory_format=torch.contiguous_format)
-    COLLECTIVES[axis] += 1
+    if _alone(mesh, axis):
+        return y
+    _issued(axis, y)
     dist.all_reduce(y, op=op, group=mesh.groups[axis])
     return y
 
@@ -285,12 +347,14 @@ def all_gather(x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
     shape."""
     mesh = _require()
     src = x.detach()
+    if _alone(mesh, axis):
+        return src.clone(memory_format=torch.contiguous_format)
     wire = src.to(torch.uint8) if src.dtype == torch.bool else src
     wire = wire.contiguous()
     parts = [torch.empty_like(wire) for _ in range(mesh.size(axis))]
-    COLLECTIVES[axis] += 1
     dist.all_gather(parts, wire, group=mesh.groups[axis])
     out = torch.cat(parts, dim=dim)
+    _issued(axis, out)
     return out.to(torch.bool) if src.dtype == torch.bool else out
 
 
@@ -505,12 +569,35 @@ def decode_split(fn: Callable, targets: Sequence[Optional[torch.Tensor]],
 def main_only(fn: Callable, *args):
     """``fn(*args)`` on rank 0, its result handed to every rank."""
     mesh = current()
-    if mesh is None:
+    if mesh is None or _alone(mesh, "world"):
         return fn(*args)
     box = [fn(*args) if mesh.is_main else None]
     COLLECTIVES["world"] += 1
-    dist.broadcast_object_list(box, src=0)
+    dist.broadcast_object_list(box, src=0, group=mesh.groups["world"])
     return box[0]
+
+
+def barrier() -> None:
+    """Wait for every rank of the mesh (none to wait for alone).  NCCL is
+    told this rank's card, which it would otherwise guess from the
+    rank."""
+    mesh = _require()
+    if _alone(mesh, "world"):
+        return
+    ids = [mesh.device.index] if mesh.device.type == "cuda" else None
+    dist.barrier(group=mesh.groups["world"], device_ids=ids)
+
+
+def every_rank(obj):
+    """Every rank's ``obj`` (picklable), in rank order, on every rank of
+    the mesh (a collective outside the counts: for reports after the
+    steps); ``[obj]`` outside a mesh."""
+    mesh = current()
+    if mesh is None or _alone(mesh, "world"):
+        return [obj]
+    out = [None] * mesh.spec.size
+    dist.all_gather_object(out, obj, group=mesh.groups["world"])
+    return out
 
 
 # ----------------------------------------------- the caption's model axis

@@ -7,7 +7,8 @@ criterion (default CIDEr, lib/solver.py:469-495), the best / last / resume
 checkpoints, tensorboard and text logs, ETA reports.  ``train_stats.json``
 in the run folder keeps each epoch's host timers (seconds per fetch and per
 iteration) and losses, the seconds each checkpoint save took, and the
-kernel launches of the train steps.
+kernel launches of the train steps (rank 0's, and under a mesh each
+rank's own in ``launches_by_rank``).
 
 The step (forward, loss, backward, Adam) is ``train.step.make_train_step``'s
 function.  Its metrics stay on the device: the solver reads step t-1's
@@ -34,7 +35,7 @@ import torch
 
 from scan2cap_torch.data.synthetic import to_device
 from scan2cap_torch.kernels import launch_counts
-from scan2cap_torch.parallel.mesh import is_main
+from scan2cap_torch.parallel.mesh import every_rank, is_main
 from scan2cap_torch.train.checkpoints import (CheckpointIO, model_bundle,
                                               resume_bundle)
 from scan2cap_torch.train.schedules import bn_momentum, multistep_lr
@@ -280,8 +281,11 @@ class Solver:
             self.ckpt.save(name, bundle)
 
     def _dump_log(self):
+        # each rank's own launches (every rank of a mesh comes here)
+        by_rank = every_rank(self.stats["launches"])
         if not self.main:
             return
+        self.stats["launches_by_rank"] = by_rank
         with open(os.path.join(self.output, "scalars.json"), "w") as f:
             json.dump({k: v for k, v in self.log_history.items()}, f)
         with open(os.path.join(self.output, "train_stats.json"), "w") as f:

@@ -231,3 +231,49 @@ def spatial_backbone(sa_npoints, pc, sd):
     res["grad_sums"] = _all(sum(float(p.grad.double().sum())
                                 for p in params))
     return res
+
+
+def elision_and_bytes(cfg_kw, V, sd, batch):
+    """At (4, 1): one train step with the size-one elision (the model axis
+    has one rank) and the same step with it turned off (``_alone``
+    patched to answer False): each one's loss, gradients and calls by
+    axis.  Then, over sub-meshes of the same four ranks, the bytes of
+    collectives of known sizes at (2, 2), and at (4, 1) a model-axis
+    all-reduce, which is not issued."""
+    from scan2cap_torch.parallel.mesh import MeshSpec
+
+    res = {}
+    tb = synthetic.to_device(batch, "cpu")
+    alone = pmesh._alone
+    for elide in (True, False):
+        if not elide:
+            pmesh._alone = lambda mesh, axis: False
+        try:
+            cfg, model = _model(cfg_kw, V, 0, sd)
+            pmesh.COLLECTIVES.clear()
+            state, metrics = _steps(cfg, model, tb, 1)
+            res[elide] = dict(
+                loss=metrics[0]["loss"], calls=dict(pmesh.COLLECTIVES),
+                grads={n: p.grad.clone()
+                       for n, p in model.named_parameters()})
+        finally:
+            pmesh._alone = alone
+
+    x = torch.arange(15, dtype=torch.float32).reshape(3, 5)
+    with pmesh.using(pmesh.sub_mesh(MeshSpec(2, 2))):
+        pmesh.COLLECTIVES.clear()
+        pmesh.COLLECTIVE_BYTES.clear()
+        pmesh.all_reduce(x, "data")
+        pmesh.all_reduce(x, "model", dist.ReduceOp.MAX)
+        pmesh.all_gather(torch.zeros((2, 3), dtype=torch.int32), "model", 1)
+        pmesh.all_gather(torch.ones(4, dtype=torch.bool), "data", 0)
+        pmesh.gather(torch.zeros((2, 7), dtype=torch.float64), "model", -1)
+        res["bytes"] = (dict(pmesh.COLLECTIVES),
+                        dict(pmesh.COLLECTIVE_BYTES))
+    with pmesh.using(pmesh.sub_mesh(MeshSpec(4, 1))):
+        pmesh.COLLECTIVES.clear()
+        pmesh.COLLECTIVE_BYTES.clear()
+        y = pmesh.all_reduce(x, "model")
+        res["size_one"] = (dict(pmesh.COLLECTIVES),
+                           dict(pmesh.COLLECTIVE_BYTES), y)
+    return res
