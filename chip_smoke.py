@@ -43,7 +43,9 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      trace of one request), ms per batch (median of three timed spans of 30
      requests, with the spread), and the same weights and batch through the
      port on the CPU as the reference (indices exact, corners within 1e-3,
-     tokens >= 99% equal);
+     tokens >= 99% equal; where FPS or the first-k part at a near tie, the
+     CPU's forward again from the card's picks with each part proven,
+     ``scan2cap_torch.probes.ties``);
   5. train the same model through ``make_train_step`` on a repeated batch:
      launch counts per step, ms per step (median of three timed spans),
      stage times, and step 1's loss and per-tensor gradient norms against
@@ -147,7 +149,8 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      version, its kept proposals and captions exactly those of its own
      forward's outputs post-processed on the host, that forward within the
      serving gates of a ``--device cpu`` run's (the boxes kept by one run
-     only counted); then ScanNet's preparation as subprocesses on a raw scene written
+     only counted; that run replayed from the card's picks where its index
+     stages part, each part a proven near tie); then ScanNet's preparation as subprocesses on a raw scene written
      here (a mesh of 150,000 vertices and 300,000 faces, segments, an
      aggregation of 12 objects, an axis alignment, a label map):
      ``scannet_preprocess.batch_export``, ``check_preprocessed_scene``,
@@ -185,7 +188,8 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      card, every rank's step held launch by launch on its own card, the
      spatial stage at 80,000 points over N ranks and the dp-spatial stage
      at (2, N/2), the kernels launched on every other card from this
-     process, ms per step at each mesh shape with NCCL's kernel ms), then
+     process after card 0 (with the 16-block and shared-state FPS tiers
+     and both probes, whose launches set per-card attributes), ms per step at each mesh shape with NCCL's kernel ms), then
      on phase 8's fixture ``train --mesh N/2,2``, ``--mesh N,1`` and
      ``--mesh N/2,2 --spatial`` (15 steps at B=8: first loss within 2e-3 +
      1e-3 of phase 8's, 5 FPS, 5 first-k and 6 gathers a step on every
@@ -200,8 +204,10 @@ Phases (any failure ends the run with a non-zero exit, no result printed):
      on a val scene equal the eager forward's bitwise, its 5 FPS, 5
      first-k and 6 gather launches each held against its plain version;
      the same artifact moved to the CPU within the serving gates of the
-     port's CPU forward; export, load and save s, MB, ms per request
-     loaded and eager;
+     port's CPU forward; the card's loaded program against the CPU's
+     within the serving gates (the CPU's replayed from the card's picks
+     where their index stages part, each part a proven near tie); export,
+     load and save s, MB, ms per request loaded and eager;
  19. the 2D baselines (``scan2cap_torch.twod.main`` in process): a seeded
      random ResNet101 in torchvision's layout written as a ``.pth``;
      ``--prep`` of 256 renders (320 x 240, 4 boxes each) on the card, the
@@ -944,13 +950,25 @@ def serve_flagship(torch, np, requests=30, windows=3):
     profile_report["busy_share_profiled"] = (
         device_ms / profile_report["profiled_wall_ms"])
 
-    # the same weights and batch on the CPU (plain versions) as reference
+    # the same weights and batch on the CPU (plain versions) as reference;
+    # where their index stages part, the CPU's forward again from the
+    # card's picks, each part a proven near tie
     with torch.inference_mode():
-        gpu = model(batch)
+        with TieProof(torch) as card_calls:
+            gpu = model(batch)
         t0 = time.perf_counter()
         cpu_model = CapNet(cfg, num_vocabs=NUM_VOCABS, device="cpu", seed=0)
-        ref = cpu_model(to_device(host, "cpu"))
+        with TieProof(torch) as cpu_calls:
+            ref = cpu_model(to_device(host, "cpu"))
         cpu_ms = (time.perf_counter() - t0) * 1e3
+        replayed, ties = prove_against_card(
+            torch, card_calls, cpu_calls,
+            lambda: cpu_model(to_device(host, "cpu")))
+        if replayed is not None:
+            ref = replayed
+    print(f"  serving: card against CPU, index entries apart "
+          f"{ties['index_entries_apart']}, proven ties "
+          f"{ties['proven_ties']}", flush=True)
     report = {}
     for k in ("sa1_inds", "sa2_inds", "fp2_inds", "aggregated_vote_inds",
               "edge_nbr_idx", "bbox_mask"):
@@ -976,7 +994,7 @@ def serve_flagship(torch, np, requests=30, windows=3):
                 scenes_per_s=B / ms * 1e3, first_call_ms=first_ms,
                 stage_ms=stages, launches=launches, profile=profile_report,
                 cpu_reference_ms=cpu_ms, bbox_corner_max_abs_err=corner_err,
-                lang_cap_agreement=agree, parity=report,
+                lang_cap_agreement=agree, parity=report, **ties,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -2415,6 +2433,8 @@ def multicard_phase(torch, np, card, n, kept=None, dev="cuda",
     require(rehearse or all(
         r["held"] == dict(furthest_point_sample_cuda=1, ball_query_cuda=1,
                           group_points_cuda=1)
+        and r["attributes"] == dict(fps_cluster16=1, fps_shared_state=1,
+                                    pack_probe=1, shift_probe=1)
         for r in dry["other_cards"]),
         f"kernels on the other cards: {dry.get('other_cards')}")
 
@@ -2648,6 +2668,31 @@ def HeldAgainstPlain(torch, record=False):
     phase)."""
     from scan2cap_torch.probes.held import HeldAgainstPlain as Held
     return Held(record=record, error=PhaseError)
+
+
+def TieProof(torch, replay=None):
+    """``scan2cap_torch.probes.ties.TieProof``: records a run's FPS,
+    first-k and gather calls, or (``replay``) runs the CPU's run against a
+    recording of the card's, proving each part a near tie (a part that is
+    not fails the phase)."""
+    from scan2cap_torch.probes.ties import TieProof as Proof
+    return Proof(replay=replay, error=PhaseError)
+
+
+def prove_against_card(torch, card_calls, cpu_calls, rerun):
+    """The CPU's run against the card's, both recorded by ``TieProof``:
+    where their FPS or first-k results part, ``rerun()`` runs the CPU's
+    run again replaying the card's calls, each part proven a near tie, so
+    that its later stages start from the card's picks.  Without a part
+    nothing is run again.  Returns (the rerun's result or None, the index
+    entries apart by stage, the proven ties by stage, each with its step
+    or query and both values)."""
+    apart = card_calls.entries_apart(cpu_calls)
+    if not apart:
+        return None, dict(index_entries_apart={}, proven_ties={})
+    with TieProof(torch, replay=card_calls) as proof:
+        out = rerun()
+    return out, dict(index_entries_apart=apart, proven_ties=proof.by_stage())
 
 
 def train_mask_votenet(torch, np, dev="cuda", cfg=None, B=MVN_BATCH,
@@ -4394,7 +4439,9 @@ def held_visualize(np, forwards, caps, files, cpu_files, data):
     own ``kept_proposals`` and decoded there, must give exactly the boxes
     and captions the card run kept and wrote.  The card's forward must be
     the CPU run's within the serving gates: corners 1e-3, objectness and
-    class argmax on 99% of proposals, tokens on 99%.  Boxes whose NMS
+    class argmax on 99% of proposals, tokens on 99%.  Where the two runs'
+    index stages parted, the CPU run is the one replayed from the card's
+    picks, each part a proven near tie (``prove_against_card``).  Boxes whose NMS
     decision lies a rounding from its threshold may be kept by one run
     only: their number is reported.  Where both runs keep the same boxes,
     their files and captions must be equal."""
@@ -4545,24 +4592,37 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
         try:
             reset_launch_counts()
             t0 = time.perf_counter()
-            if dev == "cuda":
-                with HeldAgainstPlain(torch) as held:
-                    vis_dir = visualize.main([*argv, "--device", dev])
-                torch.cuda.synchronize()
-            else:
-                held, vis_dir = None, visualize.main([*argv, "--device",
-                                                      dev])
+            with TieProof(torch) as card_calls:
+                if dev == "cuda":
+                    with HeldAgainstPlain(torch) as held:
+                        vis_dir = visualize.main([*argv, "--device", dev])
+                    torch.cuda.synchronize()
+                else:
+                    held, vis_dir = None, visualize.main([*argv, "--device",
+                                                          dev])
             card_s = time.perf_counter() - t0
             launches = {k: v for k, v in launch_counts().items() if v}
             card_dir = vis_dir + "_card"
             shutil.move(vis_dir, card_dir)
             t0 = time.perf_counter()
-            visualize.main([*argv, "--device", "cpu"])
+            with TieProof(torch) as cpu_calls:
+                visualize.main([*argv, "--device", "cpu"])
             cpu_s = time.perf_counter() - t0
+
+            def rerun():
+                shutil.rmtree(vis_dir)
+                return visualize.main([*argv, "--device", "cpu"])
+
+            # where the index stages part, the CPU run again from the
+            # card's picks: its forward and files are the CPU's below
+            replayed, ties = prove_against_card(torch, card_calls,
+                                                cpu_calls, rerun)
         finally:
             visualize.kept_proposals = kept_proposals
-        require(len(forwards) == 2, f"visualize ran {len(forwards)} "
-                f"forwards for 2 runs")
+        runs = 2 if replayed is None else 3
+        require(len(forwards) == runs, f"visualize ran {len(forwards)} "
+                f"forwards for {runs} runs")
+        forwards = [forwards[0], forwards[-1]]
         files, cpu_files = (sorted(os.listdir(d)) for d in (card_dir,
                                                             vis_dir))
         caps = []
@@ -4579,7 +4639,8 @@ def tools_phase(torch, np, card, dev="cuda", kept=None, rehearse=False):
         report["visualize"] = dict(
             scene=val[0], card_s=card_s, cpu_s=cpu_s, files=files,
             kept=len(caps[0]), launches=launches,
-            held=len(held.checked) if held is not None else 0, **vis)
+            held=len(held.checked) if held is not None else 0, **vis,
+            **ties)
         report["launches"] = launch_counts()
         walls = {f"export_{what}": wall for (what, _, _, _), (_, wall)
                  in zip(exports, exported.result())}
@@ -4669,9 +4730,12 @@ def export_phase(torch, np, card, kept=None, dev="cuda", rehearse=False):
     launch held against its plain version (5, 5 and 6: the CLI
     configuration's forward); the same artifact moved to the CPU against
     the port's CPU forward (the serving gates, and whether bitwise); the
-    card's forward against the CPU's, reported with the index stage where
-    they part; export, load and save s, the artifact's MB, ms per request
-    loaded and eager, the ops' dispatch cost per call."""
+    card's loaded program against the CPU's within the serving gates, the
+    CPU's replayed from the card's picks where their index stages part,
+    each part a proven near tie (``prove_against_card``), with the index
+    entries apart by stage and the proven ties; export, load and save s,
+    the artifact's MB, ms per request loaded and eager, the ops' dispatch
+    cost per call."""
     import shutil
     import tempfile
 
@@ -4748,12 +4812,13 @@ def export_phase(torch, np, card, kept=None, dev="cuda", rehearse=False):
                                     is_eval=True, train=False)
             eager = export_model.Serve.outputs(card_full)
             reset_launch_counts()
-            if dev == "cuda":
-                with HeldAgainstPlain(torch) as held:
-                    loaded = module(pc)
-                torch.cuda.synchronize()
-            else:
-                held, loaded = None, module(pc)
+            with TieProof(torch) as card_calls:
+                if dev == "cuda":
+                    with HeldAgainstPlain(torch) as held:
+                        loaded = module(pc)
+                    torch.cuda.synchronize()
+                else:
+                    held, loaded = None, module(pc)
             per_forward = {k: v for k, v in launch_counts().items() if v}
             for k in EXPORT_KEYS:
                 require(loaded[k].dtype == eager[k].dtype
@@ -4776,31 +4841,32 @@ def export_phase(torch, np, card, kept=None, dev="cuda", rehearse=False):
             # the same artifact on the CPU, against the port's CPU forward
             t0 = time.perf_counter()
             cpu_module = export_model.load(art, "cpu")
-            cpu_loaded = cpu_module(pc.cpu())
+            with TieProof(torch) as cpu_calls:
+                cpu_loaded = cpu_module(pc.cpu())
             cpu_loaded_s = time.perf_counter() - t0
             cpu_serve = export_model.build_serve(folder, "cpu")[0]
             cpu_full = cpu_serve.model(cpu_serve.batch(pc.cpu()),
                                        use_tf=False, is_eval=True,
                                        train=False)
             cpu_eager = export_model.Serve.outputs(cpu_full)
-            # the card's forward against the CPU's, reported: where they
-            # part, which of the forward's index stages parted first
+            # the card's eager forward against the CPU's, index entries
+            # apart by stage; where the loaded programs' index stages part,
+            # the CPU's program again from the card's picks, each part a
+            # proven near tie
             stages = {k: int((card_full[k].cpu() != cpu_full[k]).sum())
                       for k in EXPORT_STAGES if k in cpu_full}
+            replayed, ties = prove_against_card(
+                torch, card_calls, cpu_calls, lambda: cpu_module(pc.cpu()))
             overhead = op_overhead_us(torch) if dev == "cuda" else None
         cpu_err, cpu_agree = serving_gates(torch, cpu_loaded, cpu_eager,
                                            "tokens", "export (CPU)")
-        card_err = float((loaded["bbox_corner"].cpu()
-                          - cpu_loaded["bbox_corner"]).abs().max())
+        against = cpu_loaded if replayed is None else replayed
+        card_err, card_agree = serving_gates(torch, loaded, against,
+                                             "tokens", "export (card "
+                                             "against the CPU)")
         card_far = int(((loaded["bbox_corner"].cpu()
-                         - cpu_loaded["bbox_corner"]).abs()
+                         - against["bbox_corner"]).abs()
                         .amax(dim=(-1, -2)) > VIS_CORNER_TOL).sum())
-        card_agree = {k: float((torch.argmax(loaded[k].cpu(), -1)
-                                == torch.argmax(cpu_loaded[k], -1))
-                               .float().mean())
-                      for k in ("objectness_scores", "sem_cls_scores")}
-        card_agree["tokens"] = float((loaded["tokens"].cpu()
-                                      == cpu_loaded["tokens"]).float().mean())
         report.update(
             run=run, batch=EXPORT_BATCH, points=cfg.num_points,
             columns=3 + cfg.input_feature_dim, build_s=build_s,
@@ -4817,6 +4883,8 @@ def export_phase(torch, np, card, kept=None, dev="cuda", rehearse=False):
             card_vs_cpu_proposals_apart=card_far,
             card_vs_cpu_agree=card_agree,
             card_vs_cpu_index_entries_apart=stages,
+            card_vs_cpu_replayed=replayed is not None,
+            card_vs_cpu_proven_ties=ties["proven_ties"],
             op_overhead_us=overhead, launches=launches)
         del module, cpu_module, serve, cpu_serve
         release_card(torch)
@@ -4843,11 +4911,13 @@ def print_export(r):
           f"{r['ms_per_request']['eager']:.2f}; launches per forward "
           f"{r['launches_per_forward']} ({r['held']} held), bitwise equal "
           f"to eager; on the CPU bitwise {r['cpu_bitwise']}, agreement "
-          f"{r['cpu_agree']}; card against CPU (reported) corners "
+          f"{r['cpu_agree']}; card against CPU (gated) corners "
           f"{r['card_vs_cpu_corner_max_abs_err']:.2e}, "
           f"{r['card_vs_cpu_proposals_apart']} proposals apart, agreement "
           f"{r['card_vs_cpu_agree']}, index entries apart by stage "
-          f"{r['card_vs_cpu_index_entries_apart']}; op dispatch us "
+          f"{r['card_vs_cpu_index_entries_apart']}, replayed from the "
+          f"card's picks {r['card_vs_cpu_replayed']}, proven ties "
+          f"{r['card_vs_cpu_proven_ties']}; op dispatch us "
           f"{r['op_overhead_us']}", flush=True)
 
 
@@ -5389,7 +5459,9 @@ def print_tools(r):
           f"CPU, {v['kept']} boxes kept on the card, {v['kept_cpu']} on the "
           f"CPU, {v['kept_differ']} kept by one run only; corners "
           f"{v['corner_max_abs_err']:.2e} apart, agreement {v['agree']}; "
-          f"files {v['files']}; preparation {p['wall_s']}", flush=True)
+          f"index entries apart {v['index_entries_apart']}, proven ties "
+          f"{v['proven_ties']}; files {v['files']}; preparation "
+          f"{p['wall_s']}", flush=True)
 
 
 def print_bf16(r):

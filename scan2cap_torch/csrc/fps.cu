@@ -108,6 +108,7 @@
 
 #include <algorithm>
 #include <climits>
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -483,6 +484,29 @@ fps_stream_kernel(const float* __restrict__ xyz, int n, int npoint,
 using Launcher = cudaError_t (*)(const float*, int, int, int, int*, float4*,
                                  cudaStream_t);
 
+// The cards a process may launch on; a card numbered at or above it is
+// refused.
+constexpr int kMaxCards = 64;
+
+// `ask()` once per card, for the current card, and its answer kept per
+// card: cudaFuncSetAttribute acts on the current card's context, so an
+// attribute set for one card is not set for the next.  call_once makes
+// host threads launching at once ask each card once.
+struct PerCard {
+  std::once_flag once[kMaxCards];
+  cudaError_t answer[kMaxCards];
+
+  template <typename Ask>
+  cudaError_t get(Ask ask) {
+    int card = 0;
+    const cudaError_t err = cudaGetDevice(&card);
+    if (err != cudaSuccess) return err;
+    if (card < 0 || card >= kMaxCards) return cudaErrorInvalidDevice;
+    std::call_once(once[card], [&] { answer[card] = ask(); });
+    return answer[card];
+  }
+};
+
 // Whether the card places at least one cluster of `kernel` with `smem`
 // bytes of dynamic shared memory (a cluster of more than 8 blocks first
 // gets the attribute that allows it).
@@ -533,8 +557,9 @@ cudaError_t launch(const float* xyz, int batch, int n, int npoint, int* out,
     if (work == nullptr) return cudaErrorInvalidValue;
     auto kernel = fps_stream_kernel<CS, T>;
     if constexpr (CS > 8) {
-      static const cudaError_t placed = cluster_fits<CS>(kernel, T, 0);
-      if (placed != cudaSuccess) return placed;    // asked once per variant
+      static PerCard placed;                  // asked once per variant and card
+      err = placed.get([&] { return cluster_fits<CS>(kernel, T, 0); });
+      if (err != cudaSuccess) return err;
     }
     err = cudaLaunchKernelEx(&cfg, kernel, xyz, n, npoint, out, work);
   } else {
@@ -546,10 +571,13 @@ cudaError_t launch(const float* xyz, int batch, int n, int npoint, int* out,
     const size_t copy = static_cast<size_t>(T) * P * (S == 0 ? 16 : 12);
     const size_t smem = copy + static_cast<size_t>(T) * 16 * shared_slots;
     if constexpr (CS > 8) {
-      // asked once per variant, at its largest shared memory
-      static const cudaError_t placed = cluster_fits<CS>(
-          kernel, T, copy + static_cast<size_t>(T) * 16 * S);
-      if (placed != cudaSuccess) return placed;
+      // asked once per variant and card, at its largest shared memory
+      static PerCard placed;
+      err = placed.get([&] {
+        return cluster_fits<CS>(kernel, T,
+                                copy + static_cast<size_t>(T) * 16 * S);
+      });
+      if (err != cudaSuccess) return err;
     }
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -91,6 +91,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -533,15 +534,41 @@ cudaLaunchConfig_t config(int blocks, int cluster, size_t smem,
   return cfg;
 }
 
+// The cards a process may launch on; a card numbered at or above it is
+// refused.
+constexpr int kMaxCards = 64;
+
+// `ask()` once per card, for the current card, and its answer kept per
+// card: cudaFuncSetAttribute acts on the current card's context, so an
+// attribute set for one card is not set for the next.  call_once makes
+// host threads launching at once ask each card once.
+struct PerCard {
+  std::once_flag once[kMaxCards];
+  cudaError_t answer[kMaxCards];
+
+  template <typename Ask>
+  cudaError_t get(Ask ask) {
+    int card = 0;
+    const cudaError_t err = cudaGetDevice(&card);
+    if (err != cudaSuccess) return err;
+    if (card < 0 || card >= kMaxCards) return cudaErrorInvalidDevice;
+    std::call_once(once[card], [&] { answer[card] = ask(); });
+    return answer[card];
+  }
+};
+
 template <bool SHIFT>
 int launch(const void* hit, const Outputs& out, void* stream) {
   auto kernel = probe_kernel<SHIFT>;
-  static const cudaError_t sized = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (sized != cudaSuccess) return static_cast<int>(sized);
+  static PerCard sized;                       // asked once per card
+  cudaError_t err = sized.get([&] {
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(kSmemBytes));
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map;
-  cudaError_t err = hit_map(hit, &map);
+  err = hit_map(hit, &map);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =

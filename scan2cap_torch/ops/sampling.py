@@ -25,11 +25,15 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return torch.ops.scan2cap.furthest_point_sample(xyz.detach(), npoint)
 
 
-def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int, *,
+                                take=None) -> torch.Tensor:
     """Plain PyTorch FPS: the loop of ``scan2cap_tpu/ops/sampling.py:69-96``.
 
     Works on any device; the CPU path of ``furthest_point_sample`` and the
-    yardstick the kernel is held against on the card."""
+    yardstick the kernel is held against on the card.  ``take(j, min_d2,
+    argmax) -> (B,)`` picks step j instead of the argmax, from the running
+    min distances: the tie proof (``probes/ties.py``) follows another
+    run's picks with it."""
     if xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be (B, N, 3), got {tuple(xyz.shape)}")
     B, N, _ = xyz.shape
@@ -50,6 +54,8 @@ def furthest_point_sample_plain(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         d2 = sq_dist_reduce(dx, dy, dz)       # jnp.sum((x - last)**2, -1)
         min_d2 = torch.minimum(min_d2, d2)
         last = torch.argmax(min_d2, dim=-1)                  # first max wins
+        if take is not None:
+            last = take(j, min_d2, last)
         idxs[:, j] = last
     return idxs.to(torch.int32)
 

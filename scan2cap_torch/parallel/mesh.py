@@ -519,8 +519,22 @@ def mesh_eval_fn(eval_step: Callable[[Dict], Dict]) -> Callable[[Dict], Dict]:
     the global batch is padded up to a multiple of the data axis by
     repeating the last scene, each rank runs its rows, and every rank gets
     the per-scene outputs of the whole batch, the padding cut off.  Exact:
-    every eval output is per scene and eval-mode BN uses the running
-    statistics, so pad scenes touch no real one."""
+    every per-scene output is a function of its scene and eval-mode BN
+    uses the running statistics, so pad scenes touch no real one.
+
+    The eval step names its outputs: ``eval_step.per_scene_outputs``
+    (``train.step.make_eval_step`` names the keys it keeps) and, where it
+    has any, ``eval_step.replicated_outputs``.  Only the per-scene ones
+    are gathered over the data group and cut; a tensor output whose
+    leading axis is a rank's scene count and that is neither per scene nor
+    replicated raises, since its length alone cannot say whether it is per
+    scene."""
+    per_scene = getattr(eval_step, "per_scene_outputs", None)
+    if per_scene is None:
+        raise TypeError("mesh_eval_fn: the eval step names no "
+                        "per_scene_outputs")
+    per_scene = frozenset(per_scene)
+    replicated = frozenset(getattr(eval_step, "replicated_outputs", ()))
 
     def wrapped(batch: Dict) -> Dict:
         mesh = current()
@@ -540,9 +554,20 @@ def mesh_eval_fn(eval_step: Callable[[Dict], Dict]) -> Callable[[Dict], Dict]:
                 local[k] = v.index_select(0, rows)
         per = -(-n // mesh.n_data)
         out = eval_step(local)
-        return {k: (all_gather(v, "data", 0)[:n]
-                    if torch.is_tensor(v) and v.dim() > 0
-                    and v.shape[0] == per else v)
+        # every key checked before any collective, so that all ranks raise
+        # alike
+        for k, v in out.items():
+            leading = v.shape[0] if torch.is_tensor(v) and v.dim() else None
+            if k in per_scene and leading != per:
+                raise ValueError(f"mesh_eval_fn: per-scene output {k!r} "
+                                 f"has leading axis {leading}, not this "
+                                 f"rank's {per} scenes")
+            if k not in per_scene | replicated and leading == per:
+                raise ValueError(f"mesh_eval_fn: output {k!r} has a leading "
+                                 f"axis of {per}, a rank's scene count, "
+                                 f"and is declared neither per scene nor "
+                                 f"replicated")
+        return {k: all_gather(v, "data", 0)[:n] if k in per_scene else v
                 for k, v in out.items()}
 
     return wrapped

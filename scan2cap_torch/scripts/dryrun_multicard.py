@@ -32,6 +32,11 @@ launch, each mesh shape a ``parallel.mesh.sub_mesh`` of the N ranks:
   and the query axis over the model axis: no data-axis collective, the
   bytes a rank receives below one scene table (B x N x (3 + C) x 4), the
   indices of each rank's scene exact.
+* other cards (on the card): from the parent, after card 0 has launched
+  them, each other card launches FPS at 100,000 and 200,000 points (the
+  16-block and shared-state tiers, whose launches set per-card kernel
+  attributes) and both pack-tile probes, held exactly against their plain
+  versions, and FPS, the first-k and the gather at 8,192 points.
 * timing: ms per train step
   at (1,1), (2,1), (4,1), (2,2) and (1,4), those that N holds, at a global
   B=8 and at B=8 per data rank, and from one traced step per rank its
@@ -177,6 +182,7 @@ def eval_forward(model):
         with torch.inference_mode():
             out = model(batch, use_tf=False, is_eval=True, train=False)
         return {k: out[k] for k in EVAL_KEYS if k in out}
+    forward.per_scene_outputs = EVAL_KEYS
     return forward
 
 
@@ -246,14 +252,62 @@ def spatial_reference(cfg, pc, device, weights=None) -> Dict:
     return {k: out[k].cpu() for k in SPATIAL_KEYS + ("fp2_features",)}
 
 
+# FPS at the two tiers above a cluster of 8 blocks, whose launches set
+# per-card attributes first (csrc/fps.cu PerCard): the 16-block registers
+# and the shared-state tier; picks per scene
+CARD_ATTRIBUTE_FPS = ((100000, "cluster16"), (200000, "shared_state"))
+CARD_ATTRIBUTE_PICKS = 512
+
+
+def card_attributes(dev: torch.device) -> Dict:
+    """On ``dev``: FPS at 100,000 and 200,000 points (B=2) in the tiers
+    that set a kernel attribute before their launch, and both pack-tile
+    probes (their shared-memory size), each held exactly against its plain
+    version there.  Returns the launches by kernel."""
+    from scan2cap_torch.kernels import fps as fps_kernel
+    from scan2cap_torch.kernels import pack_probe
+    from scan2cap_torch.ops import sampling
+    from scan2cap_torch.probes import pack, shift
+    g = torch.Generator().manual_seed(7)
+    wrapper = fps_kernel.furthest_point_sample_cuda
+    held = {}
+    for n, tier in CARD_ATTRIBUTE_FPS:
+        xyz = (torch.rand((2, n, 3), generator=g) * 8).to(dev)
+        before = getattr(wrapper, f"{tier}_launches")
+        got = wrapper(xyz, CARD_ATTRIBUTE_PICKS)
+        if getattr(wrapper, f"{tier}_launches") != before + 1:
+            raise RuntimeError(f"FPS at {n} points on {dev} did not run in "
+                               f"the {tier} tier")
+        if not torch.equal(got, sampling.furthest_point_sample_plain(
+                xyz, CARD_ATTRIBUTE_PICKS)):
+            raise RuntimeError(f"FPS at {n} points on {dev}: kernel != "
+                               f"plain")
+        held[f"fps_{tier}"] = 1
+    _, hit, ints = pack.probe_tiles()[1]                 # density 0.3
+    h, i = torch.from_numpy(hit).to(dev), torch.from_numpy(ints).to(dev)
+    for name, got, want in (
+            ("pack_probe", pack_probe.pack_probe_cuda(h),
+             pack.pack_probe_plain(h)),
+            ("shift_probe", pack_probe.shift_probe_cuda(h, i),
+             shift.shift_probe_plain(h, i))):
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(f"{name} on {dev}: kernel != plain")
+        held[name] = 1
+    torch.cuda.synchronize(dev)
+    return held
+
+
 def other_cards(n: int) -> List[Dict]:
-    """From this process, whose current card is 0, FPS, the first-k and
-    the gather on tensors of each other card (the launch path's branch for
-    a device that is not the current one), held against their plain
-    versions on that card."""
+    """From this process, whose current card is 0: the kernels whose
+    launches set per-card attributes on card 0 first (``card_attributes``),
+    then on each other card; and FPS, the first-k and the gather on
+    tensors of each other card (the launch path's branch for a device
+    that is not the current one), held against their plain versions on
+    that card."""
     from scan2cap_torch.ops import grouping, sampling
     from scan2cap_torch.probes.held import HeldAgainstPlain
     rows = []
+    card_attributes(torch.device("cuda", 0))
     g = torch.Generator().manual_seed(5)
     for i in range(1, n):
         dev = torch.device("cuda", i)
@@ -265,9 +319,10 @@ def other_cards(n: int) -> List[Dict]:
             idx = grouping.ball_query(xyz, new_xyz, 0.2, 64)
             grouping.group_points(table, idx)
         torch.cuda.synchronize(dev)
+        attributes = card_attributes(dev)
         if torch.cuda.current_device() != 0:
             raise RuntimeError("the launches moved the current card")
-        rows.append(dict(card=i, held=held.counts()))
+        rows.append(dict(card=i, held=held.counts(), attributes=attributes))
     return rows
 
 
@@ -648,6 +703,10 @@ def summary(report: Dict) -> List[str]:
         lines.append(f"timing {list(shape)} B={B}: ms a step by rank "
                      f"{[round(t['ms'], 1) for t in rows]}, NCCL kernel ms "
                      f"{[round(t['nccl_ms'], 2) for t in rows]}")
+    for r in report.get("other_cards", ()):
+        lines.append(f"card {r['card']} from this process after card 0: "
+                     f"held {r['held']}, attribute tiers and probes held "
+                     f"{r['attributes']}")
     lines.extend(f"FAILED: {msg}" for msg in report["failed"])
     return lines
 

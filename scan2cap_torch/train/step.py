@@ -221,4 +221,5 @@ def make_eval_step(cfg: ModelConfig, model: torch.nn.Module,
                     num_size_cluster=cfg.num_size_cluster)
         return {k: out[k] for k in keep if k in out}
 
+    eval_step.per_scene_outputs = keep          # parallel.mesh.mesh_eval_fn
     return eval_step

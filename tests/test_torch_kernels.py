@@ -432,3 +432,18 @@ def test_bf16_train_step_launches_only_float32_kernels(card, mode,
     assert torch.isfinite(metrics["loss"])
     assert (seen.count("fps"), seen.count("first_k"),
             seen.count("gather")) == (5, 5, 6), seen
+
+
+def test_attribute_tiers_launch_on_a_second_card_after_the_first(card):
+    """The 16-block and shared-state FPS tiers and both pack-tile probes
+    set a kernel attribute before their launch, and the attribute belongs
+    to the card that was current: launched on card 0 and then on card 1
+    from one process, each is exact on both (csrc/fps.cu, pack_probe.cu
+    ``PerCard``)."""
+    from scan2cap_torch.scripts import dryrun_multicard
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    rows = dryrun_multicard.other_cards(2)
+    assert [r["card"] for r in rows] == [1]
+    assert rows[0]["attributes"] == dict(fps_cluster16=1, fps_shared_state=1,
+                                         pack_probe=1, shift_probe=1)

@@ -390,3 +390,50 @@ def test_2x2_save_restores_into_other_shapes(mesh22, mesh41, mesh11, ref,
     tokens = make_eval_step(ModelConfig(**TINY), model)(
         synthetic.to_device(ref["batch"], "cpu"))["lang_cap"]
     assert tokens.shape[:2] == (4, TINY["num_proposals"])
+
+
+@pytest.fixture(scope="module")
+def mesh21(ref):
+    """(2, 1) on the first three scenes: one rank pads its share."""
+    odd = {k: v if k in pmesh.REPLICATED_KEYS else v[:3]
+           for k, v in ref["batch"].items()}
+    res = pmesh.launch(pmesh.MeshSpec(2, 1), "cpu", ranks.eval_outputs_2x1,
+                       TINY, V, VP, ref["sd"], odd)
+    return dict(res, batch=odd)
+
+
+def test_mesh_eval_fn_named_outputs_equal_the_gather_by_shape(ref, mesh21):
+    """Every output of the eval step is named per scene and comes back as
+    the gather by shape gave it, cut to the three scenes; the tokens are
+    one process's."""
+    named, by_shape = mesh21["named"], mesh21["by_shape"]
+    assert sorted(named) == sorted(by_shape)
+    for k in named:
+        assert named[k].shape[0] == 3, k
+        np.testing.assert_array_equal(named[k], by_shape[k], err_msg=k)
+    np.testing.assert_array_equal(named["lang_cap"], ref["tokens"][:3])
+
+
+def test_mesh_eval_fn_passes_a_replicated_output_untouched(mesh21):
+    toy, pc = mesh21["toy"], mesh21["batch"]["point_clouds"]
+    np.testing.assert_array_equal(
+        toy["scene_sum"], torch.from_numpy(pc).sum((1, 2)).numpy())
+    # the rank's own (2, 2): not gathered, not cut to the 3 scenes
+    np.testing.assert_array_equal(toy["table"], np.full((2, 2), 7.0))
+    assert int(toy["count"]) == 2
+
+
+def test_mesh_eval_fn_refuses_an_undeclared_output_of_a_ranks_length(
+        mesh21):
+    msgs = mesh21["undeclared"]
+    assert msgs is not None and len(msgs) == 2
+    for msg in msgs:
+        assert "'table'" in msg and "neither per scene nor replicated" in msg
+
+
+def test_mesh_eval_fn_needs_the_per_scene_outputs_named():
+    with pytest.raises(TypeError, match="names no per_scene_outputs"):
+        pmesh.mesh_eval_fn(lambda batch: batch)
+    step = make_eval_step(ModelConfig(**TINY), CapNet(
+        ModelConfig(**TINY), num_vocabs=V, device="cpu"))
+    assert "lang_cap" in step.per_scene_outputs

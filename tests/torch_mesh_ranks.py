@@ -183,6 +183,56 @@ def data_4x1(cfg_kw, V, VP, sd, batch, bn_input, loss_cases):
     return res
 
 
+def _by_shape(eval_step):
+    """``mesh_eval_fn`` as it gathered before its outputs were named: every
+    tensor whose leading axis is a rank's scene count."""
+    def wrapped(batch):
+        mesh = pmesh.current()
+        n = batch["point_clouds"].shape[0]
+        per = -(-n // mesh.n_data)
+        local = {k: v if k in pmesh.REPLICATED_KEYS or v.dim() == 0 else
+                 v.index_select(0, pmesh._rows(n, mesh.n_data, mesh.d,
+                                               v.device))
+                 for k, v in batch.items()}
+        return {k: (pmesh.all_gather(v, "data", 0)[:n]
+                    if torch.is_tensor(v) and v.dim() > 0
+                    and v.shape[0] == per else v)
+                for k, v in eval_step(local).items()}
+    return wrapped
+
+
+def eval_outputs_2x1(cfg_kw, V, VP, sd, batch):
+    """At (2, 1) on an odd batch: every output of ``make_eval_step``
+    through ``mesh_eval_fn`` and through the gather by shape it replaced;
+    an output declared replicated comes back as the rank's own; an
+    undeclared output of a rank's scene count raises on every rank."""
+    tb = synthetic.to_device(batch, "cpu")
+    cfg, model = _model(cfg_kw, V, VP, sd)
+    step = make_eval_step(cfg, model)
+    res = {"named": {k: v.numpy() for k, v in
+                     pmesh.mesh_eval_fn(step)(tb).items()},
+           "by_shape": {k: v.numpy() for k, v in
+                        _by_shape(step)(tb).items()}}
+
+    def toy(b):
+        per = b["point_clouds"].shape[0]
+        return {"scene_sum": b["point_clouds"].sum((1, 2)),
+                "table": torch.full((per, 2), 7.0),
+                "count": torch.tensor(per)}
+
+    toy.per_scene_outputs = ("scene_sum",)
+    toy.replicated_outputs = ("table",)
+    res["toy"] = {k: v.numpy() for k, v in
+                  pmesh.mesh_eval_fn(toy)(tb).items()}
+    del toy.replicated_outputs
+    try:
+        pmesh.mesh_eval_fn(toy)(tb)
+        res["undeclared"] = None
+    except ValueError as e:
+        res["undeclared"] = _all(str(e))
+    return res
+
+
 def spatial_ops(xyz, new_xyz, feats, radius, nsample, axis):
     """The sharded ball query and query-and-group over ``axis``, and the
     collectives each axis issued."""
