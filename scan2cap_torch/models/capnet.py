@@ -20,6 +20,7 @@ from scan2cap_torch.models.graph import GraphModule
 from scan2cap_torch.models.layers import seeded_init, widen
 from scan2cap_torch.models.proposal import ProposalModule
 from scan2cap_torch.models.voting import VotingModule, l2_normalize_votes
+from scan2cap_torch.utils.profiling import annotate
 
 
 class CapNet(nn.Module):
@@ -71,20 +72,25 @@ class CapNet(nn.Module):
                 is_eval: bool = True, train: bool = False,
                 bn_momentum: float = 0.1) -> dict:
         cfg = self.cfg
-        d = self.backbone_net(data_dict, train, bn_momentum)
+        with annotate("scan2cap.backbone"):
+            d = self.backbone_net(data_dict, train, bn_momentum)
         d["seed_inds"] = d["fp2_inds"]
         d["seed_xyz"] = d["fp2_xyz"]
         d["seed_features"] = d["fp2_features"]
-        # a bfloat16 backbone's seed features enter the float32 voting
-        # layers promoted, as JAX promotes them
-        vote_xyz, vote_features = self.vgen(
-            d["fp2_xyz"], widen(d["fp2_features"]), train, bn_momentum)
-        vote_features = l2_normalize_votes(vote_features)
+        with annotate("scan2cap.vote"):
+            # a bfloat16 backbone's seed features enter the float32 voting
+            # layers promoted, as JAX promotes them
+            vote_xyz, vote_features = self.vgen(
+                d["fp2_xyz"], widen(d["fp2_features"]), train, bn_momentum)
+            vote_features = l2_normalize_votes(vote_features)
         d["vote_xyz"] = vote_xyz
         d["vote_features"] = vote_features
-        d = self.proposal(vote_xyz, vote_features, d, train, bn_momentum)
+        with annotate("scan2cap.proposal"):
+            d = self.proposal(vote_xyz, vote_features, d, train, bn_momentum)
         if cfg.num_graph_steps > 0:
-            d = self.graph(d)
+            with annotate("scan2cap.graph"):
+                d = self.graph(d)
         if not cfg.no_caption:
-            d = self.caption(d, use_tf, is_eval)
+            with annotate("scan2cap.caption"):
+                d = self.caption(d, use_tf, is_eval)
         return d

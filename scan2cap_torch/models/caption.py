@@ -46,6 +46,7 @@ from scan2cap_torch.models.graph import (bbox_centers, mask_and_topk_locals,
 from scan2cap_torch.models.layers import GRUCell
 from scan2cap_torch.ops.boxes import box3d_iou_batch
 from scan2cap_torch.parallel import mesh as pmesh
+from scan2cap_torch.utils.profiling import annotate
 
 
 def select_target(data_dict: dict) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -234,17 +235,18 @@ class SceneCaptionModule(_SplitLinears):
         forcing (``word_embs`` (N, T, E)) returns logits (N, num_steps, V);
         free running (``emb_table`` (V, E)) token ids (N, num_steps)."""
         prev, outs = first_input, []
-        for t in range(num_steps):
-            hidden = self.recurrent_cell(prev, hidden)
-            logits = _mask_pad_logits(self._lin("classifier", hidden),
-                                      self.num_vocabs)
-            if word_embs is not None:
-                prev = word_embs[:, t + 1]
-                outs.append(logits)
-            else:
-                tokens = torch.argmax(logits, dim=-1)
-                prev = emb_table[tokens]
-                outs.append(tokens)
+        with annotate("scan2cap.decode"):
+            for t in range(num_steps):
+                hidden = self.recurrent_cell(prev, hidden)
+                logits = _mask_pad_logits(self._lin("classifier", hidden),
+                                          self.num_vocabs)
+                if word_embs is not None:
+                    prev = word_embs[:, t + 1]
+                    outs.append(logits)
+                else:
+                    tokens = torch.argmax(logits, dim=-1)
+                    prev = emb_table[tokens]
+                    outs.append(tokens)
         return torch.stack(outs, dim=1)
 
     def forward_sample_batch(self, data_dict: dict) -> dict:
@@ -342,21 +344,23 @@ class TopDownSceneCaptionModule(_SplitLinears):
         h2 = target_feat.new_zeros((N, self.hidden_size))
         neg_mask = torch.where(valid_masks[..., None] == 0, -1e30, 0.0)
         logits_t, attn_t = [], []
-        for t in range(num_steps):
-            x = torch.cat([word_embs[:, t], h2, target_feat], dim=-1)
-            x = torch.relu(self.map_topdown(x))
-            h1 = self.recurrent_cell_1(x, h1)
-            combined = torch.tanh(
-                mapped_obj + self._lin("map_hidd", h1, local=True)[:, None, :])
-            scores = self._attend(combined) + neg_mask           # (N, K, 1)
-            attn = torch.softmax(scores, dim=1)
-            attended = torch.sum(obj_feats * attn, dim=1)        # (N, C)
-            lang_in = torch.relu(self.map_lang(
-                torch.cat([attended, h1], dim=-1)))
-            h2 = self.recurrent_cell_2(lang_in, h2)
-            logits_t.append(_mask_pad_logits(self._lin("classifier", h2),
-                                             self.num_vocabs))
-            attn_t.append(attn[..., 0])
+        with annotate("scan2cap.decode"):
+            for t in range(num_steps):
+                x = torch.cat([word_embs[:, t], h2, target_feat], dim=-1)
+                x = torch.relu(self.map_topdown(x))
+                h1 = self.recurrent_cell_1(x, h1)
+                combined = torch.tanh(
+                    mapped_obj
+                    + self._lin("map_hidd", h1, local=True)[:, None, :])
+                scores = self._attend(combined) + neg_mask       # (N, K, 1)
+                attn = torch.softmax(scores, dim=1)
+                attended = torch.sum(obj_feats * attn, dim=1)    # (N, C)
+                lang_in = torch.relu(self.map_lang(
+                    torch.cat([attended, h1], dim=-1)))
+                h2 = self.recurrent_cell_2(lang_in, h2)
+                logits_t.append(_mask_pad_logits(
+                    self._lin("classifier", h2), self.num_vocabs))
+                attn_t.append(attn[..., 0])
         return torch.stack(logits_t, dim=1), torch.stack(attn_t, dim=2)
 
     def forward_sample_batch(self, data_dict: dict) -> dict:
@@ -413,32 +417,37 @@ class TopDownSceneCaptionModule(_SplitLinears):
         h2 = tgt.new_zeros((B, kc, self.hidden_size))
         prev = first_input
         tokens_t, attn_t = [], []
-        for _ in range(num_steps):
-            x = torch.relu(self.map_topdown(torch.cat([prev, h2, tgt], -1)))
-            h1 = self.recurrent_cell_1(x, h1)
-            hproj = self._lin("map_hidd", h1)
-            scores = torch.sum(torch.tanh(shared_mapped[:, None]
-                                          + hproj[:, :, None]) * w,
-                               dim=-1)                              # (B,kc,K)
-            if onehot_nbr is not None:
-                s_nbr = torch.sum(torch.tanh(nbr_base + hproj[:, :, None]) * w,
-                                  dim=-1)                           # (B,kc,L)
-                corr = torch.einsum("btl,btlk->btk", s_nbr, onehot_nbr)
-                scores = torch.where(covered > 0, corr, scores)
-            attn = torch.softmax(scores + neg_mask, dim=-1)
-            attended = torch.einsum("btk,bkc->btc", attn, obj_feats)
-            if onehot_nbr is not None:
-                attn_nbr = torch.einsum("btk,btlk->btl", attn, onehot_nbr)
-                attended = attended + torch.sum(attn_nbr[..., None] * rel,
-                                                dim=2)
-            lang_in = torch.relu(self.map_lang(torch.cat([attended, h1], -1)))
-            h2 = self.recurrent_cell_2(lang_in, h2)
-            logits = _mask_pad_logits(self._lin("classifier", h2),
-                                      self.num_vocabs)
-            tokens = torch.argmax(logits, dim=-1)                   # (B,kc)
-            prev = emb_table[tokens]
-            tokens_t.append(tokens)
-            attn_t.append(attn)
+        with annotate("scan2cap.decode"):
+            for _ in range(num_steps):
+                x = torch.relu(self.map_topdown(
+                    torch.cat([prev, h2, tgt], -1)))
+                h1 = self.recurrent_cell_1(x, h1)
+                hproj = self._lin("map_hidd", h1)
+                scores = torch.sum(torch.tanh(shared_mapped[:, None]
+                                              + hproj[:, :, None]) * w,
+                                   dim=-1)                          # (B,kc,K)
+                if onehot_nbr is not None:
+                    s_nbr = torch.sum(
+                        torch.tanh(nbr_base + hproj[:, :, None]) * w,
+                        dim=-1)                                     # (B,kc,L)
+                    corr = torch.einsum("btl,btlk->btk", s_nbr, onehot_nbr)
+                    scores = torch.where(covered > 0, corr, scores)
+                attn = torch.softmax(scores + neg_mask, dim=-1)
+                attended = torch.einsum("btk,bkc->btc", attn, obj_feats)
+                if onehot_nbr is not None:
+                    attn_nbr = torch.einsum("btk,btlk->btl", attn,
+                                            onehot_nbr)
+                    attended = attended + torch.sum(
+                        attn_nbr[..., None] * rel, dim=2)
+                lang_in = torch.relu(self.map_lang(
+                    torch.cat([attended, h1], -1)))
+                h2 = self.recurrent_cell_2(lang_in, h2)
+                logits = _mask_pad_logits(self._lin("classifier", h2),
+                                          self.num_vocabs)
+                tokens = torch.argmax(logits, dim=-1)               # (B,kc)
+                prev = emb_table[tokens]
+                tokens_t.append(tokens)
+                attn_t.append(attn)
         return (torch.stack(tokens_t, dim=2).to(torch.int32),
                 torch.stack(attn_t, dim=2))
 
@@ -454,22 +463,26 @@ class TopDownSceneCaptionModule(_SplitLinears):
         h2 = tgt.new_zeros((B, K, self.hidden_size))
         prev = first_input
         tokens_t, attn_t = [], []
-        for _ in range(num_steps):
-            x = torch.relu(self.map_topdown(torch.cat([prev, h2, tgt], -1)))
-            h1 = self.recurrent_cell_1(x, h1)
-            hproj = self._lin("map_hidd", h1)
-            scores = torch.sum(torch.tanh(base_loc + hproj[:, :, None]) * w,
-                               dim=-1)                              # (B,K,L)
-            attn = torch.softmax(scores, dim=-1)
-            attended = torch.einsum("btl,btlc->btc", attn, ctx_loc)
-            lang_in = torch.relu(self.map_lang(torch.cat([attended, h1], -1)))
-            h2 = self.recurrent_cell_2(lang_in, h2)
-            logits = _mask_pad_logits(self._lin("classifier", h2),
-                                      self.num_vocabs)
-            tokens = torch.argmax(logits, dim=-1)                   # (B,K)
-            prev = emb_table[tokens]
-            tokens_t.append(tokens)
-            attn_t.append(attn)
+        with annotate("scan2cap.decode"):
+            for _ in range(num_steps):
+                x = torch.relu(self.map_topdown(
+                    torch.cat([prev, h2, tgt], -1)))
+                h1 = self.recurrent_cell_1(x, h1)
+                hproj = self._lin("map_hidd", h1)
+                scores = torch.sum(
+                    torch.tanh(base_loc + hproj[:, :, None]) * w,
+                    dim=-1)                                         # (B,K,L)
+                attn = torch.softmax(scores, dim=-1)
+                attended = torch.einsum("btl,btlc->btc", attn, ctx_loc)
+                lang_in = torch.relu(self.map_lang(
+                    torch.cat([attended, h1], -1)))
+                h2 = self.recurrent_cell_2(lang_in, h2)
+                logits = _mask_pad_logits(self._lin("classifier", h2),
+                                          self.num_vocabs)
+                tokens = torch.argmax(logits, dim=-1)               # (B,K)
+                prev = emb_table[tokens]
+                tokens_t.append(tokens)
+                attn_t.append(attn)
         return (torch.stack(tokens_t, dim=2).to(torch.int32),
                 torch.stack(attn_t, dim=2))
 

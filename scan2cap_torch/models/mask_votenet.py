@@ -22,6 +22,7 @@ from scan2cap_torch.models.backbone import (Pointnet2Backbone,
                                             PointnetSAModuleVotes)
 from scan2cap_torch.models.layers import BatchNorm, seeded_init
 from scan2cap_torch.models.voting import VotingModule, l2_normalize_votes
+from scan2cap_torch.utils.profiling import annotate
 
 # the vote aggregation's ball (mask_votenet.py:145-153 of the reference)
 AGGREGATION_RADIUS = 5.0
@@ -92,13 +93,17 @@ class MaskVoteNet(nn.Module):
 
     def forward(self, data_dict: dict, train: bool = False,
                 bn_momentum: float = 0.1) -> dict:
-        d = self.backbone_net(data_dict, train, bn_momentum)
+        with annotate("scan2cap.backbone"):
+            d = self.backbone_net(data_dict, train, bn_momentum)
         d["seed_inds"] = d["fp2_inds"]
         d["seed_xyz"] = d["fp2_xyz"]
         d["seed_features"] = d["fp2_features"]
-        vote_xyz, vote_features = self.vgen(d["fp2_xyz"], d["fp2_features"],
-                                            train, bn_momentum)
-        vote_features = l2_normalize_votes(vote_features)
+        with annotate("scan2cap.vote"):
+            vote_xyz, vote_features = self.vgen(
+                d["fp2_xyz"], d["fp2_features"], train, bn_momentum)
+            vote_features = l2_normalize_votes(vote_features)
         d["vote_xyz"] = vote_xyz
         d["vote_features"] = vote_features
-        return self.proposal(vote_xyz, vote_features, d, train, bn_momentum)
+        with annotate("scan2cap.proposal"):
+            return self.proposal(vote_xyz, vote_features, d, train,
+                                 bn_momentum)

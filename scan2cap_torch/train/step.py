@@ -37,6 +37,7 @@ from scan2cap_torch.losses import get_scene_cap_loss
 from scan2cap_torch.losses.mask_votenet import get_mask_votenet_loss
 from scan2cap_torch.losses.pretrained import get_pretrained_loss
 from scan2cap_torch.parallel.mesh import sum_gradients, sum_metrics
+from scan2cap_torch.utils.profiling import annotate, program_step
 
 KEEP_KEYS = (
     "lang_cap", "bbox_corner", "bbox_mask", "bbox_feature",
@@ -119,20 +120,24 @@ def make_model_step(cfg: ModelConfig, state: TrainState,
     _check_device(model)
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
+    @program_step()
     def step(batch: Dict, lr: float, bn_momentum: float) -> Dict:
         model.train()
         optimizer.zero_grad(set_to_none=True)
         out = forward_loss(batch, bn_momentum)
-        out["loss"].backward()
-        for p in params:
-            # a parameter the loss does not reach still decays, as it does
-            # under the JAX step, whose gradient tree holds zeros for it
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        sum_gradients(params)
-        for group in optimizer.param_groups:
-            group["lr"] = float(lr)
-        optimizer.step()
+        with annotate("scan2cap.backward"):
+            out["loss"].backward()
+        with annotate("scan2cap.optimizer"):
+            for p in params:
+                # a parameter the loss does not reach still decays, as it
+                # does under the JAX step, whose gradient tree holds zeros
+                # for it
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            sum_gradients(params)
+            for group in optimizer.param_groups:
+                group["lr"] = float(lr)
+            optimizer.step()
         state.step += 1
         return sum_metrics({k: out[k].detach() for k in report_keys
                             if k in out})
@@ -153,11 +158,13 @@ def make_train_step(cfg: ModelConfig, state: TrainState,
     def forward_loss(batch: Dict, bn_momentum: float) -> Dict:
         out = model(batch, use_tf=use_tf, is_eval=False, train=True,
                     bn_momentum=bn_momentum)
-        return get_scene_cap_loss(
-            out, detection=detection, caption=caption and not cfg.no_caption,
-            orientation=orientation, distance=distance, num_bins=cfg.num_bins,
-            num_heading_bin=cfg.num_heading_bin,
-            num_size_cluster=cfg.num_size_cluster)
+        with annotate("scan2cap.loss"):
+            return get_scene_cap_loss(
+                out, detection=detection,
+                caption=caption and not cfg.no_caption,
+                orientation=orientation, distance=distance,
+                num_bins=cfg.num_bins, num_heading_bin=cfg.num_heading_bin,
+                num_size_cluster=cfg.num_size_cluster)
 
     return make_model_step(cfg, state, forward_loss, REPORT_KEYS)
 
@@ -170,7 +177,8 @@ def make_mask_votenet_step(cfg: ModelConfig, state: TrainState
 
     def forward_loss(batch: Dict, bn_momentum: float) -> Dict:
         out = model(batch, train=True, bn_momentum=bn_momentum)
-        return get_mask_votenet_loss(out, cfg.num_size_cluster)
+        with annotate("scan2cap.loss"):
+            return get_mask_votenet_loss(out, cfg.num_size_cluster)
 
     return make_model_step(cfg, state, forward_loss, MVN_REPORT_KEYS)
 
@@ -186,8 +194,11 @@ def make_pretrained_step(cfg: ModelConfig, state: TrainState, mode: str,
 
     def forward_loss(batch: Dict, bn_momentum: float) -> Dict:
         out = model(batch, use_tf=True, is_eval=False, train=True)
-        return get_pretrained_loss(out, mode=mode, orientation=orientation,
-                                   distance=distance, num_bins=cfg.num_bins)
+        with annotate("scan2cap.loss"):
+            return get_pretrained_loss(out, mode=mode,
+                                       orientation=orientation,
+                                       distance=distance,
+                                       num_bins=cfg.num_bins)
 
     return make_model_step(cfg, state, forward_loss, PRETRAINED_REPORT_KEYS)
 
@@ -210,15 +221,17 @@ def make_eval_step(cfg: ModelConfig, model: torch.nn.Module,
     _check_device(model)
     keep = KEEP_KEYS + (ATTN_KEYS if keep_attn else ())
 
+    @program_step()
     def eval_step(batch: Dict) -> Dict:
         model.eval()
         with torch.inference_mode():
             out = model(batch, use_tf=False, is_eval=True, train=False)
             if detection_loss:
-                out = get_scene_cap_loss(
-                    out, detection=True, caption=False,
-                    num_heading_bin=cfg.num_heading_bin,
-                    num_size_cluster=cfg.num_size_cluster)
+                with annotate("scan2cap.loss"):
+                    out = get_scene_cap_loss(
+                        out, detection=True, caption=False,
+                        num_heading_bin=cfg.num_heading_bin,
+                        num_size_cluster=cfg.num_size_cluster)
         return {k: out[k] for k in keep if k in out}
 
     eval_step.per_scene_outputs = keep          # parallel.mesh.mesh_eval_fn

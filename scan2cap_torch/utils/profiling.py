@@ -1,24 +1,45 @@
-"""Tracing, timing and a numerics guard (counterpart of
-``scan2cap_tpu/utils/profiling.py``).
+"""Tracing, the program's spans and step record, and a numerics guard
+(counterpart of ``scan2cap_tpu/utils/profiling.py``).
 
 * ``trace(logdir)``: ``torch.profiler`` around a block (the host, and the
   card where there is one), written to ``<logdir>/trace.json`` as a Chrome
   trace, the file ``scripts/profile_report.py`` reads; ``start`` and
   ``stop`` are its two halves, which the trainers' ``--profile`` calls
   across steps (``train/solver.py``);
-* ``annotate(name)``: a named span in that trace (``record_function``);
-* ``StepTimer``: named phase durations on the host's clock, their means;
+* ``annotate(name)``: a named span in that trace (``record_function``)
+  while a profiler runs, else one shared null context: with no profiler
+  the program pays a flag read a span, no dispatcher call and no
+  allocation.  The program's spans, each opened through it:
+
+  - ``scan2cap.step``: one train step or one served batch
+    (``train/step.py``, through ``@program_step()``);
+  - ``scan2cap.backbone``, ``.vote``, ``.proposal``, ``.graph``,
+    ``.caption``: the model's stages (``models/capnet.py``,
+    ``models/mask_votenet.py``);
+  - ``scan2cap.decode``: a caption decoder's loop over its steps, once a
+    loop (``models/caption.py``);
+  - ``scan2cap.loss``, ``scan2cap.backward``, ``scan2cap.optimizer``: a
+    step's loss call, its ``backward()``, and the fill of unreached
+    gradients, their sum over a mesh and the Adam update
+    (``train/step.py``).
+
+  A span's parent is the span around it on the same thread; the autograd
+  engine launches the backward's kernels from threads of its own, inside
+  the time of ``scan2cap.backward``;
+* ``STEP_RECORD``: the last ``RECORD_LEN`` program steps, each the host
+  seconds from the step's entry to its return and whether a profiler was
+  running, written by ``program_step`` on every call;
 * ``check_finite(tensors)``: raise on NaN or Inf in a dict or list of
   tensors (one host read per tensor: call it sparingly).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
-from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Iterator, NamedTuple
 
 import numpy as np
 import torch
@@ -55,32 +76,39 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
         stop(prof, logdir)
 
 
+_autograd_profiler = torch.autograd.profiler
+_NO_SPAN = contextlib.nullcontext()
+STEP_SPAN = "scan2cap.step"
+RECORD_LEN = 4096
+
+
 def annotate(name: str):
-    return torch.profiler.record_function(name)
+    """A ``record_function`` span named ``name`` while a profiler runs;
+    otherwise a shared null context."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
-class StepTimer:
-    """Accumulates named phase durations; reports means."""
+class StepEntry(NamedTuple):
+    seconds: float          # host seconds from the step's entry to its return
+    traced: bool            # a profiler was running at its entry
 
-    def __init__(self):
-        self.times: Dict[str, list] = defaultdict(list)
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.times[name].append(time.perf_counter() - t0)
+STEP_RECORD: "collections.deque[StepEntry]" = collections.deque(
+    maxlen=RECORD_LEN)
 
-    def mean(self, name: str, last: Optional[int] = None) -> float:
-        xs = self.times[name]
-        if not xs:
-            return 0.0
-        return float(np.mean(xs[-last:] if last else xs))
 
-    def report(self, last: Optional[int] = None) -> Dict[str, float]:
-        return {k: self.mean(k, last) for k in self.times}
+@contextlib.contextmanager
+def program_step():
+    """One program step: a ``scan2cap.step`` span, and its entry in
+    ``STEP_RECORD`` when it returns.  ``@program_step()`` makes a function
+    one."""
+    traced = _autograd_profiler._is_profiler_enabled
+    t0 = time.perf_counter()
+    with annotate(STEP_SPAN):
+        yield
+    STEP_RECORD.append(StepEntry(time.perf_counter() - t0, traced))
 
 
 def _leaves(tree, path=""):

@@ -5,8 +5,7 @@
 * ``utils/metric_util``: the goldens of ``tests/test_nms_ap.py:150`` and
   JAX's counts on random scenes, exactly.
 * ``utils/profiling``: ``trace`` writes a Chrome trace with the
-  ``annotate`` spans, ``StepTimer`` means, ``check_finite`` over dicts and
-  lists.
+  ``annotate`` spans, ``check_finite`` over dicts and lists.
 * ``scripts/profile_report``: the top operations of a trace by summed time
   (a hand-made trace with kernels, and a real CPU trace).
 * ``scripts/profile_host_pipeline`` at 2 scenes: the same files as the JAX
@@ -103,17 +102,6 @@ def test_profiling_trace_timer_and_finite_check(tmp_path):
         events = json.load(f)["traceEvents"]
     names = {e.get("name") for e in events}
     assert "my_span" in names and "aten::mm" in names
-
-    timer = profiling.StepTimer()
-    for _ in range(3):
-        with timer.phase("fetch"):
-            pass
-    with timer.phase("step"):
-        pass
-    assert set(timer.report()) == {"fetch", "step"}
-    assert len(timer.times["fetch"]) == 3
-    assert timer.mean("fetch") >= 0.0 and timer.mean("none") == 0.0
-    assert timer.mean("fetch", last=1) == timer.times["fetch"][-1]
 
     ok = {"a": torch.ones(3), "b": [torch.zeros(2), torch.arange(3)],
           "c": np.ones(2)}
