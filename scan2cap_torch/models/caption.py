@@ -21,6 +21,11 @@ reference, so its softmax weight is exactly 0 and scoring only the local
 slots is the same math; or, with ``num_locals=-1``, over all K proposals
 (``_decode_scene``), targets taken ``eval_chunk`` at a time.
 
+On a CUDA device with grad enabled and no mesh, the top-down decoder's
+teacher-forced decode replays as two CUDA graphs, forward and backward
+(``models/decode_graph``); its eager loop ``_decode_eager`` is what they
+capture, and runs everywhere else.
+
 Under a mesh (``parallel.mesh``) the model axis splits the classifier
 (its vocabulary columns, or its hidden rows where the width does not
 divide) and the hidden axis of ``map_feat`` and ``map_hidd``
@@ -35,12 +40,14 @@ package's ``_shard_targets``).
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scan2cap_torch.models.decode_graph import DecodeGraphs
 from scan2cap_torch.models.graph import (bbox_centers, mask_and_topk_locals,
                                          norm3, query_locals_dense)
 from scan2cap_torch.models.layers import GRUCell
@@ -292,6 +299,10 @@ class SceneCaptionModule(_SplitLinears):
 class TopDownSceneCaptionModule(_SplitLinears):
     """2-layer attention decoder (caption_module.py:202-592)."""
 
+    # the modules the teacher-forced decode's loop reads
+    DECODER = ("map_topdown", "recurrent_cell_1", "map_hidd", "attend",
+               "map_lang", "recurrent_cell_2", "classifier")
+
     def __init__(self, num_vocabs: int, emb_size: int = 300,
                  feat_size: int = 128, hidden_size: int = 512,
                  num_locals: int = -1, query_mode: str = "center",
@@ -324,6 +335,7 @@ class TopDownSceneCaptionModule(_SplitLinears):
         self.map_lang = nn.Linear(feat_size + H, emb_size)
         self.recurrent_cell_2 = GRUCell(emb_size, H)
         self.classifier = nn.Linear(H, num_vocabs_padded or num_vocabs)
+        self._decode_graphs = DecodeGraphs()
 
     def forward(self, data_dict: dict, use_tf: bool = True,
                 is_eval: bool = False) -> dict:
@@ -334,6 +346,23 @@ class TopDownSceneCaptionModule(_SplitLinears):
     def _decode(self, target_feat: torch.Tensor, obj_feats: torch.Tensor,
                 mapped_obj: torch.Tensor, valid_masks: torch.Tensor,
                 word_embs: torch.Tensor, num_steps: int):
+        """``_decode_eager``, or the replay of its CUDA graphs where
+        ``decode_graph.eager_reason`` allows it.  A replay returns the
+        graph's static buffers, which the next teacher-forced decode of
+        the same shapes overwrites: a train step reads the logits in its
+        loss and keeps neither output across steps."""
+        params = [p for name in self.DECODER
+                  for p in getattr(self, name).parameters()]
+        return self._decode_graphs(
+            functools.partial(self._decode_eager, num_steps=num_steps),
+            (target_feat, obj_feats, mapped_obj, valid_masks, word_embs),
+            params, split=bool(self.tp) or pmesh.current() is not None,
+            steps=num_steps)
+
+    def _decode_eager(self, target_feat: torch.Tensor,
+                      obj_feats: torch.Tensor, mapped_obj: torch.Tensor,
+                      valid_masks: torch.Tensor, word_embs: torch.Tensor,
+                      num_steps: int):
         """Teacher-forced decode of one target per row.
 
         target_feat (N, C), obj_feats (N, K, C), mapped_obj (N, K, H) =

@@ -1,0 +1,194 @@
+"""The top-down decoder's teacher-forced decode, forward and backward, as
+two CUDA graphs.
+
+``TopDownSceneCaptionModule._decode`` runs ``max_des_len + 1`` steps of
+some forty small kernels each, and its backward two to three times as
+many: launching them is most of a train step's host time.
+``DecodeGraphs`` captures the decoder's eager loop (``_decode_eager``),
+its forward and its backward, at the first call of a key, and from then on
+replays the two graphs inside one autograd node (``_Replay``): the same
+kernels in the same order and precision, one launch each way.
+
+A decode replays where ``eager_reason`` finds nothing against it: grad is
+enabled, no mesh splits the caption linears (their collectives would sit
+inside the graph), the inputs lie on a CUDA device and no capture is under
+way.  A key is the decode's length, the inputs' shapes, dtypes, device and
+which of them require grad, and the decoder parameters' addresses and
+which of them require grad.  A new key is captured at its first call,
+outside a profiler, at most ``MAX_CAPTURES`` of them; past that the loop
+runs eager.  Every call appends its ``DecodeGraphEntry`` to
+``utils/profiling.DECODE_GRAPH_RECORD``.
+
+A replay's outputs are the forward graph's static buffers: the next
+decode of the same key overwrites them.  The backward reads the
+activations that the latest forward replay of the key saved, so the
+backward of an earlier forward raises.  A train step consumes its decode
+before it starts the next one.  Gradients come back as tensors of their
+own.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from scan2cap_torch.utils.profiling import (DECODE_GRAPH_RECORD,
+                                            DecodeGraphEntry, annotate)
+
+MAX_CAPTURES = 4
+WARMUP_ITERS = 3            # PyTorch's own before a capture
+
+
+def eager_reason(inputs: Sequence[torch.Tensor],
+                 params: Sequence[torch.Tensor],
+                 split: bool) -> Optional[str]:
+    """Why a decode of ``inputs`` runs eager, or None where it may replay:
+    "no_grad" (grad mode off, as under ``inference_mode``, or nothing
+    requires grad), "mesh" (``split``: a mesh splits the caption
+    linears), "cpu" (not on a CUDA device), "capturing" (a CUDA graph
+    capture is under way)."""
+    if not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in (*inputs, *params)):
+        return "no_grad"
+    if split:
+        return "mesh"
+    if inputs[0].device.type != "cuda":
+        return "cpu"
+    if torch.cuda.is_current_stream_capturing():
+        return "capturing"
+    return None
+
+
+class _Capture:
+    """One key's graphs and their static buffers: the forward, and a
+    backward for each set of outputs a gradient may reach (all of them,
+    or the first alone: a training loss reads the logits and not the
+    attention)."""
+
+    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor],
+                 params: Sequence[torch.Tensor]):
+        self.inputs = [x.detach().clone().requires_grad_(x.requires_grad)
+                       for x in inputs]
+        surface = self.inputs + list(params)
+        self.wants = [t.requires_grad for t in surface]
+        wrt = [t for t in surface if t.requires_grad]
+        device = inputs[0].device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_ITERS):
+                outs = fn(*self.inputs)
+                torch.autograd.grad(outs, wrt,
+                                    [torch.ones_like(o) for o in outs],
+                                    allow_unused=True)
+            del outs
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.fwd = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.fwd):
+            outputs = fn(*self.inputs)
+        n = len(outputs)
+        self.grad_outputs = [torch.zeros_like(o) for o in outputs]
+        self.bwd = {}
+        sets = [(True,) * n, (True,) + (False,) * (n - 1)]
+        for present in dict.fromkeys(sets):
+            graph = torch.cuda.CUDAGraph()
+            # retain_graph: the saved activations stay where the forward
+            # graph writes them, out of reach of the next capture
+            with torch.cuda.graph(graph, pool=self.fwd.pool()):
+                grads = torch.autograd.grad(
+                    [o for o, p in zip(outputs, present) if p], wrt,
+                    [g for g, p in zip(self.grad_outputs, present) if p],
+                    retain_graph=True, allow_unused=True)
+            self.bwd[present] = (graph, grads)
+        # Drop their autograd graph: the activations stay in the graphs'
+        # own pool, which no later allocation draws on, and the
+        # parameters' gradient nodes are made anew on the caller's stream
+        # (the capture's would sync every backward with its stream).
+        self.outputs = [o.detach() for o in outputs]
+        self.generation = 0
+
+    def forward(self, inputs: Sequence[torch.Tensor]) -> int:
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x)
+        self.fwd.replay()
+        self.generation += 1
+        return self.generation
+
+    def backward(self, grads: Sequence[Optional[torch.Tensor]]) -> list:
+        present = tuple(g is not None for g in grads)
+        if present not in self.bwd:
+            present = (True,) * len(grads)      # zeros for the missing
+        graph, out = self.bwd[present]
+        for g, static, p in zip(grads, self.grad_outputs, present):
+            if p and g is None:
+                static.zero_()
+            elif p:
+                static.copy_(g)
+        graph.replay()
+        out = iter(out)
+        result = []
+        for wants in self.wants:
+            g = next(out) if wants else None
+            result.append(None if g is None else g.clone())
+        return result
+
+
+class _Replay(torch.autograd.Function):
+    """The forward graph's replay; its backward replays a backward
+    graph.  The arguments after the capture are its inputs, then the
+    parameters the graphs read in place."""
+
+    @staticmethod
+    def forward(ctx, capture: _Capture, *surface: torch.Tensor):
+        ctx.set_materialize_grads(False)
+        ctx.capture = capture
+        ctx.generation = capture.forward(surface[:len(capture.inputs)])
+        # tensors of their own over the static buffers: autograd makes
+        # each output this node's
+        return tuple(o.detach() for o in capture.outputs)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        capture = ctx.capture
+        if ctx.generation != capture.generation:
+            raise RuntimeError(
+                "the graphed decode ran again before this backward: its "
+                "saved activations are those of the later decode")
+        return (None, *capture.backward(grads))
+
+
+class DecodeGraphs:
+    """One decoder's captures, by key (the module docstring)."""
+
+    def __init__(self):
+        self._captures = {}
+
+    def __call__(self, fn: Callable, inputs: Sequence[torch.Tensor],
+                 params: Sequence[torch.Tensor], split: bool, steps: int):
+        """``fn(*inputs)``, the eager decode of ``steps`` steps that reads
+        ``params``, or the replay of its capture."""
+        why = eager_reason(inputs, params, split)
+        capture, kind = None, "replay"
+        if why is None:
+            key = (steps, inputs[0].device,
+                   tuple((x.shape, x.dtype, x.requires_grad) for x in inputs),
+                   tuple((p.data_ptr(), p.requires_grad) for p in params))
+            capture = self._captures.get(key)
+            if capture is None:
+                if torch.autograd.profiler._is_profiler_enabled:
+                    why = "profiler"
+                elif len(self._captures) >= MAX_CAPTURES:
+                    why = "cap"
+                else:
+                    capture = self._captures[key] = _Capture(fn, inputs,
+                                                             params)
+                    kind = "capture"
+        if capture is None:
+            DECODE_GRAPH_RECORD.append(DecodeGraphEntry("eager", why))
+            return fn(*inputs)
+        DECODE_GRAPH_RECORD.append(DecodeGraphEntry(kind, None))
+        with annotate("scan2cap.decode"):
+            return _Replay.apply(capture, *inputs, *params)

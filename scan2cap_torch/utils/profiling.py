@@ -29,6 +29,10 @@
 * ``STEP_RECORD``: the last ``RECORD_LEN`` program steps, each the host
   seconds from the step's entry to its return and whether a profiler was
   running, written by ``program_step`` on every call;
+* ``DECODE_GRAPH_RECORD``: the last ``RECORD_LEN`` teacher-forced decodes
+  of the top-down caption decoder, each how it ran (``capture``,
+  ``replay`` or ``eager``) and why eager, written by
+  ``models/decode_graph.DecodeGraphs`` on every call;
 * ``check_finite(tensors)``: raise on NaN or Inf in a dict or list of
   tensors (one host read per tensor: call it sparingly).
 """
@@ -39,7 +43,7 @@ import collections
 import contextlib
 import os
 import time
-from typing import Iterator, NamedTuple
+from typing import Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -97,6 +101,15 @@ class StepEntry(NamedTuple):
 
 STEP_RECORD: "collections.deque[StepEntry]" = collections.deque(
     maxlen=RECORD_LEN)
+
+
+class DecodeGraphEntry(NamedTuple):
+    kind: str               # "capture", "replay" or "eager"
+    reason: Optional[str]   # why eager (None otherwise)
+
+
+DECODE_GRAPH_RECORD: "collections.deque[DecodeGraphEntry]" = (
+    collections.deque(maxlen=RECORD_LEN))
 
 
 @contextlib.contextmanager
