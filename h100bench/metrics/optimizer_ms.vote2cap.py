@@ -1,0 +1,5 @@
+"""``optimizer_ms.train``'s reading, of Vote2Cap-DETR's train step."""
+
+from h100bench.harness import reader
+
+read = reader("optimizer_ms.train")

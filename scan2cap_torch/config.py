@@ -144,6 +144,66 @@ def flagship_config(**overrides) -> ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class Vote2CapConfig:
+    """Vote2Cap-DETR's own sizes (Chen et al., CVPR 2023, on 3DETR-m,
+    Misra et al., ICCV 2021); the point counts, classes, input columns
+    and caption length are the ``ModelConfig``'s it is built with:
+    ``sa_npoints`` = (pre-encoder points, encoder tokens after the interim
+    set abstraction, queries).  Radii are 3DETR's: the encoder masks the
+    pairs whose Euclidean distance is at least ``masking_radius[i]`` in
+    layer i (3DETR's squared radii compared with unsquared distances)."""
+
+    enc_dim: int = 256
+    enc_nhead: int = 4
+    enc_ffn_dim: int = 128
+    masking_radius: Tuple[float, float, float] = (0.16, 0.64, 1.44)
+    preenc_radius: float = 0.2
+    preenc_nsample: int = 64
+    preenc_mlp: Tuple[int, int, int] = (64, 128, 256)
+    interim_radius: float = 0.4
+    interim_nsample: int = 32
+    interim_mlp: Tuple[int, int, int] = (256, 256, 256)
+    query_radius: float = 0.3
+    query_nsample: int = 16
+    query_mlp: Tuple[int, int, int] = (256, 256, 256)
+    dec_dim: int = 256
+    dec_nhead: int = 4
+    dec_ffn_dim: int = 256
+    dec_nlayers: int = 8
+    pos_dim: int = 256
+    gauss_scale: float = 1.0
+    mlp_dim: int = 256
+    num_angle_bin: int = 1
+    # the caption head (DCC): a GPT-2 stack
+    cap_nlayers: int = 2
+    cap_dim: int = 256
+    cap_nhead: int = 4
+    cap_mlp_dim: int = 1024
+    cap_positions: int = 64
+    cap_knn: int = 16
+    num_vocabs: int = 3433
+    # the set criterion (3DETR's defaults)
+    matcher_cls_cost: float = 1.0
+    matcher_giou_cost: float = 2.0
+    noobj_weight: float = 0.2
+    loss_center_weight: float = 5.0
+    loss_size_weight: float = 1.0
+    loss_angle_reg_weight: float = 0.5
+    loss_vote_weight: float = 1.0
+    loss_caption_weight: float = 1.0
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Vote2CapConfig":
+        """The fields of ``d`` that name one, lists as tuples."""
+        kw = {}
+        for f in dataclasses.fields(cls):
+            if f.name in d:
+                v = d[f.name]
+                kw[f.name] = tuple(v) if isinstance(v, list) else v
+        return cls(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
 class PathConfig:
     """Where the data and the runs lie: ``SCAN2CAP_BASE`` (default the
     working directory), ``SCAN2CAP_DATA`` (default ``<base>/data``) and

@@ -1,6 +1,7 @@
 """3D box geometry (counterpart of ``scan2cap_tpu/ops/boxes.py``):
-corners, the axis-aligned IoU, and the generalized IoU of axis-aligned and
-of z-rotated boxes that the offline benchmark assigns by."""
+corners, the axis-aligned IoU, the generalized IoU of axis-aligned and
+of z-rotated boxes that the offline benchmark assigns by, and the
+batched axis-aligned generalized IoU that Vote2Cap-DETR matches by."""
 
 from __future__ import annotations
 
@@ -98,25 +99,42 @@ def param2obb_batch(center: torch.Tensor, heading_class: torch.Tensor,
     return torch.cat([center, size, (-heading)[..., None]], dim=-1)
 
 
+def _generalized_iou_bounds(min1, max1, min2, max2):
+    """All-pairs generalized IoU of axis-aligned boxes from their corners
+    of least and greatest coordinates, (..., N, 3) twice and (..., M, 3)
+    twice -> (..., N, M)."""
+    lo = torch.maximum(min1[..., :, None, :], min2[..., None, :, :])
+    hi = torch.minimum(max1[..., :, None, :], max2[..., None, :, :])
+    inter = torch.prod(torch.clamp(hi - lo, min=0.0), dim=-1)
+    vol1 = torch.prod(max1 - min1, dim=-1)
+    vol2 = torch.prod(max2 - min2, dim=-1)
+    union = vol1[..., :, None] + vol2[..., None, :] - inter
+    iou = inter / (union + 1e-8)
+    enc_lo = torch.minimum(min1[..., :, None, :], min2[..., None, :, :])
+    enc_hi = torch.maximum(max1[..., :, None, :], max2[..., None, :, :])
+    enc = torch.prod(torch.clamp(enc_hi - enc_lo, min=0.0), dim=-1)
+    return iou - (enc - union) / (enc + 1e-8)
+
+
 def generalized_box3d_iou_aabb(corners1: torch.Tensor,
                                corners2: torch.Tensor) -> torch.Tensor:
     """All-pairs generalized IoU of axis-aligned boxes
     (``scan2cap_tpu/ops/boxes.py:111-133``; benchmark/box_util.py:634-696,
     rotated_boxes=False): IoU - (vol(enclosing) - vol(union)) /
     vol(enclosing).  corners1 (N, 8, 3), corners2 (M, 8, 3) -> (N, M)."""
-    min1, max1 = box_min_max(corners1)
-    min2, max2 = box_min_max(corners2)
-    lo = torch.maximum(min1[:, None, :], min2[None, :, :])
-    hi = torch.minimum(max1[:, None, :], max2[None, :, :])
-    inter = torch.prod(torch.clamp(hi - lo, min=0.0), dim=-1)
-    vol1 = torch.prod(max1 - min1, dim=-1)
-    vol2 = torch.prod(max2 - min2, dim=-1)
-    union = vol1[:, None] + vol2[None, :] - inter
-    iou = inter / (union + 1e-8)
-    enc_lo = torch.minimum(min1[:, None, :], min2[None, :, :])
-    enc_hi = torch.maximum(max1[:, None, :], max2[None, :, :])
-    enc = torch.prod(torch.clamp(enc_hi - enc_lo, min=0.0), dim=-1)
-    return iou - (enc - union) / (enc + 1e-8)
+    return _generalized_iou_bounds(*box_min_max(corners1),
+                                   *box_min_max(corners2))
+
+
+def generalized_iou_aabb(center1: torch.Tensor, size1: torch.Tensor,
+                         center2: torch.Tensor, size2: torch.Tensor
+                         ) -> torch.Tensor:
+    """The same of boxes given by centre and size over shared leading
+    dims, (..., N, 3) twice and (..., M, 3) twice -> (..., N, M): what
+    Vote2Cap-DETR's matcher costs (3DETR's ``generalized_box3d_iou``,
+    axis-aligned)."""
+    return _generalized_iou_bounds(center1 - size1 / 2, center1 + size1 / 2,
+                                   center2 - size2 / 2, center2 + size2 / 2)
 
 
 def _clip_convex(verts: torch.Tensor, valid: torch.Tensor,

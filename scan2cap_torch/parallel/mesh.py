@@ -41,7 +41,9 @@ return a detached contiguous copy of their input without calling
 ``COLLECTIVES`` counts the calls issued by axis and ``COLLECTIVE_BYTES``
 the bytes they deliver to each rank (an all-reduce's tensor, an
 all-gather's concatenation: the output bytes that the JAX package's
-``__graft_entry__._collective_bytes`` reads off the HLO).
+``__graft_entry__._collective_bytes`` reads off the HLO).  Each issued
+all-reduce and all-gather opens a ``scan2cap.collective`` span while a
+profiler runs (``utils/profiling.annotate``).
 
 The entry points start the ranks themselves (``launch``); the process
 group is initialised through a ``FileStore`` in a temporary directory, so
@@ -63,6 +65,8 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from scan2cap_torch.utils.profiling import annotate
 
 # the "devices" a CPU mesh may use, as the JAX package's tests force 8
 # virtual CPU devices (tests/conftest.py)
@@ -337,7 +341,8 @@ def all_reduce(x: torch.Tensor, axis: str,
     if _alone(mesh, axis):
         return y
     _issued(axis, y)
-    dist.all_reduce(y, op=op, group=mesh.groups[axis])
+    with annotate("scan2cap.collective"):
+        dist.all_reduce(y, op=op, group=mesh.groups[axis])
     return y
 
 
@@ -352,7 +357,8 @@ def all_gather(x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
     wire = src.to(torch.uint8) if src.dtype == torch.bool else src
     wire = wire.contiguous()
     parts = [torch.empty_like(wire) for _ in range(mesh.size(axis))]
-    dist.all_gather(parts, wire, group=mesh.groups[axis])
+    with annotate("scan2cap.collective"):
+        dist.all_gather(parts, wire, group=mesh.groups[axis])
     out = torch.cat(parts, dim=dim)
     _issued(axis, out)
     return out.to(torch.bool) if src.dtype == torch.bool else out

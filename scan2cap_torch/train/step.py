@@ -7,7 +7,8 @@ update, BN running-statistics update.  ``make_train_step`` builds it for
 CapNet (backbone -> voting -> proposal -> graph -> teacher-forced caption,
 ``get_scene_cap_loss``), ``make_mask_votenet_step`` for MaskVoteNet
 (``get_mask_votenet_loss``), ``make_pretrained_step`` for the caption-only
-``CapNetPretrained`` (``get_pretrained_loss``).  The optimizer is
+``CapNetPretrained`` (``get_pretrained_loss``), ``make_vote2cap_step`` for
+Vote2Cap-DETR (``get_vote2cap_loss``).  The optimizer is
 ``torch.optim.Adam(weight_decay=wd)``: L2 weight decay coupled into the
 gradient before the moments (scripts/train.py:135), which is what the JAX
 package builds from ``add_decayed_weights`` + ``scale_by_adam``; never
@@ -36,6 +37,7 @@ from scan2cap_torch.config import ModelConfig
 from scan2cap_torch.losses import get_scene_cap_loss
 from scan2cap_torch.losses.mask_votenet import get_mask_votenet_loss
 from scan2cap_torch.losses.pretrained import get_pretrained_loss
+from scan2cap_torch.losses.vote2cap import get_vote2cap_loss
 from scan2cap_torch.parallel.mesh import sum_gradients, sum_metrics
 from scan2cap_torch.utils.profiling import annotate, program_step
 
@@ -58,6 +60,9 @@ MVN_REPORT_KEYS = (
     "loss", "vote_loss", "box_loss", "center_loss", "size_cls_loss",
     "size_reg_loss", "sem_cls_loss", "sem_cls_acc", "miou",
 )
+# what the Vote2Cap-DETR step reports
+VOTE2CAP_REPORT_KEYS = ("loss", "set_loss", "sem_cls_loss", "center_loss",
+                        "size_loss", "vote_loss", "cap_loss", "cap_acc")
 # what the pretrained step reports (scripts/train_pretrained.py:120-121)
 PRETRAINED_REPORT_KEYS = ("loss", "cap_loss", "cap_acc", "ori_loss",
                           "ori_acc", "dist_loss")
@@ -181,6 +186,21 @@ def make_mask_votenet_step(cfg: ModelConfig, state: TrainState
             return get_mask_votenet_loss(out, cfg.num_size_cluster)
 
     return make_model_step(cfg, state, forward_loss, MVN_REPORT_KEYS)
+
+
+def make_vote2cap_step(cfg: ModelConfig, state: TrainState
+                       ) -> Callable[[Dict, float, float], Dict]:
+    """The Vote2Cap-DETR step (``make_model_step``): the train-mode
+    forward with its Hungarian matching and teacher-forced captions, and
+    ``get_vote2cap_loss``; reports the ``VOTE2CAP_REPORT_KEYS``."""
+    model = state.model
+
+    def forward_loss(batch: Dict, bn_momentum: float) -> Dict:
+        out = model(batch, train=True, bn_momentum=bn_momentum)
+        with annotate("scan2cap.loss"):
+            return get_vote2cap_loss(out, model.mean_size, model.vcfg)
+
+    return make_model_step(cfg, state, forward_loss, VOTE2CAP_REPORT_KEYS)
 
 
 def make_pretrained_step(cfg: ModelConfig, state: TrainState, mode: str,

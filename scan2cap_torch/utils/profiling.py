@@ -21,7 +21,15 @@
   - ``scan2cap.loss``, ``scan2cap.backward``, ``scan2cap.optimizer``: a
     step's loss call, its ``backward()``, and the fill of unreached
     gradients, their sum over a mesh and the Adam update
-    (``train/step.py``).
+    (``train/step.py``);
+  - ``scan2cap.encoder``, ``scan2cap.detr_decoder``, ``scan2cap.match``:
+    Vote2Cap-DETR's pre-encoder, masked encoder and projection; its vote
+    queries and set-prediction decoder; the Hungarian matching's cost
+    matrices, their one copy to the host and the assignments
+    (``models/vote2cap.py``, ``ops/matching.py``); its caption head's
+    teacher-forced pass opens ``scan2cap.decode``;
+  - ``scan2cap.collective``: one collective issued over a mesh
+    (``parallel/mesh.py``).
 
   A span's parent is the span around it on the same thread; the autograd
   engine launches the backward's kernels from threads of its own, inside
@@ -33,6 +41,13 @@
   of the top-down caption decoder, each how it ran (``capture``,
   ``replay`` or ``eager``) and why eager, written by
   ``models/decode_graph.DecodeGraphs`` on every call;
+* ``MATCH_RECORD``: the last ``RECORD_LEN`` Hungarian matchings, each
+  the host seconds of one step's matching (cost matrices, copy and
+  assignments), traced or not (``ops/matching.py``);
+* ``ATTENTION_RECORD``: the last ``RECORD_LEN`` attention calls made
+  while a profiler ran, each its shape, whether it was causal and learns,
+  and for a masked call the count of kept pairs as a 0-d device tensor,
+  never read inside the step (``models/transformer.attention``);
 * ``check_finite(tensors)``: raise on NaN or Inf in a dict or list of
   tensors (one host read per tensor: call it sparingly).
 """
@@ -110,6 +125,36 @@ class DecodeGraphEntry(NamedTuple):
 
 DECODE_GRAPH_RECORD: "collections.deque[DecodeGraphEntry]" = (
     collections.deque(maxlen=RECORD_LEN))
+
+
+class MatchEntry(NamedTuple):
+    seconds: float          # host seconds of one step's matching
+    traced: bool            # a profiler was running
+
+
+MATCH_RECORD: "collections.deque[MatchEntry]" = collections.deque(
+    maxlen=RECORD_LEN)
+
+
+class AttentionEntry(NamedTuple):
+    batch: int
+    heads: int
+    nq: int                 # queries
+    nk: int                 # keys
+    head_dim: int
+    causal: bool
+    grad: bool              # a backward will run through the call
+    kept: Optional[torch.Tensor]    # masked calls: kept pairs, 0-d, device
+    mask_bytes: int         # the mask as passed (0 without one)
+
+
+ATTENTION_RECORD: "collections.deque[AttentionEntry]" = collections.deque(
+    maxlen=RECORD_LEN)
+
+
+def profiling() -> bool:
+    """True while a profiler runs."""
+    return _autograd_profiler._is_profiler_enabled
 
 
 @contextlib.contextmanager
