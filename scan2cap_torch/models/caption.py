@@ -24,7 +24,10 @@ slots is the same math; or, with ``num_locals=-1``, over all K proposals
 On a CUDA device with grad enabled and no mesh, the top-down decoder's
 teacher-forced decode replays as two CUDA graphs, forward and backward
 (``models/decode_graph``); its eager loop ``_decode_eager`` is what they
-capture, and runs everywhere else.
+capture, and runs everywhere else.  With grad off, on a CUDA device, no
+mesh and no tracer, its scene decodes replay as one forward graph each
+(``_scene_decode``); ``_decode_scene_local`` and ``_decode_scene`` are
+the loops captured, and run everywhere else.
 
 Under a mesh (``parallel.mesh``) the model axis splits the classifier
 (its vocabulary columns, or its hidden rows where the width does not
@@ -47,7 +50,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from scan2cap_torch.models.decode_graph import DecodeGraphs
+from scan2cap_torch.models.decode_graph import (DecodeGraphs,
+                                                SceneDecodeGraphs)
 from scan2cap_torch.models.graph import (bbox_centers, mask_and_topk_locals,
                                          norm3, query_locals_dense)
 from scan2cap_torch.models.layers import GRUCell
@@ -299,7 +303,7 @@ class SceneCaptionModule(_SplitLinears):
 class TopDownSceneCaptionModule(_SplitLinears):
     """2-layer attention decoder (caption_module.py:202-592)."""
 
-    # the modules the teacher-forced decode's loop reads
+    # the modules the decode loops read
     DECODER = ("map_topdown", "recurrent_cell_1", "map_hidd", "attend",
                "map_lang", "recurrent_cell_2", "classifier")
 
@@ -336,6 +340,7 @@ class TopDownSceneCaptionModule(_SplitLinears):
         self.recurrent_cell_2 = GRUCell(emb_size, H)
         self.classifier = nn.Linear(H, num_vocabs_padded or num_vocabs)
         self._decode_graphs = DecodeGraphs()
+        self._scene_graphs = SceneDecodeGraphs()
 
     def forward(self, data_dict: dict, use_tf: bool = True,
                 is_eval: bool = False) -> dict:
@@ -351,13 +356,17 @@ class TopDownSceneCaptionModule(_SplitLinears):
         graph's static buffers, which the next teacher-forced decode of
         the same shapes overwrites: a train step reads the logits in its
         loss and keeps neither output across steps."""
-        params = [p for name in self.DECODER
-                  for p in getattr(self, name).parameters()]
         return self._decode_graphs(
             functools.partial(self._decode_eager, num_steps=num_steps),
             (target_feat, obj_feats, mapped_obj, valid_masks, word_embs),
-            params, split=bool(self.tp) or pmesh.current() is not None,
+            self._decoder_params(),
+            split=bool(self.tp) or pmesh.current() is not None,
             steps=num_steps)
+
+    def _decoder_params(self) -> list:
+        """The parameters the decode loops read in place."""
+        return [p for name in self.DECODER
+                for p in getattr(self, name).parameters()]
 
     def _decode_eager(self, target_feat: torch.Tensor,
                       obj_feats: torch.Tensor, mapped_obj: torch.Tensor,
@@ -423,6 +432,16 @@ class TopDownSceneCaptionModule(_SplitLinears):
         d["valid_masks"] = valid_masks
         d["good_bbox_masks"] = good
         return d
+
+    def _scene_decode(self, fn, inputs: list, num_steps: int):
+        """``fn(*inputs, num_steps=num_steps)``, a free-running scene
+        decode, or the replay of its forward graph where
+        ``decode_graph.scene_eager_reason`` allows it; either way tensors
+        of their own."""
+        return self._scene_graphs(
+            functools.partial(fn, num_steps=num_steps), inputs,
+            self._decoder_params(), split=pmesh.current() is not None,
+            steps=num_steps)
 
     def _decode_scene(self, tgt: torch.Tensor, shared_mapped: torch.Tensor,
                       obj_feats: torch.Tensor, valid: torch.Tensor,
@@ -545,8 +564,9 @@ class TopDownSceneCaptionModule(_SplitLinears):
             sh_loc = sh_loc + torch.einsum("btlj,btjh->btlh", match, delta)
             obj_loc = obj_loc + torch.einsum("btlj,btjc->btlc", match, rel_all)
         d["lang_cap"], d["topdown_attn"] = pmesh.decode_split(
-            lambda tgt, base, ctx, first: self._decode_scene_local(
-                tgt, base, ctx, first, emb_table, self.max_des_len - 1),
+            lambda tgt, base, ctx, first: self._scene_decode(
+                self._decode_scene_local, [tgt, base, ctx, first, emb_table],
+                self.max_des_len - 1),
             [obj_feats, sh_loc, obj_loc,
              sos[:, None].expand(B, K, sos.shape[-1])])             # 29 steps
         d["topdown_attn_slots"] = loc_idx                           # (B,K,L)
@@ -575,9 +595,10 @@ class TopDownSceneCaptionModule(_SplitLinears):
             sl = slice(s, s + self.eval_chunk)
             kc = obj_feats[:, sl].shape[1]
             tok, att = pmesh.decode_split(
-                lambda tgt, valid, oh, nb, rl, first: self._decode_scene(
-                    tgt, shared_mapped, obj_feats, valid, oh, nb, rl, first,
-                    emb_table, self.max_des_len - 1),               # 29 steps
+                lambda tgt, valid, oh, nb, rl, first: self._scene_decode(
+                    self._decode_scene,
+                    [tgt, shared_mapped, obj_feats, valid, oh, nb, rl, first,
+                     emb_table], self.max_des_len - 1),             # 29 steps
                 [obj_feats[:, sl], all_valid[:, sl],
                  onehot[:, sl] if onehot is not None else None,
                  nbr_base[:, sl] if nbr_base is not None else None,

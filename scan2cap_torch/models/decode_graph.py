@@ -1,5 +1,5 @@
-"""The top-down decoder's teacher-forced decode, forward and backward, as
-two CUDA graphs.
+"""The top-down decoder's loops as CUDA graphs: the teacher-forced decode,
+forward and backward, and the free-running scene decodes, forward only.
 
 ``TopDownSceneCaptionModule._decode`` runs ``max_des_len + 1`` steps of
 some forty small kernels each, and its backward two to three times as
@@ -25,6 +25,20 @@ activations that the latest forward replay of the key saved, so the
 backward of an earlier forward raises.  A train step consumes its decode
 before it starts the next one.  Gradients come back as tensors of their
 own.
+
+``SceneDecodeGraphs`` does the same for the free-running scene decodes
+(``_decode_scene_local``, ``_decode_scene``: ``max_des_len - 1`` steps,
+the argmax token fed back through the embedding table on the device),
+which run under ``inference_mode`` or ``no_grad``: one forward graph a key
+(``_ForwardCapture``), no autograd node.  ``scene_eager_reason`` says
+where the loop runs eager instead: grad enabled, ``torch.export`` or
+``torch.compile`` tracing the call, a mesh (the eval decode gathers its
+weights anew each call), a CPU, a capture under way.  Its key is the
+decode's length, the inputs' shapes and dtypes (None for an absent
+input), their device and the decoder parameters' addresses; it keeps
+captures of its own, so evaluation shapes never take the teacher-forced
+decode's.  A replay's outputs are copied out of the graph's buffers:
+callers may keep a served caption across requests.
 """
 
 from __future__ import annotations
@@ -61,6 +75,42 @@ def eager_reason(inputs: Sequence[torch.Tensor],
     return None
 
 
+def scene_eager_reason(inputs: Sequence[Optional[torch.Tensor]],
+                       split: bool) -> Optional[str]:
+    """Why a scene decode of ``inputs`` runs eager, or None where it may
+    replay its forward graph: "grad" (grad mode on: a forward graph keeps
+    no autograd history), "tracing" (``torch.export`` or
+    ``torch.compile`` traces the call and must see the loop), "mesh"
+    (``split``: under a mesh), "cpu" (not on a CUDA device), "capturing"
+    (a CUDA graph capture is under way)."""
+    if torch.is_grad_enabled():
+        return "grad"
+    if torch.compiler.is_compiling():
+        return "tracing"
+    if split:
+        return "mesh"
+    if next(x for x in inputs if x is not None).device.type != "cuda":
+        return "cpu"
+    if torch.cuda.is_current_stream_capturing():
+        return "capturing"
+    return None
+
+
+def _warm_up(fn: Callable, inputs: Sequence[Optional[torch.Tensor]],
+             device: torch.device, backward=None) -> None:
+    """``WARMUP_ITERS`` calls of ``fn`` (and ``backward`` of its outputs)
+    on a side stream, as PyTorch's own capture recipe warms up."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP_ITERS):
+            outs = fn(*inputs)
+            if backward is not None:
+                backward(outs)
+        del outs
+    torch.cuda.current_stream(device).wait_stream(side)
+
+
 class _Capture:
     """One key's graphs and their static buffers: the forward, and a
     backward for each set of outputs a gradient may reach (all of them,
@@ -74,17 +124,10 @@ class _Capture:
         surface = self.inputs + list(params)
         self.wants = [t.requires_grad for t in surface]
         wrt = [t for t in surface if t.requires_grad]
-        device = inputs[0].device
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_ITERS):
-                outs = fn(*self.inputs)
-                torch.autograd.grad(outs, wrt,
-                                    [torch.ones_like(o) for o in outs],
-                                    allow_unused=True)
-            del outs
-        torch.cuda.current_stream(device).wait_stream(side)
+        _warm_up(fn, self.inputs, inputs[0].device,
+                 lambda outs: torch.autograd.grad(
+                     outs, wrt, [torch.ones_like(o) for o in outs],
+                     allow_unused=True))
         self.fwd = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.fwd):
             outputs = fn(*self.inputs)
@@ -160,35 +203,96 @@ class _Replay(torch.autograd.Function):
         return (None, *capture.backward(grads))
 
 
-class DecodeGraphs:
-    """One decoder's captures, by key (the module docstring)."""
+class _ForwardCapture:
+    """One key's forward graph of a decode under ``no_grad``, and its
+    static buffers; an absent (None) input stays None."""
+
+    def __init__(self, fn: Callable,
+                 inputs: Sequence[Optional[torch.Tensor]]):
+        # plain tensors even under inference_mode: a later call under
+        # no_grad copies into them in place
+        with torch.inference_mode(False):
+            self.inputs = [None if x is None else torch.empty_like(x)
+                           for x in inputs]
+        self.load(inputs)
+        _warm_up(fn, self.inputs, inputs[0].device)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.outputs = fn(*self.inputs)
+
+    def load(self, inputs: Sequence[Optional[torch.Tensor]]) -> None:
+        for static, x in zip(self.inputs, inputs):
+            if static is not None:
+                static.copy_(x)
+
+    def replay(self, inputs: Sequence[Optional[torch.Tensor]]) -> tuple:
+        """The outputs of ``fn(*inputs)``, as tensors of their own."""
+        self.load(inputs)
+        self.graph.replay()
+        return tuple(o.clone() for o in self.outputs)
+
+
+class _Graphs:
+    """One decoder's captures, by key, and the record of every call."""
 
     def __init__(self):
         self._captures = {}
 
-    def __call__(self, fn: Callable, inputs: Sequence[torch.Tensor],
-                 params: Sequence[torch.Tensor], split: bool, steps: int):
-        """``fn(*inputs)``, the eager decode of ``steps`` steps that reads
-        ``params``, or the replay of its capture."""
-        why = eager_reason(inputs, params, split)
+    def _dispatch(self, fn: Callable, inputs: Sequence, why: Optional[str],
+                  key: Callable, make: Callable, replay: Callable):
+        """``fn(*inputs)`` where ``why`` says it runs eager, else
+        ``replay(capture)`` of ``key()``'s capture, which ``make()``
+        captures at the key's first call."""
         capture, kind = None, "replay"
         if why is None:
-            key = (steps, inputs[0].device,
-                   tuple((x.shape, x.dtype, x.requires_grad) for x in inputs),
-                   tuple((p.data_ptr(), p.requires_grad) for p in params))
-            capture = self._captures.get(key)
+            k = key()
+            capture = self._captures.get(k)
             if capture is None:
                 if torch.autograd.profiler._is_profiler_enabled:
                     why = "profiler"
                 elif len(self._captures) >= MAX_CAPTURES:
                     why = "cap"
                 else:
-                    capture = self._captures[key] = _Capture(fn, inputs,
-                                                             params)
+                    capture = self._captures[k] = make()
                     kind = "capture"
         if capture is None:
             DECODE_GRAPH_RECORD.append(DecodeGraphEntry("eager", why))
             return fn(*inputs)
         DECODE_GRAPH_RECORD.append(DecodeGraphEntry(kind, None))
         with annotate("scan2cap.decode"):
-            return _Replay.apply(capture, *inputs, *params)
+            return replay(capture)
+
+
+class DecodeGraphs(_Graphs):
+    """The teacher-forced decode's captures (the module docstring)."""
+
+    def __call__(self, fn: Callable, inputs: Sequence[torch.Tensor],
+                 params: Sequence[torch.Tensor], split: bool, steps: int):
+        """``fn(*inputs)``, the eager decode of ``steps`` steps that reads
+        ``params``, or the replay of its capture."""
+        return self._dispatch(
+            fn, inputs, eager_reason(inputs, params, split),
+            lambda: (steps, inputs[0].device,
+                     tuple((x.shape, x.dtype, x.requires_grad)
+                           for x in inputs),
+                     tuple((p.data_ptr(), p.requires_grad) for p in params)),
+            lambda: _Capture(fn, inputs, params),
+            lambda capture: _Replay.apply(capture, *inputs, *params))
+
+
+class SceneDecodeGraphs(_Graphs):
+    """The free-running scene decodes' forward captures (the module
+    docstring)."""
+
+    def __call__(self, fn: Callable, inputs: Sequence[Optional[torch.Tensor]],
+                 params: Sequence[torch.Tensor], split: bool, steps: int):
+        """``fn(*inputs)``, the eager scene decode of ``steps`` steps that
+        reads ``params``, or the replay of its capture."""
+        return self._dispatch(
+            fn, inputs, scene_eager_reason(inputs, split),
+            lambda: (steps, next(x for x in inputs if x is not None).device,
+                     tuple(None if x is None else (x.shape, x.dtype)
+                           for x in inputs),
+                     tuple(p.data_ptr() for p in params)),
+            lambda: _ForwardCapture(fn, inputs),
+            lambda capture: capture.replay(inputs))

@@ -37,10 +37,11 @@
 * ``STEP_RECORD``: the last ``RECORD_LEN`` program steps, each the host
   seconds from the step's entry to its return and whether a profiler was
   running, written by ``program_step`` on every call;
-* ``DECODE_GRAPH_RECORD``: the last ``RECORD_LEN`` teacher-forced decodes
-  of the top-down caption decoder, each how it ran (``capture``,
-  ``replay`` or ``eager``) and why eager, written by
-  ``models/decode_graph.DecodeGraphs`` on every call;
+* ``DECODE_GRAPH_RECORD``: the last ``RECORD_LEN`` teacher-forced and
+  free-running scene decodes of the top-down caption decoder, each how it
+  ran (``capture``, ``replay`` or ``eager``) and why eager, written by
+  ``models/decode_graph.DecodeGraphs`` and ``SceneDecodeGraphs`` on every
+  call;
 * ``MATCH_RECORD``: the last ``RECORD_LEN`` Hungarian matchings, each
   the host seconds of one step's matching (cost matrices, copy and
   assignments), traced or not (``ops/matching.py``);
