@@ -16,18 +16,17 @@ over all K proposals, masked to the target's ``num_locals`` locals.
 ``forward_scene_batch`` decodes a caption for every proposal, free-running
 from the sos embedding, for ``max_des_len - 1`` steps.  The top-down
 decoder attends either over each target's ``num_locals`` local slots
-(``_decode_scene_local``): every other proposal is -1e30-masked in the
+(``_local_reader``): every other proposal is -1e30-masked in the
 reference, so its softmax weight is exactly 0 and scoring only the local
 slots is the same math; or, with ``num_locals=-1``, over all K proposals
-(``_decode_scene``), targets taken ``eval_chunk`` at a time.
+(``_full_reader``), targets taken ``eval_chunk`` at a time.
 
-On a CUDA device with grad enabled and no mesh, the top-down decoder's
-teacher-forced decode replays as two CUDA graphs, forward and backward
-(``models/decode_graph``); its eager loop ``_decode_eager`` is what they
-capture, and runs everywhere else.  With grad off, on a CUDA device, no
-mesh and no tracer, its scene decodes replay as one forward graph each
-(``_scene_decode``); ``_decode_scene_local`` and ``_decode_scene`` are
-the loops captured, and run everywhere else.
+The top-down decoder has one step (``_step``) and one loop
+(``_decode_loop``) for all three decodes; only the attention reader
+differs.  ``_decode`` runs the loop, or replays it from
+``models/decode_graph``: teacher-forced, with grad enabled, as two CUDA
+graphs, forward and backward; free-running, with grad off, as one forward
+graph.  Either runs eager on a CPU, under a mesh or under a tracer.
 
 Under a mesh (``parallel.mesh``) the model axis splits the classifier
 (its vocabulary columns, or its hidden rows where the width does not
@@ -303,7 +302,7 @@ class SceneCaptionModule(_SplitLinears):
 class TopDownSceneCaptionModule(_SplitLinears):
     """2-layer attention decoder (caption_module.py:202-592)."""
 
-    # the modules the decode loops read
+    # the modules the decode step reads
     DECODER = ("map_topdown", "recurrent_cell_1", "map_hidd", "attend",
                "map_lang", "recurrent_cell_2", "classifier")
 
@@ -348,58 +347,137 @@ class TopDownSceneCaptionModule(_SplitLinears):
             return self.forward_sample_batch(data_dict)
         return self.forward_scene_batch(data_dict)
 
-    def _decode(self, target_feat: torch.Tensor, obj_feats: torch.Tensor,
-                mapped_obj: torch.Tensor, valid_masks: torch.Tensor,
-                word_embs: torch.Tensor, num_steps: int):
-        """``_decode_eager``, or the replay of its CUDA graphs where
-        ``decode_graph.eager_reason`` allows it.  A replay returns the
-        graph's static buffers, which the next teacher-forced decode of
-        the same shapes overwrites: a train step reads the logits in its
-        loss and keeps neither output across steps."""
-        return self._decode_graphs(
-            functools.partial(self._decode_eager, num_steps=num_steps),
-            (target_feat, obj_feats, mapped_obj, valid_masks, word_embs),
-            self._decoder_params(),
+    def _decode(self, reader, inputs: list, num_steps: int,
+                teacher: bool = False):
+        """``_decode_loop(reader, *inputs)``, or the replay of its CUDA
+        graphs where ``models/decode_graph`` allows it.  A teacher-forced
+        replay returns the graph's static buffers, which the next
+        teacher-forced decode of the same shapes overwrites: a train step
+        reads the logits in its loss and keeps neither output across
+        steps.  A free-running replay returns tensors of their own."""
+        graphs = self._decode_graphs if teacher else self._scene_graphs
+        return graphs(
+            functools.partial(self._decode_loop, reader, num_steps=num_steps,
+                              teacher=teacher),
+            inputs, self._decoder_params(),
             split=bool(self.tp) or pmesh.current() is not None,
             steps=num_steps)
 
     def _decoder_params(self) -> list:
-        """The parameters the decode loops read in place."""
+        """The parameters the decode step reads in place."""
         return [p for name in self.DECODER
                 for p in getattr(self, name).parameters()]
 
-    def _decode_eager(self, target_feat: torch.Tensor,
-                      obj_feats: torch.Tensor, mapped_obj: torch.Tensor,
-                      valid_masks: torch.Tensor, word_embs: torch.Tensor,
-                      num_steps: int):
-        """Teacher-forced decode of one target per row.
-
-        target_feat (N, C), obj_feats (N, K, C), mapped_obj (N, K, H) =
-        map_feat(obj_feats), valid_masks (N, K), word_embs (N, T, emb) ->
-        logits (N, num_steps, V), attn (N, K, num_steps)."""
-        N = target_feat.shape[0]
-        h1 = target_feat.new_zeros((N, self.hidden_size))
-        h2 = target_feat.new_zeros((N, self.hidden_size))
-        neg_mask = torch.where(valid_masks[..., None] == 0, -1e30, 0.0)
-        logits_t, attn_t = [], []
+    def _decode_loop(self, reader, tgt: torch.Tensor, *inputs: torch.Tensor,
+                     num_steps: int, teacher: bool = False):
+        """One decode of the targets ``tgt`` (N, C) or (B, kc, C) from zero
+        states, attending through ``reader(*context)``.  Teacher-forced,
+        ``inputs`` are the context and the word embeddings (N, T, emb):
+        step t reads word t.  Free-running, they are the context, the first
+        input (B, kc, emb) and the embedding table (V, emb): a step reads
+        the embedding of the previous step's argmax.  Returns logits
+        (N, num_steps, V) and attn (N, K, num_steps), or int32 tokens
+        (B, kc, num_steps) and attn (B, kc, num_steps, K or L)."""
+        if teacher:
+            *context, word_embs = inputs
+            prev = word_embs[:, 0]
+        else:
+            *context, prev, emb_table = inputs
+        h1 = tgt.new_zeros((*tgt.shape[:-1], self.hidden_size))
+        h2 = tgt.new_zeros((*tgt.shape[:-1], self.hidden_size))
+        read = reader(*context)
+        outs, attns = [], []
         with annotate("scan2cap.decode"):
             for t in range(num_steps):
-                x = torch.cat([word_embs[:, t], h2, target_feat], dim=-1)
-                x = torch.relu(self.map_topdown(x))
-                h1 = self.recurrent_cell_1(x, h1)
-                combined = torch.tanh(
-                    mapped_obj
-                    + self._lin("map_hidd", h1, local=True)[:, None, :])
-                scores = self._attend(combined) + neg_mask       # (N, K, 1)
-                attn = torch.softmax(scores, dim=1)
-                attended = torch.sum(obj_feats * attn, dim=1)    # (N, C)
-                lang_in = torch.relu(self.map_lang(
-                    torch.cat([attended, h1], dim=-1)))
-                h2 = self.recurrent_cell_2(lang_in, h2)
-                logits_t.append(_mask_pad_logits(
-                    self._lin("classifier", h2), self.num_vocabs))
-                attn_t.append(attn[..., 0])
-        return torch.stack(logits_t, dim=1), torch.stack(attn_t, dim=2)
+                h1, h2, logits, attn = self._step(prev, h1, h2, tgt, read)
+                if teacher:
+                    prev = word_embs[:, t + 1]
+                    outs.append(logits)
+                else:
+                    tokens = torch.argmax(logits, dim=-1)
+                    prev = emb_table[tokens]
+                    outs.append(tokens)
+                attns.append(attn)
+        outs = torch.stack(outs, dim=tgt.dim() - 1)
+        return (outs if teacher else outs.to(torch.int32),
+                torch.stack(attns, dim=2))
+
+    def _step(self, prev: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
+              tgt: torch.Tensor, read):
+        """One step: the input embedding ``prev``, the two GRU states and
+        the target features -> the new states, the pad-masked logits and
+        the attention that ``read(h1) -> (attended, attn)`` gives."""
+        x = torch.relu(self.map_topdown(torch.cat([prev, h2, tgt], dim=-1)))
+        h1 = self.recurrent_cell_1(x, h1)
+        attended, attn = read(h1)
+        lang_in = torch.relu(self.map_lang(torch.cat([attended, h1], dim=-1)))
+        h2 = self.recurrent_cell_2(lang_in, h2)
+        logits = _mask_pad_logits(self._lin("classifier", h2), self.num_vocabs)
+        return h1, h2, logits, attn
+
+    def _teacher_reader(self, obj_feats: torch.Tensor,
+                        mapped_obj: torch.Tensor, valid_masks: torch.Tensor):
+        """The teacher-forced attention of one target per row over all K
+        proposals: obj_feats (N, K, C), mapped_obj (N, K, H) =
+        map_feat(obj_feats), valid_masks (N, K).  Scored through the
+        ``attend`` GEMM, -1e30 where not valid; attn (N, K)."""
+        neg_mask = torch.where(valid_masks[..., None] == 0, -1e30, 0.0)
+
+        def read(h1):
+            combined = torch.tanh(
+                mapped_obj + self._lin("map_hidd", h1, local=True)[:, None, :])
+            attn = torch.softmax(self._attend(combined) + neg_mask,
+                                 dim=1)                          # (N, K, 1)
+            return torch.sum(obj_feats * attn, dim=1), attn[..., 0]
+        return read
+
+    def _full_reader(self, shared_mapped: torch.Tensor,
+                     obj_feats: torch.Tensor, valid: torch.Tensor,
+                     onehot_nbr, nbr_base, rel):
+        """The full-K attention of a chunk of kc targets
+        (caption.py:385-460): shared_mapped (B, K, H) = map_feat(obj_feats)
+        for all targets, obj_feats (B, K, C), valid (B, kc, K).  With
+        relation features, onehot_nbr (B, kc, L, K) marks each target's L
+        neighbours, nbr_base (B, kc, L, H) is their corrected projection
+        shared_mapped[nbr] + map_feat(rel) and rel (B, kc, L, C) their edge
+        features: map_feat is linear, so only the neighbour slots differ
+        from the shared projection.  attn (B, kc, K)."""
+        w = self.attend.weight[0]                                   # (H,)
+        neg_mask = torch.where(valid == 0, -1e30, 0.0)              # (B,kc,K)
+        covered = onehot_nbr.sum(dim=2) if onehot_nbr is not None else None
+
+        def read(h1):
+            hproj = self._lin("map_hidd", h1)
+            scores = torch.sum(torch.tanh(shared_mapped[:, None]
+                                          + hproj[:, :, None]) * w,
+                               dim=-1)                              # (B,kc,K)
+            if onehot_nbr is not None:
+                s_nbr = torch.sum(torch.tanh(nbr_base + hproj[:, :, None]) * w,
+                                  dim=-1)                           # (B,kc,L)
+                corr = torch.einsum("btl,btlk->btk", s_nbr, onehot_nbr)
+                scores = torch.where(covered > 0, corr, scores)
+            attn = torch.softmax(scores + neg_mask, dim=-1)
+            attended = torch.einsum("btk,bkc->btc", attn, obj_feats)
+            if onehot_nbr is not None:
+                attn_nbr = torch.einsum("btk,btlk->btl", attn, onehot_nbr)
+                attended = attended + torch.sum(attn_nbr[..., None] * rel,
+                                                dim=2)
+            return attended, attn
+        return read
+
+    def _local_reader(self, base_loc: torch.Tensor, ctx_loc: torch.Tensor):
+        """The attention of each target over its L local slots: base_loc
+        (B, K, L, H) the attention base per slot, ctx_loc (B, K, L, C) the
+        context per slot.  attn (B, K, L)."""
+        w = self.attend.weight[0]                                   # (H,)
+
+        def read(h1):
+            scores = torch.sum(torch.tanh(
+                base_loc + self._lin("map_hidd", h1)[:, :, None]) * w,
+                dim=-1)                                             # (B,K,L)
+            attn = torch.softmax(scores, dim=-1)
+            return torch.einsum("btl,btlc->btc", attn, ctx_loc), attn
+        return read
 
     def forward_sample_batch(self, data_dict: dict) -> dict:
         d = dict(data_dict)
@@ -422,9 +500,10 @@ class TopDownSceneCaptionModule(_SplitLinears):
         if self.use_relation:
             obj_feats = add_relation_feat(d, obj_feats, target_ids)
         mapped_obj = self._lin("map_feat", obj_feats, local=True)
-        logits, attns = self._decode(target_feats, obj_feats, mapped_obj,
-                                     valid_masks, word_embs,
-                                     self.max_des_len + 1)
+        logits, attns = self._decode(
+            self._teacher_reader,
+            [target_feats, obj_feats, mapped_obj, valid_masks, word_embs],
+            self.max_des_len + 1, teacher=True)
         good, mean_iou = _iou_gate(target_ious, self.min_iou)
         d["lang_cap"] = logits                                   # (B,T-1,V)
         d["pred_ious"] = mean_iou
@@ -432,107 +511,6 @@ class TopDownSceneCaptionModule(_SplitLinears):
         d["valid_masks"] = valid_masks
         d["good_bbox_masks"] = good
         return d
-
-    def _scene_decode(self, fn, inputs: list, num_steps: int):
-        """``fn(*inputs, num_steps=num_steps)``, a free-running scene
-        decode, or the replay of its forward graph where
-        ``decode_graph.scene_eager_reason`` allows it; either way tensors
-        of their own."""
-        return self._scene_graphs(
-            functools.partial(fn, num_steps=num_steps), inputs,
-            self._decoder_params(), split=pmesh.current() is not None,
-            steps=num_steps)
-
-    def _decode_scene(self, tgt: torch.Tensor, shared_mapped: torch.Tensor,
-                      obj_feats: torch.Tensor, valid: torch.Tensor,
-                      onehot_nbr, nbr_base, rel, first_input: torch.Tensor,
-                      emb_table: torch.Tensor, num_steps: int):
-        """Full-K decode of a chunk of kc targets (caption.py:385-460).
-
-        tgt (B, kc, C), shared_mapped (B, K, H) = map_feat(obj_feats) for
-        all targets, obj_feats (B, K, C), valid (B, kc, K), first_input
-        (B, kc, emb).  With relation features, onehot_nbr (B, kc, L, K)
-        marks each target's L neighbours, nbr_base (B, kc, L, H) is their
-        corrected projection shared_mapped[nbr] + map_feat(rel) and rel
-        (B, kc, L, C) their edge features: map_feat is linear, so only the
-        neighbour slots differ from the shared projection.  Returns tokens
-        (B, kc, T) and attn (B, kc, T, K)."""
-        B, kc, _ = tgt.shape
-        w = self.attend.weight[0]                                   # (H,)
-        neg_mask = torch.where(valid == 0, -1e30, 0.0)              # (B,kc,K)
-        covered = onehot_nbr.sum(dim=2) if onehot_nbr is not None else None
-        h1 = tgt.new_zeros((B, kc, self.hidden_size))
-        h2 = tgt.new_zeros((B, kc, self.hidden_size))
-        prev = first_input
-        tokens_t, attn_t = [], []
-        with annotate("scan2cap.decode"):
-            for _ in range(num_steps):
-                x = torch.relu(self.map_topdown(
-                    torch.cat([prev, h2, tgt], -1)))
-                h1 = self.recurrent_cell_1(x, h1)
-                hproj = self._lin("map_hidd", h1)
-                scores = torch.sum(torch.tanh(shared_mapped[:, None]
-                                              + hproj[:, :, None]) * w,
-                                   dim=-1)                          # (B,kc,K)
-                if onehot_nbr is not None:
-                    s_nbr = torch.sum(
-                        torch.tanh(nbr_base + hproj[:, :, None]) * w,
-                        dim=-1)                                     # (B,kc,L)
-                    corr = torch.einsum("btl,btlk->btk", s_nbr, onehot_nbr)
-                    scores = torch.where(covered > 0, corr, scores)
-                attn = torch.softmax(scores + neg_mask, dim=-1)
-                attended = torch.einsum("btk,bkc->btc", attn, obj_feats)
-                if onehot_nbr is not None:
-                    attn_nbr = torch.einsum("btk,btlk->btl", attn,
-                                            onehot_nbr)
-                    attended = attended + torch.sum(
-                        attn_nbr[..., None] * rel, dim=2)
-                lang_in = torch.relu(self.map_lang(
-                    torch.cat([attended, h1], -1)))
-                h2 = self.recurrent_cell_2(lang_in, h2)
-                logits = _mask_pad_logits(self._lin("classifier", h2),
-                                          self.num_vocabs)
-                tokens = torch.argmax(logits, dim=-1)               # (B,kc)
-                prev = emb_table[tokens]
-                tokens_t.append(tokens)
-                attn_t.append(attn)
-        return (torch.stack(tokens_t, dim=2).to(torch.int32),
-                torch.stack(attn_t, dim=2))
-
-    def _decode_scene_local(self, tgt: torch.Tensor, base_loc: torch.Tensor,
-                            ctx_loc: torch.Tensor, first_input: torch.Tensor,
-                            emb_table: torch.Tensor, num_steps: int):
-        """tgt (B, K, C), base_loc (B, K, L, H) attention base per slot,
-        ctx_loc (B, K, L, C) context per slot, first_input (B, K, emb) ->
-        tokens (B, K, T), attn (B, K, T, L)."""
-        B, K, _ = tgt.shape
-        w = self.attend.weight[0]                                   # (H,)
-        h1 = tgt.new_zeros((B, K, self.hidden_size))
-        h2 = tgt.new_zeros((B, K, self.hidden_size))
-        prev = first_input
-        tokens_t, attn_t = [], []
-        with annotate("scan2cap.decode"):
-            for _ in range(num_steps):
-                x = torch.relu(self.map_topdown(
-                    torch.cat([prev, h2, tgt], -1)))
-                h1 = self.recurrent_cell_1(x, h1)
-                hproj = self._lin("map_hidd", h1)
-                scores = torch.sum(
-                    torch.tanh(base_loc + hproj[:, :, None]) * w,
-                    dim=-1)                                         # (B,K,L)
-                attn = torch.softmax(scores, dim=-1)
-                attended = torch.einsum("btl,btlc->btc", attn, ctx_loc)
-                lang_in = torch.relu(self.map_lang(
-                    torch.cat([attended, h1], -1)))
-                h2 = self.recurrent_cell_2(lang_in, h2)
-                logits = _mask_pad_logits(self._lin("classifier", h2),
-                                          self.num_vocabs)
-                tokens = torch.argmax(logits, dim=-1)               # (B,K)
-                prev = emb_table[tokens]
-                tokens_t.append(tokens)
-                attn_t.append(attn)
-        return (torch.stack(tokens_t, dim=2).to(torch.int32),
-                torch.stack(attn_t, dim=2))
 
     def forward_scene_batch(self, data_dict: dict) -> dict:
         with self._whole_weights():
@@ -564,8 +542,8 @@ class TopDownSceneCaptionModule(_SplitLinears):
             sh_loc = sh_loc + torch.einsum("btlj,btjh->btlh", match, delta)
             obj_loc = obj_loc + torch.einsum("btlj,btjc->btlc", match, rel_all)
         d["lang_cap"], d["topdown_attn"] = pmesh.decode_split(
-            lambda tgt, base, ctx, first: self._scene_decode(
-                self._decode_scene_local, [tgt, base, ctx, first, emb_table],
+            lambda tgt, base, ctx, first: self._decode(
+                self._local_reader, [tgt, base, ctx, first, emb_table],
                 self.max_des_len - 1),
             [obj_feats, sh_loc, obj_loc,
              sos[:, None].expand(B, K, sos.shape[-1])])             # 29 steps
@@ -595,8 +573,8 @@ class TopDownSceneCaptionModule(_SplitLinears):
             sl = slice(s, s + self.eval_chunk)
             kc = obj_feats[:, sl].shape[1]
             tok, att = pmesh.decode_split(
-                lambda tgt, valid, oh, nb, rl, first: self._scene_decode(
-                    self._decode_scene,
+                lambda tgt, valid, oh, nb, rl, first: self._decode(
+                    self._full_reader,
                     [tgt, shared_mapped, obj_feats, valid, oh, nb, rl, first,
                      emb_table], self.max_des_len - 1),             # 29 steps
                 [obj_feats[:, sl], all_valid[:, sl],

@@ -1,23 +1,24 @@
-"""The top-down decoder's loops as CUDA graphs: the teacher-forced decode,
+"""The top-down decoder's loop as CUDA graphs: the teacher-forced decode,
 forward and backward, and the free-running scene decodes, forward only.
 
-``TopDownSceneCaptionModule._decode`` runs ``max_des_len + 1`` steps of
-some forty small kernels each, and its backward two to three times as
-many: launching them is most of a train step's host time.
-``DecodeGraphs`` captures the decoder's eager loop (``_decode_eager``),
-its forward and its backward, at the first call of a key, and from then on
-replays the two graphs inside one autograd node (``_Replay``): the same
-kernels in the same order and precision, one launch each way.
+``TopDownSceneCaptionModule._decode_loop`` runs ``max_des_len + 1``
+teacher-forced steps of some forty small kernels each, and its backward
+two to three times as many: launching them is most of a train step's host
+time.  ``DecodeGraphs`` captures the loop's forward and backward at the
+first call of a key, and from then on replays the two graphs inside one
+autograd node (``_Replay``): the same kernels in the same order and
+precision, one launch each way.
 
-A decode replays where ``eager_reason`` finds nothing against it: grad is
-enabled, no mesh splits the caption linears (their collectives would sit
-inside the graph), the inputs lie on a CUDA device and no capture is under
-way.  A key is the decode's length, the inputs' shapes, dtypes, device and
-which of them require grad, and the decoder parameters' addresses and
-which of them require grad.  A new key is captured at its first call,
-outside a profiler, at most ``MAX_CAPTURES`` of them; past that the loop
-runs eager.  Every call appends its ``DecodeGraphEntry`` to
-``utils/profiling.DECODE_GRAPH_RECORD``.
+Both kinds of capture run eager for the same guards (``_guards``): a
+tracer, a mesh (its collectives would sit inside the graph, and its eval
+decode gathers its weights anew each call), a CPU, a capture under way.
+``eager_reason`` adds the teacher-forced decode's grad condition: grad
+enabled and something requiring grad.  A key is the decode's length, the
+inputs' shapes, dtypes, device and which of them require grad, and the
+decoder parameters' addresses and which of them require grad.  A new key
+is captured at its first call, outside a profiler, at most
+``MAX_CAPTURES`` of them; past that the loop runs eager.  Every call
+appends its ``DecodeGraphEntry`` to ``utils/profiling.DECODE_GRAPH_RECORD``.
 
 A replay's outputs are the forward graph's static buffers: the next
 decode of the same key overwrites them.  The backward reads the
@@ -27,18 +28,15 @@ before it starts the next one.  Gradients come back as tensors of their
 own.
 
 ``SceneDecodeGraphs`` does the same for the free-running scene decodes
-(``_decode_scene_local``, ``_decode_scene``: ``max_des_len - 1`` steps,
-the argmax token fed back through the embedding table on the device),
-which run under ``inference_mode`` or ``no_grad``: one forward graph a key
-(``_ForwardCapture``), no autograd node.  ``scene_eager_reason`` says
-where the loop runs eager instead: grad enabled, ``torch.export`` or
-``torch.compile`` tracing the call, a mesh (the eval decode gathers its
-weights anew each call), a CPU, a capture under way.  Its key is the
-decode's length, the inputs' shapes and dtypes (None for an absent
-input), their device and the decoder parameters' addresses; it keeps
-captures of its own, so evaluation shapes never take the teacher-forced
-decode's.  A replay's outputs are copied out of the graph's buffers:
-callers may keep a served caption across requests.
+(``max_des_len - 1`` steps, the argmax token fed back through the
+embedding table on the device), which run under ``inference_mode`` or
+``no_grad``: one forward graph a key (``_ForwardCapture``), no autograd
+node.  ``scene_eager_reason`` adds their grad condition: grad disabled.
+Its key is the decode's length, the inputs' shapes and dtypes (None for
+an absent input), their device and the decoder parameters' addresses; it
+keeps captures of its own, so evaluation shapes never take the
+teacher-forced decode's.  A replay's outputs are copied out of the
+graph's buffers: callers may keep a served caption across requests.
 """
 
 from __future__ import annotations
@@ -55,36 +53,14 @@ MAX_CAPTURES = 4
 WARMUP_ITERS = 3            # PyTorch's own before a capture
 
 
-def eager_reason(inputs: Sequence[torch.Tensor],
-                 params: Sequence[torch.Tensor],
-                 split: bool) -> Optional[str]:
-    """Why a decode of ``inputs`` runs eager, or None where it may replay:
-    "no_grad" (grad mode off, as under ``inference_mode``, or nothing
-    requires grad), "mesh" (``split``: a mesh splits the caption
-    linears), "cpu" (not on a CUDA device), "capturing" (a CUDA graph
-    capture is under way)."""
-    if not torch.is_grad_enabled() or not any(
-            t.requires_grad for t in (*inputs, *params)):
-        return "no_grad"
-    if split:
-        return "mesh"
-    if inputs[0].device.type != "cuda":
-        return "cpu"
-    if torch.cuda.is_current_stream_capturing():
-        return "capturing"
-    return None
-
-
-def scene_eager_reason(inputs: Sequence[Optional[torch.Tensor]],
-                       split: bool) -> Optional[str]:
-    """Why a scene decode of ``inputs`` runs eager, or None where it may
-    replay its forward graph: "grad" (grad mode on: a forward graph keeps
-    no autograd history), "tracing" (``torch.export`` or
-    ``torch.compile`` traces the call and must see the loop), "mesh"
-    (``split``: under a mesh), "cpu" (not on a CUDA device), "capturing"
-    (a CUDA graph capture is under way)."""
-    if torch.is_grad_enabled():
-        return "grad"
+def _guards(inputs: Sequence[Optional[torch.Tensor]],
+            split: bool) -> Optional[str]:
+    """Why either capture runs eager, past its grad condition, or None:
+    "tracing" (``torch.export`` or ``torch.compile`` traces the call and
+    must see the loop), "mesh" (``split``: under a mesh, whose collectives
+    would sit inside the graph and whose eval decode gathers its weights
+    anew each call), "cpu" (the first present input is not on a CUDA
+    device), "capturing" (a CUDA graph capture is under way)."""
     if torch.compiler.is_compiling():
         return "tracing"
     if split:
@@ -94,6 +70,28 @@ def scene_eager_reason(inputs: Sequence[Optional[torch.Tensor]],
     if torch.cuda.is_current_stream_capturing():
         return "capturing"
     return None
+
+
+def eager_reason(inputs: Sequence[torch.Tensor],
+                 params: Sequence[torch.Tensor],
+                 split: bool) -> Optional[str]:
+    """Why a teacher-forced decode of ``inputs`` runs eager, or None where
+    it may replay: "no_grad" (grad mode off, as under ``inference_mode``,
+    or nothing requires grad), else ``_guards``'s reason."""
+    if not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in (*inputs, *params)):
+        return "no_grad"
+    return _guards(inputs, split)
+
+
+def scene_eager_reason(inputs: Sequence[Optional[torch.Tensor]],
+                       split: bool) -> Optional[str]:
+    """Why a scene decode of ``inputs`` runs eager, or None where it may
+    replay its forward graph: "grad" (grad mode on: a forward graph keeps
+    no autograd history), else ``_guards``'s reason."""
+    if torch.is_grad_enabled():
+        return "grad"
+    return _guards(inputs, split)
 
 
 def _warm_up(fn: Callable, inputs: Sequence[Optional[torch.Tensor]],

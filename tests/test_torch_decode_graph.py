@@ -4,15 +4,16 @@
 On the card (marked ``cuda``; they skip without one): at the flagship's
 shapes (16 targets, 256 proposals, 31 steps, hidden 512, 3,433 words),
 three successive decodes of distinct inputs through the graphs and
-through ``_decode_eager``: the logits, the attention, the inputs'
-gradients and every decoder parameter's gradient agree within 1e-6 of
-the largest magnitude, with a loss on the logits alone and on both
-outputs; a second batch size captures a graph of its own.  Run them on
-the card with
+through the eager loop (``_decode_loop``): the logits, the attention,
+the inputs' gradients and every decoder parameter's gradient agree
+within 1e-6 of the largest magnitude, with a loss on the logits alone
+and on both outputs; a second batch size captures a graph of its own.
+Run them on the card with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_decode_graph.py -q``.
 
 On the CPU: the decode runs the eager loop, bit for bit, and the record
-says why; the benchmark's reader of the record.
+says why; each capture's reasons to run eager, teacher-forced and scene
+decodes side by side; the benchmark's reader of the record.
 """
 
 import importlib.util
@@ -53,6 +54,18 @@ def _inputs(dims, n, k, seed, device):
     return [x.to(device).requires_grad_(i < 3) for i, x in enumerate(xs)]
 
 
+def _graphed(module):
+    """The teacher-forced decode as the module dispatches it."""
+    return lambda *inputs: module._decode(module._teacher_reader,
+                                          list(inputs), STEPS, teacher=True)
+
+
+def _eager(module):
+    """The teacher-forced decode's eager loop, which the graphs capture."""
+    return lambda *inputs: module._decode_loop(
+        module._teacher_reader, *inputs, num_steps=STEPS, teacher=True)
+
+
 def _run(module, decode, inputs, attn_loss, seed):
     """Outputs and gradients of one decode under a seeded linear loss on
     the logits, and on the attention too with ``attn_loss``."""
@@ -60,7 +73,7 @@ def _run(module, decode, inputs, attn_loss, seed):
         p.grad = None
     for x in inputs:
         x.grad = None
-    logits, attn = decode(*inputs, STEPS)
+    logits, attn = decode(*inputs)
     g = torch.Generator().manual_seed(seed)
     loss = (logits * torch.randn(logits.shape, generator=g).to(
         logits.device)).sum()
@@ -91,9 +104,9 @@ def card():
 
 
 def _check_against_eager(module, inputs, attn_loss, seed, kind):
-    got = _run(module, module._decode, inputs, attn_loss, seed)
+    got = _run(module, _graphed(module), inputs, attn_loss, seed)
     assert DECODE_GRAPH_RECORD[-1] == DecodeGraphEntry(kind, None)
-    want = _run(module, module._decode_eager, inputs, attn_loss, seed)
+    want = _run(module, _eager(module), inputs, attn_loss, seed)
     assert got.keys() == want.keys()
     decoder = {f"grad {name}.{n}" for name in module.DECODER
                for n, _ in getattr(module, name).named_parameters()}
@@ -130,8 +143,8 @@ def test_a_second_batch_size_captures_its_own_graph(card):
 @pytest.mark.cuda
 def test_a_backward_after_a_later_decode_raises(card):
     module = _module(TINY, card)
-    first = module._decode(*_inputs(TINY, 4, 12, 1, card), STEPS)
-    module._decode(*_inputs(TINY, 4, 12, 2, card), STEPS)
+    first = _graphed(module)(*_inputs(TINY, 4, 12, 1, card))
+    _graphed(module)(*_inputs(TINY, 4, 12, 2, card))
     with pytest.raises(RuntimeError, match="ran again"):
         first[0].sum().backward()
 
@@ -140,9 +153,9 @@ def test_cpu_runs_the_eager_loop_bit_for_bit():
     module = _module(TINY, "cpu")
     for i, attn_loss in enumerate([False, True]):
         inputs = _inputs(TINY, 3, 12, i, "cpu")
-        got = _run(module, module._decode, inputs, attn_loss, 5 + i)
+        got = _run(module, _graphed(module), inputs, attn_loss, 5 + i)
         assert DECODE_GRAPH_RECORD[-1] == DecodeGraphEntry("eager", "cpu")
-        want = _run(module, module._decode_eager, inputs, attn_loss, 5 + i)
+        want = _run(module, _eager(module), inputs, attn_loss, 5 + i)
         assert got.keys() == want.keys()
         for k in want:
             assert torch.equal(got[k], want[k]), k
@@ -153,17 +166,34 @@ def test_without_grad_the_record_says_eager(mode):
     module = _module(TINY, "cpu")
     inputs = [x.detach() for x in _inputs(TINY, 2, 12, 3, "cpu")]
     with getattr(torch, mode)():
-        logits, attn = module._decode(*inputs, STEPS)
+        logits, attn = _graphed(module)(*inputs)
     assert DECODE_GRAPH_RECORD[-1] == DecodeGraphEntry("eager", "no_grad")
     with torch.no_grad():
-        want = module._decode_eager(*inputs, STEPS)
+        want = _eager(module)(*inputs)
     assert torch.equal(logits, want[0]) and torch.equal(attn, want[1])
 
 
-@pytest.mark.parametrize("case, reason", [
-    ("grad_off", "no_grad"), ("nothing_requires_grad", "no_grad"),
-    ("split", "mesh"), ("cpu", "cpu")])
-def test_eager_reason(case, reason):
+# The grad mode of each case; the others take their capture's own (grad
+# on teacher-forced, off for the scene decodes) to reach the shared guards.
+GRAD_MODE = {"grad_off": False, "absent_first": False, "grad_on": True,
+             "nothing_requires_grad": True}
+
+
+@pytest.mark.parametrize("kind, case, reason", [
+    ("teacher", "grad_off", "no_grad"),
+    ("teacher", "nothing_requires_grad", "no_grad"),
+    ("teacher", "split", "mesh"), ("teacher", "grad_on", "cpu"),
+    ("teacher", "tracing", "tracing"),
+    ("scene", "grad_on", "grad"), ("scene", "nothing_requires_grad", "grad"),
+    ("scene", "tracing", "tracing"),
+    ("scene", "split", "mesh"), ("scene", "grad_off", "cpu"),
+    ("scene", "absent_first", "cpu")])
+def test_eager_reason(kind, case, reason, monkeypatch):
+    """Each capture's reason to run eager.  The grad condition is each
+    capture's own, and grad off is where the two part: the teacher-forced
+    capture records a backward and wants grad, the scene decodes' forward
+    capture keeps no autograd history and wants none.  A tracer, a mesh
+    and a CPU stop both."""
     module = _module(TINY, "cpu")
     inputs = _inputs(TINY, 2, 12, 4, "cpu")
     params = list(module.parameters())
@@ -171,9 +201,16 @@ def test_eager_reason(case, reason):
         inputs = [x.detach() for x in inputs]
         for p in params:
             p.requires_grad_(False)
-    with torch.set_grad_enabled(case != "grad_off"):
-        assert decode_graph.eager_reason(inputs, params,
-                                         case == "split") == reason
+    if case == "absent_first":
+        inputs = [None] + inputs
+    if case == "tracing":
+        monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+    split = case == "split"
+    with torch.set_grad_enabled(GRAD_MODE.get(case, kind == "teacher")):
+        got = (decode_graph.eager_reason(inputs, params, split)
+               if kind == "teacher"
+               else decode_graph.scene_eager_reason(inputs, split))
+    assert got == reason
 
 
 def _reader():

@@ -5,17 +5,18 @@ against their eager loops.
 On the card (marked ``cuda``; they skip without one): at the flagship's
 shapes (8 scenes of 256 proposals, 10 local slots, 29 steps, hidden 512,
 3,433 words), three successive local decodes of distinct inputs under
-``inference_mode`` give tokens and attention equal to
-``_decode_scene_local``'s, bit for bit, and a returned tensor outlives the
-next replay; the full-K decode (``num_locals`` -1), with and without
-relation features, over chunks with a short last one, equals its eager
-loop; a second batch size captures a key of its own.  Run them on the card
-with
+``inference_mode`` give tokens and attention equal to the eager loop's
+(``_decode_loop`` with ``_local_reader``), bit for bit, and a returned
+tensor outlives the next replay; the full-K decode (``num_locals`` -1),
+with and without relation features, over chunks with a short last one,
+equals its eager loop; a second batch size captures a key of its own.
+Run them on the card with
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_scene_decode_graph.py -q``.
 
-On the CPU: the scene decodes run their eager loops, bit for bit, and the
-record says why; the reasons to run eager; a ``torch.export`` trace sees
-the loop; the benchmark's reader of the record.
+On the CPU: the scene decodes run their eager loop, bit for bit, and the
+record says why (the reasons to run eager are in
+``tests/test_torch_decode_graph.py``); a ``torch.export`` trace sees the
+loop; the benchmark's reader of the record.
 """
 
 import importlib.util
@@ -25,7 +26,6 @@ import types
 import pytest
 import torch
 
-from scan2cap_torch.models import decode_graph
 from scan2cap_torch.models.caption import TopDownSceneCaptionModule
 from scan2cap_torch.utils.profiling import (DECODE_GRAPH_RECORD,
                                             DecodeGraphEntry)
@@ -85,6 +85,12 @@ def _scene_batch(dims, b, k, seed, device, relation=False, nbrs=4):
     return {n: x.to(device) for n, x in d.items()}
 
 
+def _local_eager(module, inputs):
+    """The local decode's eager loop, which its graph captures."""
+    return module._decode_loop(module._local_reader, *inputs,
+                               num_steps=STEPS)
+
+
 def _eager_scene(module, d):
     """The scene decode's eager loop: grad enabled keeps it off the
     graphs (reason ``grad``); the loop's kernels are the same."""
@@ -106,9 +112,9 @@ def card():
 
 def _local_against_eager(module, inputs, kind):
     with torch.inference_mode():
-        got = module._scene_decode(module._decode_scene_local, inputs, STEPS)
+        got = module._decode(module._local_reader, inputs, STEPS)
         assert DECODE_GRAPH_RECORD[-1] == DecodeGraphEntry(kind, None)
-        want = module._decode_scene_local(*inputs, num_steps=STEPS)
+        want = _local_eager(module, inputs)
     assert got[0].dtype == torch.int32 and len(torch.unique(got[0])) > 1
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
@@ -184,38 +190,14 @@ def test_cpu_runs_the_scene_decodes_eager_bit_for_bit(num_locals, relation):
     assert not module._scene_graphs._captures
 
 
-@pytest.mark.parametrize("case, reason", [
-    ("grad", "grad"), ("tracing", "tracing"), ("split", "mesh"),
-    ("cpu", "cpu"), ("absent_first", "cpu")])
-def test_scene_eager_reason(case, reason, monkeypatch):
-    inputs = _local_inputs(TINY, 2, 6, 4, "cpu")
-    if case == "absent_first":
-        inputs = [None] + inputs
-    if case == "tracing":
-        monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
-    with torch.set_grad_enabled(case == "grad"):
-        assert decode_graph.scene_eager_reason(inputs,
-                                               case == "split") == reason
-
-
-def test_a_graphed_teacher_forced_decode_keeps_its_own_reasons():
-    """Grad off is the scene decode's case and not the teacher-forced
-    decode's: the two reason functions part there."""
-    inputs = _local_inputs(TINY, 2, 6, 4, "cpu")
-    with torch.no_grad():
-        assert decode_graph.scene_eager_reason(inputs, False) == "cpu"
-        assert decode_graph.eager_reason(inputs, [], False) == "no_grad"
-
-
 class _LocalDecode(torch.nn.Module):
     def __init__(self, caption):
         super().__init__()
         self.caption = caption
 
     def forward(self, tgt, base, ctx, first, table):
-        return self.caption._scene_decode(
-            self.caption._decode_scene_local, [tgt, base, ctx, first, table],
-            STEPS)
+        return self.caption._decode(
+            self.caption._local_reader, [tgt, base, ctx, first, table], STEPS)
 
 
 def test_an_exported_scene_decode_traces_the_eager_loop():
@@ -227,7 +209,7 @@ def test_an_exported_scene_decode_traces_the_eager_loop():
         assert DECODE_GRAPH_RECORD[-1] == DecodeGraphEntry("eager",
                                                            "tracing")
         got = program.module()(*inputs)
-        want = module._decode_scene_local(*inputs, num_steps=STEPS)
+        want = _local_eager(module, inputs)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
