@@ -16,27 +16,38 @@ WRAPPERS = (furthest_point_sample_cuda, ball_query_cuda, ball_query_pack_cuda,
             group_points_cuda, pack_probe_cuda, shift_probe_cuda)
 
 
-def reset_launch_counts() -> None:
-    for w in WRAPPERS:
-        w.launches = 0
+def _counters() -> dict:
+    """Each of ``launch_counts()``'s keys -> (wrapper, the attribute that
+    counts it)."""
+    counters = {w.__name__: (w, "launches") for w in WRAPPERS}
     for t in TIERS:
-        setattr(furthest_point_sample_cuda, f"{t}_launches", 0)
-    ball_query_cuda.ordered_launches = 0
+        counters[f"fps_{t}"] = (furthest_point_sample_cuda, f"{t}_launches")
+    counters["ball_query_ordered"] = (ball_query_cuda, "ordered_launches")
+    return counters
+
+
+def reset_launch_counts() -> None:
+    for w, attr in _counters().values():
+        setattr(w, attr, 0)
 
 
 def launch_counts() -> dict:
     """Every wrapper's count by its name, and the counts of the large-shape
     tiers: FPS in a 16-block cluster's registers, with shared-memory state,
     streamed; the ordered first-k (nsample above 256)."""
-    counts = {w.__name__: w.launches for w in WRAPPERS}
-    for t in TIERS:
-        counts[f"fps_{t}"] = getattr(furthest_point_sample_cuda,
-                                     f"{t}_launches")
-    counts["ball_query_ordered"] = ball_query_cuda.ordered_launches
-    return counts
+    return {k: getattr(w, attr) for k, (w, attr) in _counters().items()}
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (some of ``launch_counts()``'s keys) to the counts:
+    the launches that a CUDA graph replays, counted once at its capture."""
+    counters = _counters()
+    for k, n in delta.items():
+        w, attr = counters[k]
+        setattr(w, attr, getattr(w, attr) + n)
 
 
 __all__ = ["ball_query_cuda", "ball_query_pack_cuda",
            "furthest_point_sample_cuda", "group_points_cuda",
            "pack_probe_cuda", "shift_probe_cuda", "reset_launch_counts",
-           "launch_counts", "WRAPPERS"]
+           "launch_counts", "add_launch_counts", "WRAPPERS"]

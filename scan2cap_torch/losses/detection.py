@@ -12,7 +12,7 @@ loss is its share of the global loss.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,6 +24,22 @@ FAR_THRESHOLD = 0.6
 NEAR_THRESHOLD = 0.3
 GT_VOTE_FACTOR = 3
 OBJECTNESS_CLS_WEIGHTS = (0.2, 0.8)
+
+# SCANNET_MEAN_SIZE_ARR by (device, dtype), made at its first use: a
+# tensor made from the host each call would be a copy to the card and a
+# synchronisation, which no CUDA graph capture allows
+_MEAN_SIZES: Dict[tuple, torch.Tensor] = {}
+
+
+def _mean_sizes(like: torch.Tensor) -> torch.Tensor:
+    if torch.compiler.is_compiling():           # a tracer's tensors
+        return like.new_tensor(SCANNET_MEAN_SIZE_ARR)
+    key = (like.device, like.dtype)
+    if key not in _MEAN_SIZES:
+        # a plain tensor, also when made under inference_mode
+        with torch.inference_mode(False):
+            _MEAN_SIZES[key] = like.new_tensor(SCANNET_MEAN_SIZE_ARR)
+    return _MEAN_SIZES[key]
 
 
 def _ce_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -79,7 +95,10 @@ def compute_objectness_loss(data_dict: dict
     objectness_mask = (near | (euclid > FAR_THRESHOLD)).to(torch.float32)
 
     scores = data_dict["objectness_scores"]             # (B, K, 2)
-    w = scores.new_tensor(OBJECTNESS_CLS_WEIGHTS)[objectness_label.long()]
+    # the class weights as fills: a tensor of them made on the host would
+    # be a copy to the card each call
+    w = torch.where(near, OBJECTNESS_CLS_WEIGHTS[1],
+                    OBJECTNESS_CLS_WEIGHTS[0]).to(scores.dtype)
     ce = _ce_logits(scores, objectness_label) * w
     loss = (torch.sum(ce * objectness_mask)
             / (batch_sum(torch.sum(objectness_mask)) + 1e-6))
@@ -129,7 +148,7 @@ def compute_box_and_sem_cls_loss(data_dict: dict, num_heading_bin: int = 1,
         size_cls_label.long(), num_size_cluster).to(torch.float32)
     pred_size_res = torch.sum(
         data_dict["size_residuals_normalized"] * size_onehot[..., None], dim=2)
-    mean_sizes = pred_size_res.new_tensor(SCANNET_MEAN_SIZE_ARR)
+    mean_sizes = _mean_sizes(pred_size_res)
     mean_size_label = mean_sizes[size_cls_label.long()]  # (B, K, 3)
     size_res_label_norm = size_res_label / mean_size_label
     size_reg = torch.mean(

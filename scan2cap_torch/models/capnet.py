@@ -4,6 +4,14 @@
 backbone -> voting (+ L2 feature norm) -> proposal -> [graph] -> [caption].
 Module attribute names follow the Flax tree, so the state_dict keys are the
 Flax paths joined by dots (``backbone_net.sa1.mlp.dense_0.weight``).
+
+Each child's forward goes through the model's ``stage_graphs``
+(``models/stage_graph``): under ``inference_mode`` or ``no_grad`` on a
+card it replays as CUDA graph segments, inside the child's call.  Its
+outputs are then the graphs' buffers, which the next forward overwrites;
+``train.step.make_eval_step`` and ``scripts/export_model.Serve`` clone
+what they return.
+The vote features' L2 norm between ``vgen`` and ``proposal`` runs eager.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from scan2cap_torch.models.caption import (SceneCaptionModule,
 from scan2cap_torch.models.graph import GraphModule
 from scan2cap_torch.models.layers import seeded_init, widen
 from scan2cap_torch.models.proposal import ProposalModule
+from scan2cap_torch.models.stage_graph import STAGES, StageGraphs
 from scan2cap_torch.models.voting import VotingModule, l2_normalize_votes
 from scan2cap_torch.utils.profiling import annotate
 
@@ -63,6 +72,10 @@ class CapNet(nn.Module):
                 num_vocabs, emb_size=cfg.emb_size, feat_size=128,
                 max_des_len=cfg.max_des_len, min_iou=cfg.min_iou,
                 num_vocabs_padded=num_vocabs_padded)
+        self.stage_graphs = StageGraphs()
+        for name in STAGES:
+            if name in self._modules:
+                self.stage_graphs.install(name, self._modules[name])
         seeded_init(self, seed)
         self.device = dev           # the device the caller asked for
         self.to(dev)
@@ -71,6 +84,10 @@ class CapNet(nn.Module):
     def forward(self, data_dict: dict, use_tf: bool = False,
                 is_eval: bool = True, train: bool = False,
                 bn_momentum: float = 0.1) -> dict:
+        """The forward's every output.  Under ``inference_mode`` or
+        ``no_grad`` on a card these may be the stage graphs' buffers,
+        which the model's next forward overwrites: a caller that keeps
+        them past it takes ``stage_graph.kept(model, ...)`` of them."""
         cfg = self.cfg
         with annotate("scan2cap.backbone"):
             d = self.backbone_net(data_dict, train, bn_momentum)

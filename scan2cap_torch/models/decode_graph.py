@@ -46,6 +46,7 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch.autograd.function import once_differentiable
 
+from scan2cap_torch.ops import library
 from scan2cap_torch.utils.profiling import (DECODE_GRAPH_RECORD,
                                             DecodeGraphEntry, annotate)
 
@@ -95,10 +96,12 @@ def scene_eager_reason(inputs: Sequence[Optional[torch.Tensor]],
 
 
 def _warm_up(fn: Callable, inputs: Sequence[Optional[torch.Tensor]],
-             device: torch.device, backward=None) -> None:
+             device: torch.device, backward=None,
+             side: Optional[torch.cuda.Stream] = None) -> None:
     """``WARMUP_ITERS`` calls of ``fn`` (and ``backward`` of its outputs)
-    on a side stream, as PyTorch's own capture recipe warms up."""
-    side = torch.cuda.Stream(device)
+    on a side stream (``side``, else a new one), as PyTorch's own capture
+    recipe warms up."""
+    side = side or torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         for _ in range(WARMUP_ITERS):
@@ -231,10 +234,16 @@ class _ForwardCapture:
 
 
 class _Graphs:
-    """One decoder's captures, by key, and the record of every call."""
+    """Captures by key, and the record of every call: a decoder's, or a
+    model stage's (``models/stage_graph``)."""
+
+    SPAN = "scan2cap.decode"        # opened around a replay (None: none)
 
     def __init__(self):
         self._captures = {}
+
+    def _record(self, kind: str, reason: Optional[str]) -> None:
+        DECODE_GRAPH_RECORD.append(DecodeGraphEntry(kind, reason))
 
     def _dispatch(self, fn: Callable, inputs: Sequence, why: Optional[str],
                   key: Callable, make: Callable, replay: Callable):
@@ -254,10 +263,12 @@ class _Graphs:
                     capture = self._captures[k] = make()
                     kind = "capture"
         if capture is None:
-            DECODE_GRAPH_RECORD.append(DecodeGraphEntry("eager", why))
+            self._record("eager", why)
             return fn(*inputs)
-        DECODE_GRAPH_RECORD.append(DecodeGraphEntry(kind, None))
-        with annotate("scan2cap.decode"):
+        self._record(kind, None)
+        if self.SPAN is None:
+            return replay(capture)
+        with annotate(self.SPAN):
             return replay(capture)
 
 
@@ -285,7 +296,12 @@ class SceneDecodeGraphs(_Graphs):
     def __call__(self, fn: Callable, inputs: Sequence[Optional[torch.Tensor]],
                  params: Sequence[torch.Tensor], split: bool, steps: int):
         """``fn(*inputs)``, the eager scene decode of ``steps`` steps that
-        reads ``params``, or the replay of its capture."""
+        reads ``params``, or the replay of its capture.  While the caption
+        stage's graph segments are captured around it
+        (``models/stage_graph``), the call is a break between two of them,
+        and so is every replay of that stage: it dispatches here again."""
+        if library.cut is not None:
+            return library.cut(self, fn, inputs, params, split, steps)
         return self._dispatch(
             fn, inputs, scene_eager_reason(inputs, split),
             lambda: (steps, next(x for x in inputs if x is not None).device,

@@ -40,12 +40,11 @@ def mask_and_topk_locals(dist: torch.Tensor, invalid: torch.Tensor,
     """The locality rule (caption_module.py:322-363 == graph_module.py:182-222):
     invalid neighbours and overlapping boxes (IoU >= threshold) -> 1e30, the
     self slot -> 0 (include_self) or 1e30, then the ``num_locals`` smallest
-    distances, ties to the lower index."""
-    INF = torch.tensor(1e30, dtype=dist.dtype, device=dist.device)
-    dist = torch.where(invalid, INF, dist)
-    dist = torch.where(iou >= overlay_threshold, INF, dist)
-    dist = torch.where(self_mask, torch.zeros_like(dist) if include_self
-                       else INF, dist)
+    distances, ties to the lower index.  The fills are Python scalars: a
+    tensor made on the host would be a copy to the card each call."""
+    dist = torch.where(invalid, 1e30, dist)
+    dist = torch.where(iou >= overlay_threshold, 1e30, dist)
+    dist = torch.where(self_mask, 0.0 if include_self else 1e30, dist)
     order = torch.sort(dist, dim=-1, stable=True).indices
     return order[..., :num_locals]
 

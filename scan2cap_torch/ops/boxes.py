@@ -28,6 +28,13 @@ def roty_batch(angle: torch.Tensor) -> torch.Tensor:
     ], dim=-2)
 
 
+def _signed(half: torch.Tensor, signs) -> torch.Tensor:
+    """``half`` (..., 1) times each of ``signs`` (+1 or -1), (..., 8):
+    exact, and with no tensor of the signs copied to the card."""
+    neg = -half
+    return torch.cat([half if s > 0 else neg for s in signs], dim=-1)
+
+
 def get_3d_box_batch(box_size: torch.Tensor, heading_angle: torch.Tensor,
                      center: torch.Tensor) -> torch.Tensor:
     """Corners (box_util.py:360-382): box_size (..., 3), heading (...,),
@@ -35,9 +42,8 @@ def get_3d_box_batch(box_size: torch.Tensor, heading_angle: torch.Tensor,
     l = box_size[..., 0:1]
     w = box_size[..., 1:2]
     h = box_size[..., 2:3]
-    kw = dict(dtype=box_size.dtype, device=box_size.device)
-    sx, sy, sz = (torch.tensor(v, **kw) for v in (_SX, _SY, _SZ))
-    corners = torch.stack([l / 2 * sx, w / 2 * sy, h / 2 * sz], dim=-1)
+    corners = torch.stack([_signed(l / 2, _SX), _signed(w / 2, _SY),
+                           _signed(h / 2, _SZ)], dim=-1)
     R = roty_batch(heading_angle)
     corners = torch.einsum("...ij,...kj->...ki", R, corners)
     return corners + center[..., None, :]

@@ -31,7 +31,7 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     r = s.float()
     # s can only be off when it sits exactly between two float32 values:
     # then the sign of e says which way the exact sum rounds
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=r.device)
+    inf = r.new_full((), float("inf"))      # a fill: no copy to the card
     lo = torch.where(r.double() > s, torch.nextafter(r, -inf), r)
     hi = torch.nextafter(lo, inf)
     tie = (s == (lo.double() + hi.double()) * 0.5) & (e != 0)

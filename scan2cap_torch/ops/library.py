@@ -43,6 +43,16 @@ _LIB.define("ball_query(Tensor xyz, Tensor new_xyz, float radius, "
 _LIB.define("group_points(Tensor features, Tensor idx) -> Tensor")
 
 
+# While ``models.stage_graph`` captures a stage as CUDA graph segments,
+# its function that cuts the segment under capture at an FPS or
+# ball-query launch (None otherwise): the launch runs eager between two
+# segments, here and at every replay, so it stays a call of the wrappers
+# that ``ops.sampling`` and ``ops.grouping`` hold.  A module variable, as
+# a capture is one per process: the ops are registered at import, before
+# any capture exists.
+cut = None
+
+
 def _impl(name: str, key: str):
     def register(fn):
         _LIB.impl(name, fn, key)
@@ -61,6 +71,9 @@ def _fps_cpu(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
 
 @_impl("furthest_point_sample", "CUDA")
 def _fps_cuda(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+    if cut is not None:
+        return cut(torch.ops.scan2cap.furthest_point_sample.default, xyz,
+                   npoint)
     # no cast: the kernel takes float32 alone and refuses the rest
     return sampling.furthest_point_sample_cuda(xyz.contiguous(), npoint)
 
@@ -79,6 +92,9 @@ def _ball_query_cpu(xyz: torch.Tensor, new_xyz: torch.Tensor,
 @_impl("ball_query", "CUDA")
 def _ball_query_cuda(xyz: torch.Tensor, new_xyz: torch.Tensor,
                      radius: float, nsample: int) -> torch.Tensor:
+    if cut is not None:
+        return cut(torch.ops.scan2cap.ball_query.default, xyz, new_xyz,
+                   radius, nsample)
     return grouping.ball_query_cuda(xyz.contiguous(), new_xyz.contiguous(),
                                     grouping.radius_squared(radius), nsample)
 

@@ -176,12 +176,15 @@ def build_backbone(cfg, device, weights=None, spatial_axis: str = ""):
 
 
 def eval_forward(model):
-    """The eval forward's tokens, corners and index stages."""
+    """The eval forward's tokens, corners and index stages, each the
+    caller's to keep (``stage_graph.kept``)."""
+    from scan2cap_torch.models.stage_graph import kept
+
     def forward(batch):
         model.eval()
         with torch.inference_mode():
             out = model(batch, use_tf=False, is_eval=True, train=False)
-        return {k: out[k] for k in EVAL_KEYS if k in out}
+        return kept(model, {k: out[k] for k in EVAL_KEYS if k in out})
     forward.per_scene_outputs = EVAL_KEYS
     return forward
 

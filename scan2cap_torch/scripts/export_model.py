@@ -93,9 +93,12 @@ class Serve(torch.nn.Module):
                 "sem_cls_scores": out["sem_cls_scores"]}
 
     def forward(self, point_clouds: torch.Tensor) -> dict:
-        return self.outputs(self.model(self.batch(point_clouds),
-                                       use_tf=False, is_eval=True,
-                                       train=False))
+        from scan2cap_torch.models.stage_graph import kept
+        # on a card the forward's outputs may be its stage graphs'
+        # buffers, which its next call overwrites
+        return kept(self.model, self.outputs(self.model(
+            self.batch(point_clouds), use_tf=False, is_eval=True,
+            train=False)))
 
 
 def build_serve(folder: str, device, dataset: str = "ScanRefer"):

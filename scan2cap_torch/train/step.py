@@ -24,11 +24,15 @@ parameters step on their shards with their own Adam moments.
 with boxes and a caption per box: one eval forward of CapNet (free-running
 decode, BN running statistics) and, by default, the detection loss's
 proposal-to-GT assignment, reduced to the keys the JAX eval step keeps.
+On a card CapNet's stages and the detection loss replay as CUDA graph
+segments (``models/stage_graph``); what the step keeps of their buffers
+it clones, so a caller may keep its answers across steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -38,6 +42,7 @@ from scan2cap_torch.losses import get_scene_cap_loss
 from scan2cap_torch.losses.mask_votenet import get_mask_votenet_loss
 from scan2cap_torch.losses.pretrained import get_pretrained_loss
 from scan2cap_torch.losses.vote2cap import get_vote2cap_loss
+from scan2cap_torch.models import stage_graph
 from scan2cap_torch.parallel.mesh import sum_gradients, sum_metrics
 from scan2cap_torch.utils.profiling import annotate, program_step
 
@@ -235,11 +240,25 @@ def make_eval_step(cfg: ModelConfig, model: torch.nn.Module,
     the reference's eval path does (lib/eval_helper.py:170).  ``keep_attn``
     also keeps the top-down decoder's per-step attention: over the local
     slots, with their proposal ids (``topdown_attn_slots``), or from the
-    full-K decode (``num_locals=-1``) over all K proposals, (B, K, T, K)."""
+    full-K decode (``num_locals=-1``) over all K proposals, (B, K, T, K).
+
+    A CapNet's detection loss goes through its ``stage_graphs`` as the
+    stage "loss"; the kept tensors that are graph buffers are cloned."""
     if cfg != model.cfg:
         raise ValueError("cfg differs from the config the model was built with")
     _check_device(model)
     keep = KEEP_KEYS + (ATTN_KEYS if keep_attn else ())
+    graphs = getattr(model, "stage_graphs", None)
+    loss = functools.partial(get_scene_cap_loss, detection=True,
+                             caption=False,
+                             num_heading_bin=cfg.num_heading_bin,
+                             num_size_cluster=cfg.num_size_cluster)
+
+    def detection(out: Dict) -> Dict:
+        if graphs is None:
+            return loss(out)
+        return graphs("loss", loss, (out,),
+                      extra=(keep_attn, detection_loss))
 
     @program_step()
     def eval_step(batch: Dict) -> Dict:
@@ -248,11 +267,8 @@ def make_eval_step(cfg: ModelConfig, model: torch.nn.Module,
             out = model(batch, use_tf=False, is_eval=True, train=False)
             if detection_loss:
                 with annotate("scan2cap.loss"):
-                    out = get_scene_cap_loss(
-                        out, detection=True, caption=False,
-                        num_heading_bin=cfg.num_heading_bin,
-                        num_size_cluster=cfg.num_size_cluster)
-        return {k: out[k] for k in keep if k in out}
+                    out = detection(out)
+        return stage_graph.kept(model, {k: out[k] for k in keep if k in out})
 
     eval_step.per_scene_outputs = keep          # parallel.mesh.mesh_eval_fn
     return eval_step

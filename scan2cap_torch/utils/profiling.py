@@ -42,6 +42,10 @@
   ran (``capture``, ``replay`` or ``eager``) and why eager, written by
   ``models/decode_graph.DecodeGraphs`` and ``SceneDecodeGraphs`` on every
   call;
+* ``STAGE_GRAPH_RECORD``: the last ``RECORD_LEN`` calls of CapNet's five
+  stages and of the eval step's detection loss, each the stage, how it
+  ran (``capture``, ``replay`` or ``eager``) and why eager, written by
+  ``models/stage_graph.StageGraphs`` on every call;
 * ``MATCH_RECORD``: the last ``RECORD_LEN`` Hungarian matchings, each
   the host seconds of one step's matching (cost matrices, copy and
   assignments), traced or not (``ops/matching.py``);
@@ -125,6 +129,16 @@ class DecodeGraphEntry(NamedTuple):
 
 
 DECODE_GRAPH_RECORD: "collections.deque[DecodeGraphEntry]" = (
+    collections.deque(maxlen=RECORD_LEN))
+
+
+class StageGraphEntry(NamedTuple):
+    stage: str              # "backbone_net", "vgen", ..., "loss"
+    kind: str               # "capture", "replay" or "eager"
+    reason: Optional[str]   # why eager (None otherwise)
+
+
+STAGE_GRAPH_RECORD: "collections.deque[StageGraphEntry]" = (
     collections.deque(maxlen=RECORD_LEN))
 
 
